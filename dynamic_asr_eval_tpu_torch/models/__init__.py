@@ -1,0 +1,8 @@
+from dynamic_asr_eval_tpu_torch.models.conformer import (
+    ConformerConfig,
+    SCConformer,
+    init_conformer,
+)
+from dynamic_asr_eval_tpu_torch.models.convert import params_from_jax
+
+__all__ = ["ConformerConfig", "SCConformer", "init_conformer", "params_from_jax"]

@@ -1,0 +1,395 @@
+"""Self-conditioned conformer-CTC encoder (lcasr ``SCConformerXL`` form).
+
+Counterpart of the JAX package's ``models/conformer.py``.  The configuration
+keeps the JAX field names and values, and the parameters carry the lcasr
+torch names that the JAX package's ``models/convert.py`` maps, so one set of
+weights drives both.  Semantics followed line by line:
+
+- the input is masked by length; depthwise-striding subsampling with
+  torch-aligned (1, 1) padding, a length mask after each stride-2 stage
+  (``ceil(len / 2^(k+1))``), feature-major flatten (f·C + c) into ``out``;
+- macaron blocks: ½-FF → MHSA → conv module → ½-FF → ``norm_out``;
+- rotary embedding on half-split pairs, cos/sin in f32;
+- attention: ``attention_impl="pallas_flash"`` runs the Hopper kernel of
+  :mod:`..kernels.attention` (segment semantics); ``"xla"`` runs plain
+  PyTorch attention with a −1e30 key-mask bias;
+- conv module: pw1 → GLU → mask → depthwise K → mid LayerNorm → SiLU → pw2;
+- shared ``decoder_norm`` + ``decoder`` CTC head, fp32 log-softmax;
+  self-conditioning adds a re-embedding of ``exp(lp)`` after every block but
+  the last, then re-masks;
+- dtypes: fp32 parameters, ``compute_dtype`` activations (each dense layer
+  casts its input and weights to it), LayerNorm in f32 returned in the
+  input's dtype (eps 1e-5), the head in f32 unless ``head_in_compute_dtype``.
+
+Not ported yet (raise ``NotImplementedError``): ``subsampling_impl="pallas"``
+(the fused subsampling kernel, ROADMAP queue 2), relative-position
+attention, batch-renorm mid-norms, ``input_xscale``, ``subsampling_norm_out``,
+biases in the attention projections, dropout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dynamic_asr_eval_tpu_torch.kernels.attention import flash_attention
+
+LN_EPS = 1e-5
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def to_torch_dtype(x) -> torch.dtype:
+    """A torch dtype, a dtype name, or a framework dtype object whose name
+    contains one of bfloat16 / float32 / float16."""
+    if isinstance(x, torch.dtype):
+        return x
+    s = str(getattr(x, "__name__", x))
+    for name, dt in _DTYPES.items():
+        if name in s:
+            return dt
+    raise ValueError(f"unsupported compute dtype {x!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConformerConfig:
+    feat_in: int = 80
+    n_layers: int = 6
+    d_model: int = 768
+    n_heads: int = 6
+    head_dim: int = 128
+    vocab_size: int = 4095  # output dim = vocab_size + 1 (CTC blank, last id)
+    subsampling_factor: int = 8
+    subsampling: str = "dw_striding"
+    subsampling_act: str = "silu"
+    subsampling_conv_channels: int = 256
+    subsampling_norm_out: bool = False
+    conv_kernel_size: int = 9
+    expansion_factor: int = 4
+    self_conditioning: bool = True
+    decoder_norm: bool = True
+    use_rotary: bool = True
+    rotary_base_freq: float = 1_500_000.0
+    rotary_interpolation_factor: float = 1.0
+    position_encoding: Optional[str] = None  # "rotary" | "none" ("rel_pos" not ported)
+    input_xscale: bool = False
+    bias_in_attn: bool = False
+    default_norm: str = "layer_norm"
+    bias_in_ff: bool = False
+    checkpoint_every_n_layers: int = 0
+    dropout_ff: float = 0.0
+    dropout_attn: float = 0.0
+    dropout_conv: float = 0.0
+    compute_dtype: Any = torch.bfloat16
+    attention_impl: str = "xla"  # "xla" | "pallas_flash" (kernels.attention)
+    attention_logits_in_compute_dtype: bool = False
+    head_in_compute_dtype: bool = False
+    subsampling_impl: str = "conv"  # "conv" | "pallas" (not ported yet)
+    remat_subsampling: bool = False
+    seq_shard_axes: Optional[Any] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "compute_dtype", to_torch_dtype(self.compute_dtype))
+
+    @property
+    def pos_encoding(self) -> str:
+        if self.position_encoding is not None:
+            return self.position_encoding
+        return "rotary" if self.use_rotary else "none"
+
+    @property
+    def blank_id(self) -> int:
+        return self.vocab_size
+
+    @property
+    def n_classes(self) -> int:
+        return self.vocab_size + 1
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ConformerConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+def _check_supported(cfg: ConformerConfig) -> None:
+    if cfg.subsampling_impl == "pallas":
+        raise NotImplementedError(
+            "subsampling_impl='pallas' (the fused subsampling kernel) is not "
+            "ported yet: ROADMAP queue 2; use subsampling_impl='conv'")
+    unsupported = {
+        "subsampling": cfg.subsampling != "dw_striding",
+        "subsampling_impl": cfg.subsampling_impl != "conv",
+        "subsampling_norm_out": cfg.subsampling_norm_out,
+        "position_encoding": cfg.pos_encoding not in ("rotary", "none"),
+        "input_xscale": cfg.input_xscale,
+        "bias_in_attn": cfg.bias_in_attn,
+        "default_norm": cfg.default_norm != "layer_norm",
+        "dropout": bool(cfg.dropout_ff or cfg.dropout_attn or cfg.dropout_conv),
+        "seq_shard_axes": cfg.seq_shard_axes is not None,
+        "attention_impl": cfg.attention_impl not in ("xla", "pallas_flash"),
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"conformer options not ported yet: {bad} (ROADMAP queue 1)")
+
+
+def _act(name: str):
+    return {"silu": F.silu, "relu": F.relu, "gelu": F.gelu}[name]
+
+
+def lengths_to_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: input and weights cast to ``dtype``."""
+    return F.linear(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=x.dtype)``: statistics in f32, output in x's
+    dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, LN_EPS).to(x.dtype)
+
+
+def rotary_freqs(head_dim: int, base: float, T: int, interpolation: float, device):
+    inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    t = torch.arange(T, dtype=torch.float32, device=device) / interpolation
+    ang = torch.outer(t, inv)  # [T, head_dim/2]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, T, H, D]; rotate half-split pairs (x[..., i], x[..., i + D/2]),
+    in f32, returned in x's dtype."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2].float(), x[..., d // 2 :].float()
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def plain_attention(q, k, v, mask, compute_dtype, logits_in_compute_dtype: bool):
+    """The JAX package's "xla" attention: f32 logits (optionally cast to the
+    compute dtype), a −1e30 bias on padding keys, softmax, weighted sum."""
+    D = q.shape[-1]
+    scale = (1.0 / torch.tensor(math.sqrt(D)).to(compute_dtype)).to(compute_dtype).float()
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    if logits_in_compute_dtype:
+        logits = logits.to(compute_dtype)
+    bias = torch.where(mask[:, None, None, :], 0.0, -1e30).to(logits.dtype)
+    attn = torch.softmax(logits + bias, dim=-1).to(compute_dtype)
+    return torch.einsum("bhts,bshd->bthd", attn, v.to(compute_dtype))
+
+
+class DWStridingSubsampling(nn.Module):
+    def __init__(self, cfg: ConformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        n_stages = {2: 1, 4: 2, 8: 3}[cfg.subsampling_factor]
+        C = cfg.subsampling_conv_channels
+        self.conv_in = nn.Conv2d(1, C, 3, stride=2, padding=1)
+        self.dw_conv = nn.ModuleList(
+            nn.Conv2d(C, C, 3, stride=2, padding=1, groups=C) for _ in range(n_stages - 1))
+        self.pw_conv = nn.ModuleList(nn.Conv2d(C, C, 1) for _ in range(n_stages - 1))
+        f_ds = cfg.feat_in
+        for _ in range(n_stages):
+            f_ds = -(-f_ds // 2)
+        self.out = nn.Linear(f_ds * C, cfg.d_model)
+
+    def forward(self, x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+        """x [B, T, F] in the compute dtype → [B, ceil(T/factor), d_model]."""
+        cd = self.cfg.compute_dtype
+        act = _act(self.cfg.subsampling_act)
+
+        def conv(h, layer, stride, padding, groups=1):
+            return F.conv2d(h, layer.weight.to(cd), layer.bias.to(cd),
+                            stride=stride, padding=padding, groups=groups)
+
+        def stage_mask(h, k):  # h [B, C, T_k, F_k]
+            div = 2 ** (k + 1)
+            valid = (length + div - 1) // div
+            keep = torch.arange(h.shape[2], device=h.device)[None, :] < valid[:, None]
+            return torch.where(keep[:, None, :, None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+
+        h = stage_mask(act(conv(x[:, None], self.conv_in, 2, 1)), 0)
+        for i, (dw, pw) in enumerate(zip(self.dw_conv, self.pw_conv)):
+            h = conv(h, dw, 2, 1, groups=h.shape[1])
+            h = stage_mask(act(conv(h, pw, 1, 0)), i + 1)
+        B, C, T_ds, F_ds = h.shape
+        h = h.permute(0, 2, 3, 1).reshape(B, T_ds, F_ds * C)  # feature-major
+        return _dense(h, self.out.weight, self.out.bias, cd)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: ConformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.in_proj = nn.Linear(d, d * cfg.expansion_factor, bias=cfg.bias_in_ff)
+        self.out_proj = nn.Linear(d * cfg.expansion_factor, d, bias=cfg.bias_in_ff)
+
+    def forward(self, x):
+        cd = self.cfg.compute_dtype
+        h = _dense(_layer_norm(x, self.norm), self.in_proj.weight, self.in_proj.bias, cd)
+        return _dense(F.silu(h), self.out_proj.weight, self.out_proj.bias, cd)
+
+
+class MHSA(nn.Module):
+    def __init__(self, cfg: ConformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        HD = cfg.n_heads * cfg.head_dim
+        self.norm = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+        self.qkv = nn.Linear(cfg.d_model, 3 * HD, bias=False)
+        self.out = nn.Linear(HD, cfg.d_model)
+
+    def forward(self, x, mask, cos, sin):
+        cfg = self.cfg
+        cd = cfg.compute_dtype
+        H, D = cfg.n_heads, cfg.head_dim
+        B, T, _ = x.shape
+        qkv = _dense(_layer_norm(x, self.norm), self.qkv.weight, None, cd)
+        q, k, v = qkv.view(B, T, 3, H, D).unbind(2)  # strided [B, T, H, D] views
+        if cfg.pos_encoding == "rotary":
+            q = apply_rotary(q, cos, sin)
+            k = apply_rotary(k, cos, sin)
+        if cfg.attention_impl == "pallas_flash":
+            out = flash_attention(q, k, v, mask)
+        else:
+            out = plain_attention(q, k, v, mask, cd, cfg.attention_logits_in_compute_dtype)
+        return _dense(out.reshape(B, T, H * D), self.out.weight, self.out.bias, cd)
+
+
+class ConvModule(nn.Module):
+    def __init__(self, cfg: ConformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, K = cfg.d_model, cfg.conv_kernel_size
+        self.norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.pw1 = nn.Conv1d(d, 2 * d, 1)
+        self.dw = nn.Conv1d(d, d, K, groups=d)
+        self.norm_mid = nn.LayerNorm(d, eps=LN_EPS)
+        self.pw2 = nn.Conv1d(d, d, 1)
+
+    def forward(self, x, mask):
+        cd = self.cfg.compute_dtype
+        K = self.cfg.conv_kernel_size
+        h = _dense(_layer_norm(x, self.norm), self.pw1.weight[:, :, 0], self.pw1.bias, cd)
+        a, b = h.chunk(2, dim=-1)
+        h = a * torch.sigmoid(b)  # GLU
+        h = torch.where(mask[..., None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+        pad_l = (K - 1) // 2
+        hp = F.pad(h.transpose(1, 2), (pad_l, K - 1 - pad_l))  # [B, d, T + K - 1]
+        h = F.conv1d(hp, self.dw.weight.to(cd), self.dw.bias.to(cd), groups=h.shape[-1])
+        h = F.silu(_layer_norm(h.transpose(1, 2), self.norm_mid))
+        return _dense(h, self.pw2.weight[:, :, 0], self.pw2.bias, cd)
+
+
+class ConformerBlock(nn.Module):
+    def __init__(self, cfg: ConformerConfig):
+        super().__init__()
+        self.ff1 = FeedForward(cfg)
+        self.attn = MHSA(cfg)
+        self.conv = ConvModule(cfg)
+        self.ff2 = FeedForward(cfg)
+        self.norm_out = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+
+    def forward(self, x, mask, cos, sin):
+        x = x + 0.5 * self.ff1(x)
+        x = x + self.attn(x, mask, cos, sin)
+        x = x + self.conv(x, mask)
+        x = x + 0.5 * self.ff2(x)
+        return _layer_norm(x, self.norm_out)
+
+
+class SCConformer(nn.Module):
+    """``forward(audio_signal [B, feat_in, T], length [B]) -> {
+    'final_posteriors' [B, T_ds, vocab+1] f32 log-probs, 'length' [B]
+    downsampled lengths, 'a_hidden' [B, T_ds, d_model]}``."""
+
+    def __init__(self, config: ConformerConfig):
+        super().__init__()
+        _check_supported(config)
+        self.config = config
+        d = config.d_model
+        self.subsampling = DWStridingSubsampling(config)
+        self.layers = nn.ModuleList(ConformerBlock(config) for _ in range(config.n_layers))
+        self.decoder_norm = nn.LayerNorm(d, eps=LN_EPS) if config.decoder_norm else None
+        self.decoder = nn.Linear(d, config.n_classes)
+        self.self_condition_reembed = (
+            nn.Linear(config.n_classes, d, bias=False) if config.self_conditioning else None)
+
+    def _ctc_logits(self, h):
+        cfg = self.config
+        z = h.float()
+        if self.decoder_norm is not None:
+            z = _layer_norm(z, self.decoder_norm)
+        head_dtype = cfg.compute_dtype if cfg.head_in_compute_dtype else torch.float32
+        logits = _dense(z, self.decoder.weight, self.decoder.bias, head_dtype)
+        return torch.log_softmax(logits.float(), dim=-1)
+
+    def forward(self, audio_signal: torch.Tensor,
+                length: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        cd = cfg.compute_dtype
+        x = audio_signal.transpose(1, 2)  # [B, T, F]
+        B, T, _ = x.shape
+        if length is None:
+            length = torch.full((B,), T, dtype=torch.int64, device=x.device)
+        length = length.to(device=x.device, dtype=torch.int64)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        x = torch.where(lengths_to_mask(length, T)[..., None], x, zero).to(cd)
+
+        h = self.subsampling(x, length)
+        T_ds = h.shape[1]
+        f = cfg.subsampling_factor
+        ds_length = (length + f - 1) // f
+        mask = lengths_to_mask(ds_length, T_ds)
+        zero = torch.zeros((), dtype=h.dtype, device=h.device)
+        h = torch.where(mask[..., None], h, zero)
+        cos, sin = rotary_freqs(cfg.head_dim, cfg.rotary_base_freq, T_ds,
+                                cfg.rotary_interpolation_factor, h.device)
+
+        n = len(self.layers)
+        for i, block in enumerate(self.layers):
+            h = block(h, mask, cos, sin)
+            if self.self_condition_reembed is not None and i < n - 1:
+                lp = self._ctc_logits(h)
+                h = h + _dense(torch.exp(lp), self.self_condition_reembed.weight, None, cd)
+                h = torch.where(mask[..., None], h, zero)
+
+        return {
+            "final_posteriors": self._ctc_logits(h),
+            "length": ds_length,
+            "a_hidden": h,
+        }
+
+
+@torch.no_grad()
+def init_conformer(config: ConformerConfig, seed: int = 0,
+                   device: Optional[torch.device] = None) -> SCConformer:
+    """Random weights from ``seed`` (drawn on the CPU, so every device gets
+    the same numbers): lecun-normal kernels (std 1/√fan_in), zero biases,
+    unit LayerNorm scales."""
+    model = SCConformer(config)
+    g = torch.Generator().manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if isinstance(_owner(model, name), nn.LayerNorm):
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            fan_in = p[0].numel()
+            p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
+    return model.to(device) if device is not None else model
+
+
+def _owner(model: nn.Module, param_name: str) -> nn.Module:
+    return model.get_submodule(param_name.rsplit(".", 1)[0])

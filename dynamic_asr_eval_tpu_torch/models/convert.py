@@ -1,0 +1,123 @@
+"""Weights between the JAX package's flax ``params`` tree and the port.
+
+The port's ``SCConformer`` carries the lcasr torch parameter names, the names
+the JAX package's ``models/convert.py`` (``DEFAULT_RULES``) maps to its flax
+paths.  This module keeps its own copy of that table, in both directions:
+
+- :func:`params_from_jax` — flax ``params`` (nested dict of numpy arrays) →
+  the port's ``state_dict``; raises on any key it cannot place.
+- :func:`jax_path` — the flax path of an lcasr name (used by the freeze
+  policies, which the JAX package states on flax paths).
+
+Layouts: flax Dense kernels are [in, out] (torch Linear [out, in]); flax
+conv kernels are [kh, kw, in/groups, out] (torch [out, in/groups, kh, kw]);
+the conv-module 1-D convs are [k, in/groups, out] (torch [out, in/groups,
+k]); the conv-module pointwise convs are flax Dense kernels (torch [out, in,
+1]).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_FROM_FLAX: Dict[str, Callable[[np.ndarray], np.ndarray]] = {
+    "dense": lambda w: w.T,
+    "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
+    "conv1d": lambda w: np.transpose(w, (2, 1, 0)),
+    "conv1d_pw": lambda w: w.T[:, :, None],
+    "identity": lambda w: w,
+}
+
+# (lcasr name, flax path, layout); {n} is a layer or stage index, {m} a
+# submodule with a pre-norm
+_TABLE: List[Tuple[str, str, str]] = [
+    ("subsampling.conv_in.weight", "subsampling/conv_in_kernel", "conv2d"),
+    ("subsampling.conv_in.bias", "subsampling/conv_in_bias", "identity"),
+    ("subsampling.dw_conv.{n}.weight", "subsampling/dw_conv_{n}_kernel", "conv2d"),
+    ("subsampling.dw_conv.{n}.bias", "subsampling/dw_conv_{n}_bias", "identity"),
+    ("subsampling.pw_conv.{n}.weight", "subsampling/pw_conv_{n}/kernel", "conv2d"),
+    ("subsampling.pw_conv.{n}.bias", "subsampling/pw_conv_{n}/bias", "identity"),
+    ("subsampling.out.weight", "subsampling/out/kernel", "dense"),
+    ("subsampling.out.bias", "subsampling/out/bias", "identity"),
+    ("layers.{n}.ff1.in_proj.weight", "layer_{n}/ff1/in/kernel", "dense"),
+    ("layers.{n}.ff1.out_proj.weight", "layer_{n}/ff1/out/kernel", "dense"),
+    ("layers.{n}.ff2.in_proj.weight", "layer_{n}/ff2/in/kernel", "dense"),
+    ("layers.{n}.ff2.out_proj.weight", "layer_{n}/ff2/out/kernel", "dense"),
+    ("layers.{n}.attn.qkv.weight", "layer_{n}/attn/qkv/kernel", "dense"),
+    ("layers.{n}.attn.out.weight", "layer_{n}/attn/out/kernel", "dense"),
+    ("layers.{n}.attn.out.bias", "layer_{n}/attn/out/bias", "identity"),
+    ("layers.{n}.conv.pw1.weight", "layer_{n}/conv/pw1/kernel", "conv1d_pw"),
+    ("layers.{n}.conv.pw1.bias", "layer_{n}/conv/pw1/bias", "identity"),
+    ("layers.{n}.conv.dw.weight", "layer_{n}/conv/dw_kernel", "conv1d"),
+    ("layers.{n}.conv.dw.bias", "layer_{n}/conv/dw_bias", "identity"),
+    ("layers.{n}.conv.pw2.weight", "layer_{n}/conv/pw2/kernel", "conv1d_pw"),
+    ("layers.{n}.conv.pw2.bias", "layer_{n}/conv/pw2/bias", "identity"),
+    ("layers.{n}.{m}.norm.weight", "layer_{n}/{m}/LayerNorm_0/scale", "identity"),
+    ("layers.{n}.{m}.norm.bias", "layer_{n}/{m}/LayerNorm_0/bias", "identity"),
+    ("layers.{n}.conv.norm_mid.weight", "layer_{n}/conv/norm/LayerNorm_0/scale", "identity"),
+    ("layers.{n}.conv.norm_mid.bias", "layer_{n}/conv/norm/LayerNorm_0/bias", "identity"),
+    ("layers.{n}.norm_out.weight", "layer_{n}/norm_out/scale", "identity"),
+    ("layers.{n}.norm_out.bias", "layer_{n}/norm_out/bias", "identity"),
+    ("decoder_norm.weight", "decoder_norm/scale", "identity"),
+    ("decoder_norm.bias", "decoder_norm/bias", "identity"),
+    ("decoder.weight", "decoder/kernel", "dense"),
+    ("decoder.bias", "decoder/bias", "identity"),
+    ("self_condition_reembed.weight", "self_condition_reembed/kernel", "dense"),
+]
+
+_GROUPS = {"n": r"(?P<n>\d+)", "m": r"(?P<m>ff1|ff2|attn|conv)"}
+
+
+def _regex(template: str) -> "re.Pattern":
+    out = re.escape(template)
+    for k, g in _GROUPS.items():
+        out = out.replace(re.escape("{" + k + "}"), g)
+    return re.compile(out)
+
+
+_COMPILED = [(_regex(t), _regex(j), t, j, kind) for t, j, kind in _TABLE]
+
+
+def jax_path(name: str) -> str:
+    """Flax path ("layer_0/attn/qkv/kernel") of an lcasr name."""
+    for t_re, _, _, j, _ in _COMPILED:
+        m = t_re.fullmatch(name)
+        if m:
+            return j.format(**m.groupdict())
+    raise KeyError(f"no flax path for parameter {name!r}")
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``params`` tree (numpy leaves; a ``{'params':
+    ...}`` variables dict is accepted too) → the port's ``state_dict`` (f32
+    tensors on the CPU).  Raises on any flax path the table does not place."""
+    if set(params_np) == {"params"}:
+        params_np = params_np["params"]
+    state, unmatched = {}, []
+    for path, value in _flatten(params_np).items():
+        for _, j_re, t, _, kind in _COMPILED:
+            m = j_re.fullmatch(path)
+            if m:
+                arr = _FROM_FLAX[kind](np.asarray(value, np.float32))
+                state[t.format(**m.groupdict())] = torch.tensor(arr)
+                break
+        else:
+            unmatched.append(path)
+    if unmatched:
+        raise KeyError(f"flax params with no port counterpart: {unmatched}")
+    return state

@@ -1,0 +1,3 @@
+from dynamic_asr_eval_tpu_torch.tta.runner import DynamicEvalEngine, EngineOutput, chunked_inference
+
+__all__ = ["DynamicEvalEngine", "EngineOutput", "chunked_inference"]

@@ -1,0 +1,118 @@
+"""The port stands alone: it imports neither JAX nor anything of the JAX
+package (nor PyYAML on import), and its entry points run on ``cuda`` unless
+asked for ``cpu`` — without a GPU they raise instead of falling back."""
+
+import argparse
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import dynamic_asr_eval_tpu_torch
+from dynamic_asr_eval_tpu_torch.config import TTAConfig
+from dynamic_asr_eval_tpu_torch.device import resolve_device
+from dynamic_asr_eval_tpu_torch.evals import run
+from dynamic_asr_eval_tpu_torch.evals.common import load_model_and_tokenizer
+from dynamic_asr_eval_tpu_torch.models import ConformerConfig, SCConformer
+from dynamic_asr_eval_tpu_torch.tta import DynamicEvalEngine
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = pathlib.Path(dynamic_asr_eval_tpu_torch.__file__).parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import dynamic_asr_eval_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "yaml", "dynamic_asr_eval_tpu"))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_importing_every_module_pulls_in_no_jax_and_no_yaml():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.strip().split("\n") + [""] * (2 - len(proc.stdout.strip().split("\n")))
+    assert int(n_modules) >= 20
+    assert bad == "", f"the port pulled in {bad}"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dynamic_asr_eval_tpu)(\.|\s|$)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_no_source_line_imports_jax_or_the_jax_package(path):
+    """Lazy imports inside functions included."""
+    src = (REPO / path).read_text()
+    assert not _FORBIDDEN.search(src), _FORBIDDEN.search(src).group(0)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_loader_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model_and_tokenizer(argparse.Namespace(seed=0))
+
+
+def test_engine_without_device_raises_without_cuda(no_cuda):
+    cfg = ConformerConfig(feat_in=16, n_layers=1, d_model=32, n_heads=2, head_dim=16,
+                          vocab_size=10, subsampling_conv_channels=4, compute_dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DynamicEvalEngine(SCConformer(cfg), cfg.blank_id, 8, TTAConfig())
+
+
+def test_driver_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.cli(["-d", "synthetic", "--quiet"])
+
+
+@pytest.mark.parametrize("flag", ["--awmc", "--dp", "--dp_records"])
+def test_driver_rejects_what_is_not_ported(flag):
+    with pytest.raises(NotImplementedError):
+        run.cli(["-d", "synthetic", "--quiet", "--device", "cpu", flag])
+
+
+_RUN_SMOKE = """
+import runpy, sys, torch
+torch.cuda.is_available = lambda: {cuda}
+runpy.run_path(sys.argv[1], run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("where,cuda", [("checkout", False), ("alone", True)])
+def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(where, cuda, tmp_path):
+    """No card, or ``chip_smoke.py`` in a directory with nothing else of the
+    repository: a non-zero exit and no result line."""
+    script = REPO / "chip_smoke.py"
+    if where == "alone":
+        script = tmp_path / "chip_smoke.py"
+        shutil.copy(REPO / "chip_smoke.py", script)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", _RUN_SMOKE.format(cuda=cuda), str(script)],
+                          cwd=script.parent, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert ("CUDA is not available" if not cuda else "checkout of the repository") in proc.stderr
