@@ -5,28 +5,51 @@
 Phases (each raises on failure; the script then exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the hand-written CUDA kernels from the checkout (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the same inputs, at the
-   shapes the main path gives it (flagship [2, 2048, 6, 128] with lengths
-   [2048, 1600]; ragged T 1000 with lengths [1000, 777, 1000]), bf16 and f32,
-   TF32 off.  Tolerance: |kernel - plain| <= 1e-4 (f32) or 2e-2 (bf16) of
-   max |plain|, the plain version computed in f32;
-4. kernel, plain and library (SDPA with a boolean mask, a yardstick the port
-   never calls) times at the flagship shape, CUDA events after warm-up, and
-   the least time the card could take (bound);
+2. build the hand-written CUDA kernels from the checkout (one nvcc per
+   source, all started together, sm_90a) and print each kernel's registers
+   and spills;
+3. each kernel against its plain PyTorch version on the same inputs, TF32
+   off, the plain version computed in f32.  Tolerance: |kernel - plain| <=
+   1e-4 (f32) or 2e-2 (bf16) of max |plain|:
+   - flash attention at the flagship [2, 2048, 6, 128] with lengths
+     [2048, 1600] and ragged T 1000 with lengths [1000, 777, 1000], bf16 and
+     f32;
+   - fused subsampling, forward and backward (gx and all 10 weight
+     gradients), at the flagship window [2, 16384, 80] with C 256 and ragged
+     [3, 1001, 80], bf16 and f32; the backward runs twice and must repeat bit
+     for bit (no atomics);
+   - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
+     E from the same R) at the
+     ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
+     100 and at (1, 2048, 2048);
+4. kernel, plain and library times (CUDA events after warm-up) at the
+   flagship or benchmark shape, and the least time the card could take
+   (bound).  Library: SDPA with a boolean mask for attention; for the fused
+   subsampling, the cuDNN stack the ``"conv"`` path runs (four ``F.conv2d``
+   calls with their activations, forward, and backward through autograd);
+   none for soft-DTW.  The port never calls a library yardstick;
 5. the main path: the port's NSTI driver (``evals/run.py`` ``main``) on one
    30720-frame ``synthetic_spec`` recording (9 windows of seq 16384 /
    overlap 14336, the last ragged at 14336 frames) at the flagship widths
-   with ``attention_impl="pallas_flash"``, bf16, random weights from a seed;
-   the launch counters are zeroed just before and read just after;
+   with ``attention_impl="pallas_flash"`` and ``subsampling_impl="conv"``,
+   bf16, random weights from a seed; the launch counters are zeroed just
+   before and read just after;
 6. output checks on that run: the engine's stitched log-probs are finite
    with the expected shape and the weights moved; then, on a small input,
-   the full-depth model in f32 through the kernel agrees with the plain
-   attention path on valid frames (1e-3);
+   the full-depth model in f32 through the attention kernel agrees with the
+   plain attention path on valid frames (1e-3);
 7. where the time goes: the driver's engine, warm, on the same recording:
    engine wall of 3 runs, ms per window and RTFx at the fastest, then one
    run under torch.profiler for device busy time, idle share, device time
-   by kernel family and the top kernels (a ``{"profile": ...}`` line).
+   by kernel family and the top kernels (a ``{"profile": ...}`` line);
+5b-7b. the same for ``subsampling_impl="pallas"`` (the fused subsampling
+   kernel on the path); 6b also holds the full-depth f32 model with the
+   kernel against the same model on the plain subsampling version and
+   against the ``"conv"`` model, on lengths [4000, 3000] (multiples of 8,
+   where the two semantics agree), within 1e-3 on valid frames;
+8. soft-DTW's own path: ``benchmark(use_pallas=True)`` on the card, value
+   and gradient of ``SoftDTW`` through both kernels, its launch counters
+   zeroed just before and read just after.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  TF32 stays off throughout.
@@ -41,19 +64,27 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
+F32_FLOPS = 67e12  # outside the tensor cores
 N_FRAMES = 30720
 SEQ, OVERLAP = 16384, 14336
 N_WINDOWS = 9  # ops.chunk.chunk_starts_and_lengths(N_FRAMES, SEQ, OVERLAP)
 TIMED_RUNS = 3
 TOP_KERNELS = 15
+SUB_FLAGSHIP = (2, 16384, 80, 256)  # B, T, F, C of one adapted window
+SUB_RAGGED = (3, 1001, 80, 256)
+SDTW_BENCH = (4, 256, 256)  # kernels.softdtw.benchmark defaults, D 64, gamma 1
+SDTW_CASES = ((SDTW_BENCH, 0), ((2, 1500, 700), 100), ((1, 2048, 2048), 0))
 FAMILIES = (
     ("flash_attention", ("fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_delta_kernel")),
+    ("fused_subsample", ("::pw_kernel<", "::wgrad_kernel<", "::dw_bwd_kernel<", "::gx_kernel<",
+                         "namespace)::reduce_kernel(")),
     ("conv", ("conv", "cudnn", "fprop", "implicit", "wgrad", "dgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "ampere_", "cublas")),
     ("ctc", ("ctc",)),
@@ -86,6 +117,42 @@ def flagship_config(**overrides):
     return ConformerConfig(**kw)
 
 
+def cuda_ms(fn, iters=20, warmup=3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops, nbytes, peak_flops):
+    """(least ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_close(what, pairs, tol):
+    """pairs of (name, kernel output, plain output in f32) → {name: max |err|}."""
+    errs = {}
+    for name, a, b in pairs:
+        err = (a.float() - b).abs().max().item()
+        scale = b.abs().max().item()
+        if not err <= tol * scale:
+            raise AssertionError(f"{what} {name}: |err| {err:.3e} > {tol} x {scale:.3e}")
+        errs[name] = err
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
 def attention_inputs(B, T, H, D, lengths, dtype, seed=0):
     """q, k contiguous and v a strided view of one qkv tensor, as the model
     hands them to the kernel."""
@@ -105,34 +172,15 @@ def check_attention(A, B, T, H, D, lengths, dtype):
     ref_grads = A.attention_reference_bwd(q.float(), k.float(), v.float(), mask,
                                           ref_out, ref_lse, dout.float())
     torch.cuda.synchronize()
-    errs = {}
-    for name, a, b in zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads),
-                          (ref_out,) + tuple(ref_grads)):
-        err = (a.float() - b).abs().max().item()
-        scale = b.abs().max().item()
-        if not err <= FWD_TOL[dtype] * scale:
-            raise AssertionError(f"{name} {dtype} T={T}: |err| {err:.3e} > "
-                                 f"{FWD_TOL[dtype]} x {scale:.3e}")
-        errs[name] = err
+    errs = check_close(f"attention {dtype} T={T}",
+                       zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads),
+                           (ref_out,) + tuple(ref_grads)), FWD_TOL[dtype])
     lse_err = (lse - ref_lse).abs().max().item()
     if not lse_err <= 1e-3:
         raise AssertionError(f"lse {dtype} T={T}: |err| {lse_err:.3e}")
-    log(f"  {str(dtype):15s} B={B} T={T} lengths={lengths}: "
+    log(f"  attention {str(dtype):15s} B={B} T={T} lengths={lengths}: "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f", lse {lse_err:.2e}")
     return errs
-
-
-def cuda_ms(fn, iters=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def time_attention(A, B, T, H, D, lengths, dtype):
@@ -160,15 +208,166 @@ def time_attention(A, B, T, H, D, lengths, dtype):
     esize = torch.finfo(dtype).bits // 8
     tensor_bytes = B * T * H * D * esize
     lse_bytes = B * H * T * 4
-    work = {
-        "fwd": (4 * D * pairs, 4 * tensor_bytes + lse_bytes + B * T * 4),
-        "bwd": (10 * D * pairs, 8 * tensor_bytes + lse_bytes + B * T * 4),
+    bounds = {
+        "fwd": bound(4 * D * pairs, 4 * tensor_bytes + lse_bytes + B * T * 4, PEAK_FLOPS[dtype]),
+        "bwd": bound(10 * D * pairs, 8 * tensor_bytes + lse_bytes + B * T * 4, PEAK_FLOPS[dtype]),
     }
-    bounds = {}
-    for kind, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-        bounds[kind] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
     return t, bounds
+
+
+# ---------------------------------------------------------------------------
+# fused subsampling
+# ---------------------------------------------------------------------------
+
+
+def subsample_inputs(S, B, T, F, C, dtype, seed=0):
+    """x [B, T, F], the 10 f32 weights in the JAX layouts, g at the output."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, T, F, generator=g, device="cuda").to(dtype)
+    shapes = {"k9": (9, C), "dw1": (9, C), "dw2": (9, C), "pw1": (C, C), "pw2": (C, C)}
+    ws = []
+    for name in S.WEIGHT_NAMES:
+        scale = 1 / 3 if name in ("k9", "dw1", "dw2") else (C ** -0.5 if name.startswith("pw") else 0.1)
+        ws.append(torch.randn(shapes.get(name, (C,)), generator=g, device="cuda") * scale)
+    gout = torch.randn(B, S.ceil_chain(T)[2], F // 8, C, generator=g, device="cuda").to(dtype)
+    return x, ws, gout
+
+
+def check_subsample(S, shape, dtype):
+    x, ws, gout = subsample_inputs(S, *shape, dtype)
+    out = S.fused_subsample_fwd(x, ws)
+    gx, gws = S.fused_subsample_bwd(x, ws, gout)
+    gx2, gws2 = S.fused_subsample_bwd(x, ws, gout)
+    ref = S.fused_subsample_reference(x.float(), *ws)
+    ref_gx, ref_gws = S.fused_subsample_reference_bwd(x.float(), ws, gout.float(), "silu", True)
+    torch.cuda.synchronize()
+    if not (torch.equal(gx, gx2) and all(torch.equal(a, b) for a, b in zip(gws, gws2))):
+        raise AssertionError(f"fused subsampling backward {shape} {dtype} does not repeat bit for bit")
+    errs = check_close(f"fused subsampling {dtype} {shape}",
+                       zip(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + gws,
+                           [ref, ref_gx] + ref_gws), FWD_TOL[dtype])
+    log(f"  fused subsampling {str(dtype):15s} {shape}: out {errs['out']:.2e}, gx {errs['gx']:.2e}, "
+        f"weights {max(errs[n] for n in S.WEIGHT_NAMES):.2e}; backward repeats bit for bit")
+    return errs
+
+
+def conv_weights(S, ws, dtype):
+    """The fused kernel's weights as the ``"conv"`` path's conv2d weights."""
+    k9, b0, dw1, bdw1, pw1, bpw1, dw2, bdw2, pw2, bpw2 = ws
+    C = k9.shape[1]
+    out = [k9.t().reshape(C, 1, 3, 3), b0]
+    for dw, bdw, pw, bpw in ((dw1, bdw1, pw1, bpw1), (dw2, bdw2, pw2, bpw2)):
+        out += [dw.t().reshape(C, 1, 3, 3), bdw, pw.t()[:, :, None, None], bpw]
+    return [w.to(dtype).detach().requires_grad_(True) for w in out]
+
+
+def conv_stack(x, w):
+    """The cuDNN stack of the ``"conv"`` path, without its masks: x [B, T, F]
+    → [B, C, T/8, F/8]."""
+    import torch.nn.functional as F
+
+    C = w[0].shape[0]
+    h = F.silu(F.conv2d(x[:, None], w[0], w[1], stride=2, padding=1))
+    for i in (2, 6):
+        h = F.conv2d(h, w[i], w[i + 1], stride=2, padding=1, groups=C)
+        h = F.silu(F.conv2d(h, w[i + 2], w[i + 3]))
+    return h
+
+
+def subsample_work(B, T, F, C, dtype):
+    """(flops, bytes) of the forward and of the backward on the main path
+    (no gx): stage 0, both depthwise convs and both pointwise products; the
+    backward recomputes the forward and adds the input and weight gradients
+    of each."""
+    from dynamic_asr_eval_tpu_torch.kernels.subsample import ceil_chain
+
+    T0, T1, T2 = ceil_chain(T)
+    M0, M1, M2 = B * T0 * F // 2, B * T1 * F // 4, B * T2 * F // 8
+    stage0, dw, pw = 18 * M0 * C, 18 * (M1 + M2) * C, 2 * (M1 + M2) * C * C
+    esize = torch.finfo(dtype).bits // 8
+    weights = (32 * C + 2 * C * C) * 4
+    x_bytes, out_bytes = B * T * F * esize, M2 * C * esize
+    fwd = stage0 + dw + pw
+    return {"fwd": (fwd, x_bytes + out_bytes + weights),
+            "bwd": (fwd + 2 * pw + 2 * dw + stage0, x_bytes + out_bytes + 2 * weights)}
+
+
+def time_subsample(S, dtype=torch.bfloat16):
+    x, ws, gout = subsample_inputs(S, *SUB_FLAGSHIP, dtype, seed=1)
+    lw = conv_weights(S, ws, dtype)
+    lib_out = conv_stack(x, lw)
+    g_nchw = gout.permute(0, 3, 1, 2).contiguous()
+    t = {
+        "fwd": cuda_ms(lambda: S.fused_subsample_fwd(x, ws)),
+        "bwd": cuda_ms(lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=False)),
+        "fwd_plain": cuda_ms(lambda: S.fused_subsample_reference(x, *ws), iters=5),
+        "bwd_plain": cuda_ms(lambda: S.fused_subsample_reference_bwd(x, ws, gout, "silu", False), iters=5),
+        "fwd_library": cuda_ms(lambda: conv_stack(x, lw)),
+        "bwd_library": cuda_ms(lambda: torch.autograd.grad(lib_out, lw, g_nchw, retain_graph=True)),
+        "fwd_bwd_library": cuda_ms(lambda: torch.autograd.grad(conv_stack(x, lw), lw, g_nchw)),
+    }
+    bounds = {k: bound(f, b, PEAK_FLOPS[dtype])
+              for k, (f, b) in subsample_work(*SUB_FLAGSHIP, dtype).items()}
+    return t, bounds
+
+
+# ---------------------------------------------------------------------------
+# soft-DTW
+# ---------------------------------------------------------------------------
+
+
+def softdtw_inputs(D, shape, bandwidth, seed=0):
+    """Squared distances of standard-normal 64-dim features, band applied."""
+    B, N, M = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, N, 64, generator=g, device="cuda")
+    y = torch.randn(B, M, 64, generator=g, device="cuda")
+    return D._apply_band(D.pairwise_sq_dist(x, y), bandwidth)
+
+
+def check_softdtw(D, shape, bandwidth, gamma=1.0):
+    Db = softdtw_inputs(D, shape, bandwidth)
+    R = D.softdtw_R(Db, gamma)
+    E = D.softdtw_E(Db, R, gamma)
+    ref_R = D.forward_R_reference(Db, gamma)
+    ref_E = D.backward_E_reference(Db, R, gamma)  # E's inputs: the same D and R
+    torch.cuda.synchronize()
+    r_err = ((R - ref_R).abs() / ref_R.abs().clamp_min(1.0)).max().item()
+    e_err = (E - ref_E).abs().max().item()
+    e_scale = ref_E.abs().max().item()
+    if not (r_err <= 1e-4 and torch.isfinite(E).all() and e_err <= 1e-4 * e_scale):
+        raise AssertionError(f"soft-DTW {shape} bandwidth {bandwidth}: R rel err {r_err:.3e}, "
+                             f"E err {e_err:.3e} of max {e_scale:.3e}")
+    log(f"  soft-DTW {shape} bandwidth {bandwidth}: R rel {r_err:.2e}, E {e_err:.2e} "
+        f"(max |E| {e_scale:.3e}, loss {R[0, shape[1], shape[2]].item():.6g})")
+    return {"R": r_err * max(1.0, ref_R.abs().max().item()), "E": e_err}
+
+
+def softdtw_work(B, N, M):
+    """(ops, bytes): ~15 f32 operations a cell forward (3 divisions, 3 exp,
+    a log, max, adds), ~17 backward; D read and R written once forward; D
+    and R read and E written once backward."""
+    cells, padded = B * N * M, B * (N + 2) * (M + 2)
+    return {"fwd": (15 * cells, 4 * (cells + padded)),
+            "bwd": (17 * cells, 4 * (2 * cells + padded))}
+
+
+def time_softdtw(D, gamma=1.0):
+    Db = softdtw_inputs(D, SDTW_BENCH, 0, seed=1)
+    R = D.softdtw_R(Db, gamma)
+    t = {
+        "fwd": cuda_ms(lambda: D.softdtw_R(Db, gamma)),
+        "bwd": cuda_ms(lambda: D.softdtw_E(Db, R, gamma)),
+        "fwd_plain": cuda_ms(lambda: D.forward_R_reference(Db, gamma), iters=3, warmup=1),
+        "bwd_plain": cuda_ms(lambda: D.backward_E_reference(Db, R, gamma), iters=3, warmup=1),
+    }
+    bounds = {k: bound(f, b, F32_FLOPS) for k, (f, b) in softdtw_work(*SDTW_BENCH).items()}
+    return t, bounds
+
+
+# ---------------------------------------------------------------------------
+# the main path
+# ---------------------------------------------------------------------------
 
 
 class EngineRecorder:
@@ -194,13 +393,14 @@ class EngineRecorder:
         return out
 
 
-def main_path(A):
+def main_path(cfg, kernel_modules):
+    """The driver on the flagship recording; returns (wer, wall, {module:
+    (fwd, bwd) launches}, result detail, recorder)."""
     import pickle
 
     from dynamic_asr_eval_tpu_torch.evals import run
 
     os.environ["DAE_SYNTH_SPEC_FRAMES"] = str(N_FRAMES)
-    cfg = flagship_config()
     recorder = EngineRecorder()
     build_engine = run.build_engine
     with tempfile.TemporaryDirectory() as tmp:
@@ -211,25 +411,35 @@ def main_path(A):
             "spec_augment_freq_mask_param=34", "seed=0"])
         run.build_engine = recorder.wrap(build_engine)
         try:
-            A.reset_counters()
+            for mod in kernel_modules.values():
+                mod.reset_counters()
             t0 = time.time()
             wer = run.main(args, model_config=cfg)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            launches = (A.fwd_launches, A.bwd_launches)
+            launches = {k: (m.fwd_launches, m.bwd_launches) for k, m in kernel_modules.items()}
         finally:
             run.build_engine = build_engine
         with open(os.path.join(tmp, "r_1.pkl"), "rb") as f:
             detail = pickle.load(f)
-    return cfg, wer, wall, launches, detail, recorder
+    return wer, wall, launches, detail, recorder
 
 
-def check_outputs(cfg, recorder):
+def check_launches(launches, expect):
+    """expect: {module: per-window (fwd, bwd)}; forward >= and backward ==
+    that count times the windows."""
+    for name, (fwd_per, bwd_per) in expect.items():
+        fwd, bwd = launches[name]
+        if not (fwd >= fwd_per * N_WINDOWS and bwd == bwd_per * N_WINDOWS):
+            raise AssertionError(f"{name} launches fwd {fwd}, bwd {bwd}; expected >= "
+                                 f"{fwd_per * N_WINDOWS} and == {bwd_per * N_WINDOWS}")
+
+
+def check_driver_output(cfg, wer, detail, recorder):
     """The driver's own run: stitched log-probs finite with the expected
-    shape, weights that moved.  Then the full-depth model in f32 on a small
-    input: kernel path against the plain attention path."""
-    from dynamic_asr_eval_tpu_torch.models import SCConformer
-
+    shape, weights that moved."""
+    if len(detail["model_output"]) != 1 or not math.isfinite(wer):
+        raise AssertionError(f"driver result malformed: wer {wer}, {detail.get('model_output')}")
     if len(recorder.outputs) != 1:
         raise AssertionError(f"the driver made {len(recorder.outputs)} engine calls, not 1")
     (out,), ((params, _),) = recorder.outputs, recorder.calls
@@ -243,25 +453,67 @@ def check_outputs(cfg, recorder):
     if not moved > 0:
         raise AssertionError("adaptation did not move the weights")
     log(f"  driver's engine run: stitched {lp.shape}, finite; max weight change {moved:.3e}")
+    return params
 
-    f32 = flagship_config(compute_dtype=torch.float32)
-    plain = flagship_config(compute_dtype=torch.float32, attention_impl="xla")
-    m_kernel = SCConformer(f32).cuda()
-    m_kernel.load_state_dict({k: v.float() for k, v in params.items()})
-    m_plain = SCConformer(plain).cuda()
-    m_plain.load_state_dict(m_kernel.state_dict())
+
+def valid_frame_err(a, b):
+    err = 0.0
+    for i, n in enumerate(a["length"].tolist()):
+        err = max(err, (a["final_posteriors"][i, :n] - b["final_posteriors"][i, :n]).abs().max().item())
+    return err
+
+
+def f32_model(params, **overrides):
+    from dynamic_asr_eval_tpu_torch.models import SCConformer
+
+    model = SCConformer(flagship_config(compute_dtype=torch.float32, **overrides)).cuda()
+    model.load_state_dict({k: v.float() for k, v in params.items()})
+    return model
+
+
+def check_attention_model(params):
+    """The full-depth model in f32 on a small input: kernel path against the
+    plain attention path."""
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(2, 80, 4000, generator=g, device="cuda")
     lengths = torch.tensor([4000, 3001], device="cuda")
     with torch.no_grad():
-        a = m_kernel(x, lengths)
-        b = m_plain(x, lengths)
-    err = 0.0
-    for i, n in enumerate(a["length"].tolist()):
-        err = max(err, (a["final_posteriors"][i, :n] - b["final_posteriors"][i, :n]).abs().max().item())
+        a = f32_model(params)(x, lengths)
+        b = f32_model(params, attention_impl="xla")(x, lengths)
+    err = valid_frame_err(a, b)
     if not err <= 1e-3:
         raise AssertionError(f"kernel-path model vs plain path: |err| {err:.3e} > 1e-3")
     log(f"  full-depth f32 model, kernel vs plain attention on valid frames: {err:.2e}")
+
+
+def check_subsample_model(params, S):
+    """The full-depth f32 model with ``"pallas"`` subsampling: through the
+    kernel, against the same model on the plain subsampling version, and
+    against the ``"conv"`` model, at lengths that are multiples of 8."""
+    import dynamic_asr_eval_tpu_torch.models.conformer as conformer
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(2, 80, 4000, generator=g, device="cuda")
+    lengths = torch.tensor([4000, 3000], device="cuda")
+    model = f32_model(params, subsampling_impl="pallas")
+    with torch.no_grad():
+        S.reset_counters()
+        a = model(x, lengths)
+        if S.fwd_launches != 1:
+            raise AssertionError(f"the pallas model launched the kernel {S.fwd_launches} times")
+        kernel_entry = conformer.fused_subsample
+        conformer.fused_subsample = S.fused_subsample_reference
+        try:
+            b = model(x, lengths)
+        finally:
+            conformer.fused_subsample = kernel_entry
+        c = f32_model(params)(x, lengths)
+    err_plain, err_conv = valid_frame_err(a, b), valid_frame_err(a, c)
+    if not (err_plain <= 1e-3 and err_conv <= 1e-3):
+        raise AssertionError(f"pallas model: vs plain subsampling {err_plain:.3e}, "
+                             f"vs conv model {err_conv:.3e} (> 1e-3)")
+    log(f"  full-depth f32 model, subsampling kernel vs plain version {err_plain:.2e}, "
+        f"vs the conv model {err_conv:.2e} on valid frames")
 
 
 def family(name: str) -> str:
@@ -271,7 +523,7 @@ def family(name: str) -> str:
     return "other"
 
 
-def profile_engine(recorder, card):
+def profile_engine(recorder, card, path):
     """Where the time of one recording goes: the driver's engine, warm, on
     the same recording and weights, timed TIMED_RUNS times, then once under
     torch.profiler.  Device busy time is the sum of kernel times (ranges
@@ -303,7 +555,7 @@ def profile_engine(recorder, card):
         if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[evt.key] += dev_us / 1e3
     busy_ms = sum(by_kernel.values())
-    result = {"card": card, "frames": N_FRAMES, "windows": N_WINDOWS,
+    result = {"path": path, "card": card, "frames": N_FRAMES, "windows": N_WINDOWS,
               "engine_walls_ms": walls_ms, "ms_per_window": wall_ms / N_WINDOWS,
               "rtfx": N_FRAMES / 100.0 / (wall_ms / 1e3)}  # 10 ms hop
     if busy_ms <= 0:
@@ -325,6 +577,21 @@ def profile_engine(recorder, card):
     print(json.dumps({"profile": result}))
 
 
+def drive(label, cfg, kernel_modules, expect, card, check_model):
+    log(f"[5{label}] main path: evals.run.main, NSTI on a {N_FRAMES}-frame recording, flagship, "
+        f"bf16, subsampling_impl={cfg.subsampling_impl!r}")
+    wer, wall, launches, detail, recorder = main_path(cfg, kernel_modules)
+    check_launches(launches, expect)
+    log(f"  WER {wer}; launches {launches}; driver wall {wall:.3f} s "
+        f"(record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up)")
+    log(f"[6{label}] output checks")
+    params = check_driver_output(cfg, wer, detail, recorder)
+    check_model(params)
+    log(f"[7{label}] where the time goes: the driver's engine, warm, on {card}")
+    profile_engine(recorder, card, f"subsampling_{cfg.subsampling_impl}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -335,6 +602,8 @@ def main() -> int:
         return 2
     from dynamic_asr_eval_tpu_torch.device import set_parity_precision
     from dynamic_asr_eval_tpu_torch.kernels import attention as A
+    from dynamic_asr_eval_tpu_torch.kernels import softdtw as D
+    from dynamic_asr_eval_tpu_torch.kernels import subsample as S
 
     set_parity_precision()
     card = card_line()
@@ -343,62 +612,104 @@ def main() -> int:
         "TF32 off for matmuls and cuDNN in every phase")
 
     t0 = time.time()
-    A.build()
-    A._load()
-    log(f"[2] kernels built in {time.time() - t0:.2f} s (nvcc {A.build_seconds})")
-    for line in A.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  {line.strip()}")
+    with ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(m.LIBRARY.load) for m in (A, S, D)]:
+            fut.result()
+    log(f"[2] kernels built in {time.time() - t0:.2f} s")
+    for mod in (A, S, D):
+        lib = mod.LIBRARY
+        log(f"  {lib.source.name}: nvcc {lib.build_seconds} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"    {line.strip()}")
 
     log("[3] kernels against their plain versions")
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        errs[("flag", dtype)] = check_attention(A, 2, 2048, 6, 128, [2048, 1600], dtype)
-        errs[("rag", dtype)] = check_attention(A, 3, 1000, 6, 128, [1000, 777, 1000], dtype)
+        errs[("attn", dtype)] = check_attention(A, 2, 2048, 6, 128, [2048, 1600], dtype)
+        check_attention(A, 3, 1000, 6, 128, [1000, 777, 1000], dtype)
+    for dtype in (torch.bfloat16, torch.float32):
+        errs[("sub", dtype)] = check_subsample(S, SUB_FLAGSHIP, dtype)
+        check_subsample(S, SUB_RAGGED, dtype)
+    for shape, bandwidth in SDTW_CASES:
+        e = check_softdtw(D, shape, bandwidth)
+        if shape == SDTW_BENCH:
+            errs["sdtw"] = e
 
-    log("[4] timing at the flagship shape, bf16")
-    times, bounds = time_attention(A, 2, 2048, 6, 128, [2048, 1600], torch.bfloat16)
-    for k, v in times.items():
-        log(f"  {k}: {v:.4f} ms")
-    for k, (ms, by) in bounds.items():
-        log(f"  bound {k}: {ms * 1e3:.2f} us ({by})")
+    log("[4] timing at the flagship (attention, subsampling: bf16) and benchmark "
+        "(soft-DTW: f32) shapes")
+    times = {}
+    for name, (t, bnd) in (
+            ("flash_attention", time_attention(A, 2, 2048, 6, 128, [2048, 1600], torch.bfloat16)),
+            ("fused_subsample", time_subsample(S)),
+            ("softdtw", time_softdtw(D))):
+        times[name] = (t, bnd)
+        for k, v in t.items():
+            log(f"  {name} {k}: {v:.4f} ms")
+        for k, (ms, by) in bnd.items():
+            log(f"  {name} bound {k}: {ms * 1e3:.2f} us ({by})")
 
-    log("[5] main path: evals.run.main, NSTI on a 30720-frame recording, flagship, bf16")
-    cfg, wer, wall, (fwd, bwd), detail, recorder = main_path(A)
-    n_layers = cfg.n_layers
-    if not (fwd >= n_layers * N_WINDOWS and bwd == n_layers * N_WINDOWS):
-        raise AssertionError(f"launches fwd {fwd}, bwd {bwd}; expected >= "
-                             f"{n_layers * N_WINDOWS} and == {n_layers * N_WINDOWS}")
-    if len(detail["model_output"]) != 1 or not math.isfinite(wer):
-        raise AssertionError(f"driver result malformed: wer {wer}, {detail.get('model_output')}")
-    log(f"  WER {wer}; launches fwd {fwd}, bwd {bwd}; driver wall {wall:.3f} s "
-        f"(record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up)")
+    attn_per_window = (flagship_config().n_layers, flagship_config().n_layers)
+    conv_launches = drive("", flagship_config(), {"attention": A}, {"attention": attn_per_window},
+                          card, check_attention_model)
+    pallas_launches = drive("b", flagship_config(subsampling_impl="pallas"),
+                            {"attention": A, "subsample": S},
+                            {"attention": attn_per_window, "subsample": (1, 1)}, card,
+                            lambda params: check_subsample_model(params, S))
 
-    log("[6] output checks")
-    check_outputs(cfg, recorder)
+    log("[8] soft-DTW's own path: kernels.softdtw.benchmark(use_pallas=True)")
+    D.reset_counters()
+    bench = D.benchmark(use_pallas=True)
+    sdtw_launches = (D.fwd_launches, D.bwd_launches)
+    if not (sdtw_launches[0] > 0 and sdtw_launches[1] > 0 and math.isfinite(bench["loss"])):
+        raise AssertionError(f"soft-DTW benchmark: {bench}, launches {sdtw_launches}")
+    plain = D.benchmark(use_pallas=False)
+    if not math.isclose(bench["loss"], plain["loss"], rel_tol=1e-4):
+        raise AssertionError(f"soft-DTW benchmark loss {bench['loss']} != plain {plain['loss']}")
+    log(f"  kernels: {bench['seconds_per_iter'] * 1e3:.3f} ms per iteration, loss {bench['loss']:.6g}, "
+        f"launches fwd {sdtw_launches[0]}, bwd {sdtw_launches[1]}; plain version "
+        f"{plain['seconds_per_iter'] * 1e3:.3f} ms per iteration")
 
-    log(f"[7] where the time goes: the driver's engine, warm, on {card}")
-    profile_engine(recorder, card)
-
-    src = "dynamic_asr_eval_tpu_torch/kernels/csrc/flash_attention.cu"
+    sources = {"flash_attention": "flash_attention.cu", "fused_subsample": "fused_subsample.cu",
+               "softdtw": "softdtw.cu"}
+    replaces = {
+        ("flash_attention", "fwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
+        ("flash_attention", "bwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
+        ("fused_subsample", "fwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:278",
+        ("fused_subsample", "bwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:438",
+        ("softdtw", "fwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:129",
+        ("softdtw", "bwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:92",
+    }
+    launches = {"flash_attention": conv_launches["attention"],
+                "fused_subsample": pallas_launches["subsample"], "softdtw": sdtw_launches}
+    err_keys = {
+        ("flash_attention", "fwd"): (errs[("attn", torch.bfloat16)], ("out",)),
+        ("flash_attention", "bwd"): (errs[("attn", torch.bfloat16)], ("dq", "dk", "dv")),
+        ("fused_subsample", "fwd"): (errs[("sub", torch.bfloat16)], ("out",)),
+        ("fused_subsample", "bwd"): (errs[("sub", torch.bfloat16)], ("gx",) + S.WEIGHT_NAMES),
+        ("softdtw", "fwd"): (errs["sdtw"], ("R",)),
+        ("softdtw", "bwd"): (errs["sdtw"], ("E",)),
+    }
     kernels = []
-    for kind, launches, err_keys in (("fwd", fwd, ("out",)), ("bwd", bwd, ("dq", "dk", "dv"))):
-        e = errs[("flag", torch.bfloat16)]
-        kernels.append({
-            "name": f"flash_attention_{kind}",
-            "route": "cuda",
-            "source": src,
-            "replaces": "dynamic_asr_eval_tpu/kernels/attention.py:56",
-            "launches": launches,
-            "max_abs_err": max(e[k] for k in err_keys),
-            "ms": times[kind],
-            "kernel_ms": times[kind],
-            "plain_ms": times[f"{kind}_plain"],
-            "bound_ms": bounds[kind][0],
-            "bound_us": bounds[kind][0] * 1e3,
-            "bound_by": bounds[kind][1],
-            "library_ms": times[f"{kind}_library"],
-        })
+    for name in ("flash_attention", "fused_subsample", "softdtw"):
+        t, bnd = times[name]
+        for i, kind in enumerate(("fwd", "bwd")):
+            e, keys = err_keys[(name, kind)]
+            kernels.append({
+                "name": f"{name}_{kind}",
+                "route": "cuda",
+                "source": f"dynamic_asr_eval_tpu_torch/kernels/csrc/{sources[name]}",
+                "replaces": replaces[(name, kind)],
+                "launches": launches[name][i],
+                "max_abs_err": max(e[k] for k in keys),
+                "ms": t[kind],
+                "kernel_ms": t[kind],
+                "plain_ms": t[f"{kind}_plain"],
+                "bound_ms": bnd[kind][0],
+                "bound_us": bnd[kind][0] * 1e3,
+                "bound_by": bnd[kind][1],
+                "library_ms": t.get(f"{kind}_library"),
+            })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,19 +27,14 @@ kernel uses CUDA-core FMAs, so the tensor-core peak is far off).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import torch
 
+from dynamic_asr_eval_tpu_torch.kernels._build import CudaLibrary
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,11 +42,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (one backward launch runs the Delta, dK/dV and dQ kernels)
 fwd_launches = 0
 bwd_launches = 0
-
-_lib = None
-_lib_lock = threading.Lock()
-build_seconds = None  # wall time of this process's build, None if not built
-build_log = ""  # nvcc's report (registers, spills) of this process's build
 
 
 def reset_counters() -> None:
@@ -105,66 +95,30 @@ def attention_reference_bwd(q, k, v, mask, out, lse, dout):
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the flash-attention kernel cannot be built")
-    return path
+def _bind(lib) -> None:
+    vp, ll, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.dae_flash_attention_fwd.restype = i32
+    lib.dae_flash_attention_fwd.argtypes = (
+        [i32, vp, vp, vp] + [ll] * 9 + [vp, vp, vp] + [i32] * 4 + [f32, vp])
+    lib.dae_flash_attention_bwd.restype = i32
+    lib.dae_flash_attention_bwd.argtypes = (
+        [i32, vp, vp, vp] + [ll] * 9 + [vp] * 8 + [i32] * 4 + [f32, vp])
+
+
+LIBRARY = CudaLibrary(SOURCE, _bind)
+
+
+def __getattr__(name):
+    """``build_seconds`` and ``build_log`` of this process's build."""
+    if name in ("build_seconds", "build_log"):
+        return getattr(LIBRARY, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def build() -> Path:
-    """Compile ``csrc/flash_attention.cu`` into a shared library under
-    ``build/torch_kernels/`` (named by the source's hash, so an edited source
-    rebuilds).  Raises on failure."""
-    global build_seconds, build_log
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:12]
-    out = BUILD_DIR / f"libdae_flash_attention_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(SOURCE),
-    ]
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_seconds = time.time() - t0
-    build_log = proc.stderr
-    return out
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        vp, ll, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.dae_flash_attention_fwd.restype = i32
-        lib.dae_flash_attention_fwd.argtypes = (
-            [i32, vp, vp, vp] + [ll] * 9 + [vp, vp, vp] + [i32] * 4 + [f32, vp])
-        lib.dae_flash_attention_bwd.restype = i32
-        lib.dae_flash_attention_bwd.argtypes = (
-            [i32, vp, vp, vp] + [ll] * 9 + [vp] * 8 + [i32] * 4 + [f32, vp])
-        lib.dae_cuda_error_string.restype = ctypes.c_char_p
-        lib.dae_cuda_error_string.argtypes = [i32]
-        _lib = lib
-        return lib
-
-
-def _check(lib, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.dae_cuda_error_string(code).decode()
-        raise RuntimeError(f"flash attention {what} kernel failed: {msg} ({code})")
+    """Compile ``csrc/flash_attention.cu`` (see :mod:`._build`).  Raises on
+    failure."""
+    return LIBRARY.build()
 
 
 def _validate(q, k, v, mask):
@@ -188,7 +142,7 @@ def _validate(q, k, v, mask):
 
 def _kernel_fwd(q, k, v, seg):
     global fwd_launches
-    lib = _load()
+    lib = LIBRARY.load()
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -198,14 +152,14 @@ def _kernel_fwd(q, k, v, seg):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, H, T, D, 1.0 / math.sqrt(D), stream)
-    _check(lib, code, "forward")
+    LIBRARY.check(code, "flash attention forward")
     fwd_launches += 1
     return out, lse
 
 
 def _kernel_bwd(q, k, v, seg, out, lse, dout):
     global bwd_launches
-    lib = _load()
+    lib = LIBRARY.load()
     B, T, H, D = q.shape
     dout = dout.contiguous()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -219,7 +173,7 @@ def _kernel_bwd(q, k, v, seg, out, lse, dout):
         seg.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, T, D, 1.0 / math.sqrt(D), stream)
-    _check(lib, code, "backward")
+    LIBRARY.check(code, "flash attention backward")
     bwd_launches += 1
     return dq, dk, dv
 

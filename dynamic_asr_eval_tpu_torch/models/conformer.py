@@ -6,8 +6,14 @@ torch names that the JAX package's ``models/convert.py`` maps, so one set of
 weights drives both.  Semantics followed line by line:
 
 - the input is masked by length; depthwise-striding subsampling with
-  torch-aligned (1, 1) padding, a length mask after each stride-2 stage
-  (``ceil(len / 2^(k+1))``), feature-major flatten (f·C + c) into ``out``;
+  torch-aligned (1, 1) padding, feature-major flatten (f·C + c) into
+  ``out``.  ``subsampling_impl="conv"`` runs ``F.conv2d`` with a length mask
+  after each stride-2 stage (``ceil(len / 2^(k+1))``);
+  ``subsampling_impl="pallas"`` with factor 8 and ``feat_in % 8 == 0`` runs
+  the fused Hopper kernel of :mod:`..kernels.subsample` with no masks
+  between stages, as the JAX package's fused kernel (the two differ on a
+  window whose length is not a multiple of 8); other shapes take the conv
+  path, as in JAX;
 - macaron blocks: ½-FF → MHSA → conv module → ½-FF → ``norm_out``;
 - rotary embedding on half-split pairs, cos/sin in f32;
 - attention: ``attention_impl="pallas_flash"`` runs the Hopper kernel of
@@ -21,9 +27,8 @@ weights drives both.  Semantics followed line by line:
   casts its input and weights to it), LayerNorm in f32 returned in the
   input's dtype (eps 1e-5), the head in f32 unless ``head_in_compute_dtype``.
 
-Not ported yet (raise ``NotImplementedError``): ``subsampling_impl="pallas"``
-(the fused subsampling kernel, ROADMAP queue 2), relative-position
-attention, batch-renorm mid-norms, ``input_xscale``, ``subsampling_norm_out``,
+Not ported yet (raise ``NotImplementedError``): the ``"xla"``, ``"hybrid"``
+and ``"conv_tapbwd"`` subsampling lowerings, relative-position attention, batch-renorm mid-norms, ``input_xscale``, ``subsampling_norm_out``,
 biases in the attention projections, dropout.
 """
 
@@ -38,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dynamic_asr_eval_tpu_torch.kernels.attention import flash_attention
+from dynamic_asr_eval_tpu_torch.kernels.subsample import fused_subsample
 
 LN_EPS = 1e-5
 
@@ -89,7 +95,7 @@ class ConformerConfig:
     attention_impl: str = "xla"  # "xla" | "pallas_flash" (kernels.attention)
     attention_logits_in_compute_dtype: bool = False
     head_in_compute_dtype: bool = False
-    subsampling_impl: str = "conv"  # "conv" | "pallas" (not ported yet)
+    subsampling_impl: str = "conv"  # "conv" | "pallas" (kernels.subsample)
     remat_subsampling: bool = False
     seq_shard_axes: Optional[Any] = None
 
@@ -117,13 +123,9 @@ class ConformerConfig:
 
 
 def _check_supported(cfg: ConformerConfig) -> None:
-    if cfg.subsampling_impl == "pallas":
-        raise NotImplementedError(
-            "subsampling_impl='pallas' (the fused subsampling kernel) is not "
-            "ported yet: ROADMAP queue 2; use subsampling_impl='conv'")
     unsupported = {
         "subsampling": cfg.subsampling != "dw_striding",
-        "subsampling_impl": cfg.subsampling_impl != "conv",
+        "subsampling_impl": cfg.subsampling_impl not in ("conv", "pallas"),
         "subsampling_norm_out": cfg.subsampling_norm_out,
         "position_encoding": cfg.pos_encoding not in ("rotary", "none"),
         "input_xscale": cfg.input_xscale,
@@ -140,7 +142,9 @@ def _check_supported(cfg: ConformerConfig) -> None:
 
 
 def _act(name: str):
-    return {"silu": F.silu, "relu": F.relu, "gelu": F.gelu}[name]
+    # "gelu" is jax.nn.gelu's default, the tanh approximation
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda z: F.gelu(z, approximate="tanh")}[name]
 
 
 def lengths_to_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
@@ -202,9 +206,31 @@ class DWStridingSubsampling(nn.Module):
             f_ds = -(-f_ds // 2)
         self.out = nn.Linear(f_ds * C, cfg.d_model)
 
+    def uses_fused_kernel(self, feat: int) -> bool:
+        """The JAX module's dispatch: the fused kernel for ×8 and F % 8 == 0."""
+        return (self.cfg.subsampling_impl == "pallas" and self.cfg.subsampling_factor == 8
+                and feat % 8 == 0)
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """No masks between stages; the weights come from the convs, so the
+        gradients reach the same parameters as on the conv path."""
+        C = self.conv_in.out_channels
+
+        def taps(conv):  # [C, 1, 3, 3] → [9, C], (dt, df) row-major
+            return conv.weight[:, 0].reshape(C, 9).t()
+
+        weights = [taps(self.conv_in), self.conv_in.bias]
+        for dw, pw in zip(self.dw_conv, self.pw_conv):
+            weights += [taps(dw), dw.bias, pw.weight[:, :, 0, 0].t(), pw.bias]
+        h = fused_subsample(x, *weights, act_name=self.cfg.subsampling_act)
+        B, T_ds, F_ds, _ = h.shape
+        return h.reshape(B, T_ds, F_ds * C)
+
     def forward(self, x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
         """x [B, T, F] in the compute dtype → [B, ceil(T/factor), d_model]."""
         cd = self.cfg.compute_dtype
+        if self.uses_fused_kernel(x.shape[-1]):
+            return _dense(self._fused(x.to(cd)), self.out.weight, self.out.bias, cd)
         act = _act(self.cfg.subsampling_act)
 
         def conv(h, layer, stride, padding, groups=1):

@@ -5,9 +5,12 @@ with 16 channels, kernel 5, fp32, ``attention_impl="pallas_flash"`` on both
 sides; at T_ds < 128 the JAX side takes its plain-XLA attention).  Weights
 cross with ``params_from_jax``; ``convert_lcasr_checkpoint`` of the port's
 state dict must give the JAX params back exactly.  Lengths are not multiples
-of 8.  Bars: ``final_posteriors`` within 1e-4 on valid frames; the parameter
-gradients of one CTC loss within 1e-4 of each leaf's max-abs.  The JAX side
-runs under ``jax.disable_jit()`` (tests/conftest.py explains why).
+of 8.  Each test runs with ``subsampling_impl="conv"`` and with ``"pallas"``
+(the JAX side runs its fused Pallas kernel in interpret mode; both sides keep
+its unmasked semantics at these ragged lengths).  Bars: ``final_posteriors``
+within 1e-4 on valid frames; the parameter gradients of one CTC loss within
+1e-4 of each leaf's max-abs.  The JAX side runs under ``jax.disable_jit()``
+(tests/conftest.py explains why).
 """
 
 import numpy as np
@@ -34,12 +37,13 @@ LENGTHS = np.array([203, 150])
 T_IN = 203
 
 
-@pytest.fixture(scope="module")
-def shared():
-    jcfg = JaxConfig(compute_dtype=jnp.float32, **TINY)
+@pytest.fixture(scope="module", params=["conv", "pallas"])
+def shared(request):
+    cfg = dict(TINY, subsampling_impl=request.param)
+    jcfg = JaxConfig(compute_dtype=jnp.float32, **cfg)
     model, variables = jax_init(jcfg, jax.random.PRNGKey(0), example_T=256)
     params_np = jax.tree.map(np.asarray, variables["params"])
-    port = SCConformer(ConformerConfig(compute_dtype="float32", **TINY))
+    port = SCConformer(ConformerConfig(compute_dtype="float32", **cfg))
     port.load_state_dict(params_from_jax(params_np), strict=True)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, TINY["feat_in"], T_IN)).astype(np.float32)
@@ -115,7 +119,7 @@ def test_seeded_init_is_reproducible_and_layer_norms_start_at_identity():
     assert not torch.equal(a.decoder.weight, init_conformer(cfg, seed=4).decoder.weight)
 
 
-@pytest.mark.parametrize("field,value", [("subsampling_impl", "pallas"),
+@pytest.mark.parametrize("field,value", [("subsampling_impl", "hybrid"),
                                          ("default_norm", "batch_renorm"),
                                          ("position_encoding", "rel_pos")])
 def test_unported_options_raise(field, value):

@@ -5,9 +5,11 @@ Tiny config (as in test_torch_conformer.py), shared weights via
 overlap (5 windows, the last one ragged at 188 frames), 2 epochs,
 augmentation off (the zero-mask config, the identity on both sides), online
 and offline (offline shuffles the window order from the same numpy generator
-on both sides).  Bars: stitched
-log-probs within 1e-4; adapted parameters, through ``convert_lcasr_checkpoint``,
-within 2e-5 (they move by ~2e-2 over the run).
+on both sides).  The parity tests run with ``subsampling_impl="conv"`` and
+with ``"pallas"`` (the JAX side runs its fused Pallas kernel in interpret
+mode; the last, 188-frame window exercises its unmasked ragged edge on both
+sides).  Bars: stitched log-probs within 1e-4; adapted parameters, through
+``convert_lcasr_checkpoint``, within 2e-5 (they move by ~2e-2 over the run).
 
 The JAX CTC recursion is ``lax.scan(..., unroll=16)``; XLA:CPU takes ~40 s
 to compile its gradient unrolled and under a second rolled.  The JAX engines
@@ -61,19 +63,25 @@ def rolled_scans():
         jax_ctc.ctc_loss.clear_cache()
 
 
-@pytest.fixture(scope="module")
-def shared():
-    jcfg = JaxConfig(compute_dtype=jnp.float32, **TINY)
+def _setup(impl):
+    cfg = dict(TINY, subsampling_impl=impl)
+    jcfg = JaxConfig(compute_dtype=jnp.float32, **cfg)
     model, variables = jax_init(jcfg, jax.random.PRNGKey(0), example_T=256)
     state = params_from_jax(jax.tree.map(np.asarray, variables["params"]))
-    port = SCConformer(ConformerConfig(compute_dtype="float32", **TINY))
+    port = SCConformer(ConformerConfig(compute_dtype="float32", **cfg))
     port.load_state_dict(state)
     spec = np.random.default_rng(1).standard_normal((TINY["feat_in"], 700)).astype(np.float32)
     return {"jax": (jcfg, model, variables), "state": state, "port_model": port, "spec": spec}
 
 
 @pytest.fixture(scope="module")
-def runs(shared):
+def shared():
+    return _setup("conv")
+
+
+@pytest.fixture(scope="module", params=["conv", "pallas"])
+def runs(request):
+    shared = _setup(request.param)
     jcfg, model, variables = shared["jax"]
     state, port, spec = shared["state"], shared["port_model"], shared["spec"]
     out = {}
