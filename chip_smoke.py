@@ -12,8 +12,14 @@ Phases (each raises on failure; the script then exits non-zero):
    off, the plain version computed in f32.  Tolerance: |kernel - plain| <=
    1e-4 (f32) or 2e-2 (bf16) of max |plain|:
    - flash attention at the flagship [2, 2048, 6, 128] with lengths
-     [2048, 1600] and ragged T 1000 with lengths [1000, 777, 1000], bf16 and
-     f32;
+     [2048, 1600] and ragged T 1000 with lengths [1000, 777, 1000], bf16
+     (the tensor-core kernels) and f32 (the CUDA-core kernels), and in bf16
+     with a random, non-prefix 0/1 mask at the flagship shape and at T 37
+     (one key tile); every backward runs twice and must repeat bit for bit
+     (no atomics), and each dtype must take its route; the bf16 kernels are
+     also held against the plain version on the bf16 tensors, which rounds
+     where the kernels round (``check_rounding``: 1 bf16 ulp of max, and at
+     most 5 % of elements differing in dq, dk, dv, and in out at T 37);
    - fused subsampling, forward and backward (gx and all 10 weight
      gradients), at the flagship window [2, 16384, 80] with C 256 and ragged
      [3, 1001, 80], bf16 and f32; the backward runs twice and must repeat bit
@@ -24,7 +30,9 @@ Phases (each raises on failure; the script then exits non-zero):
      100 and at (1, 2048, 2048);
 4. kernel, plain and library times (CUDA events after warm-up) at the
    flagship or benchmark shape, and the least time the card could take
-   (bound).  Library: SDPA with a boolean mask for attention; for the fused
+   (bound).  Attention is timed on both routes: bf16 (tensor cores, the
+   main path) and f32 (CUDA cores, the parity route).  Library: SDPA with a
+   boolean mask in the same dtype for attention; for the fused
    subsampling, the cuDNN stack the ``"conv"`` path runs (four ``F.conv2d``
    calls with their activations, forward, and backward through autograd);
    none for soft-DTW.  The port never calls a library yardstick;
@@ -33,11 +41,16 @@ Phases (each raises on failure; the script then exits non-zero):
    overlap 14336, the last ragged at 14336 frames) at the flagship widths
    with ``attention_impl="pallas_flash"`` and ``subsampling_impl="conv"``,
    bf16, random weights from a seed; the launch counters are zeroed just
-   before and read just after;
+   before and read just after, and every attention launch must have taken
+   the bf16 tensor-core route;
 6. output checks on that run: the engine's stitched log-probs are finite
    with the expected shape and the weights moved; then, on a small input,
    the full-depth model in f32 through the attention kernel agrees with the
-   plain attention path on valid frames (1e-3);
+   plain attention path on valid frames (1e-3), and so do its weight
+   gradients (1e-3 of each gradient's max |value|, or of 1 % of the largest
+   where that is more): this run's launches of the f32 route are its
+   ``parity_launches`` in the kernels line (its ``launches``, the main
+   path's, are 0);
 7. where the time goes: the driver's engine, warm, on the same recording:
    engine wall of 3 runs, ms per window and RTFx at the fastest, then one
    run under torch.profiler for device busy time, idle share, device time
@@ -60,6 +73,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -69,6 +83,12 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 kernels against the plain version that rounds as they do (phase 3
+# prints both numbers); a plain version that does not round fails the share
+# (tests/test_torch_chip_smoke.py)
+BF16_ULPS = 1.0
+BF16_DIFF_SHARE = 0.05
+ATTENTION_KEY_TILE = 64  # keys per tile of the bf16 forward kernel
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores
@@ -82,7 +102,8 @@ SUB_RAGGED = (3, 1001, 80, 256)
 SDTW_BENCH = (4, 256, 256)  # kernels.softdtw.benchmark defaults, D 64, gamma 1
 SDTW_CASES = ((SDTW_BENCH, 0), ((2, 1500, 700), 100), ((1, 2048, 2048), 0))
 FAMILIES = (
-    ("flash_attention", ("fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_delta_kernel")),
+    ("flash_attention", ("tc_attention_", "fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+                         "bwd_delta_kernel")),
     ("fused_subsample", ("::pw_kernel<", "::wgrad_kernel<", "::dw_bwd_kernel<", "::gx_kernel<",
                          "namespace)::reduce_kernel(")),
     ("conv", ("conv", "cudnn", "fprop", "implicit", "wgrad", "dgrad")),
@@ -155,32 +176,74 @@ def check_close(what, pairs, tol):
 
 def attention_inputs(B, T, H, D, lengths, dtype, seed=0):
     """q, k contiguous and v a strided view of one qkv tensor, as the model
-    hands them to the kernel."""
+    hands them to the kernel.  ``lengths`` None: a random 0/1 mask."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(B, T, 3, H, D, generator=g, device="cuda").to(dtype)
     q, k, v = qkv.unbind(2)
-    mask = torch.arange(T, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]
+    if lengths is None:
+        mask = torch.rand(B, T, generator=g, device="cuda") < 0.5
+    else:
+        mask = torch.arange(T, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]
     dout = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
     return q.contiguous(), k.contiguous(), v, mask, dout
 
 
 def check_attention(A, B, T, H, D, lengths, dtype):
     q, k, v, mask, dout = attention_inputs(B, T, H, D, lengths, dtype)
+    A.reset_counters()
     out, lse = A.flash_attention_fwd(q, k, v, mask)
     grads = A.flash_attention_bwd(q, k, v, mask, out, lse, dout)
+    again = A.flash_attention_bwd(q, k, v, mask, out, lse, dout)
+    route = A.ROUTES[dtype]
+    if A.route_launches[route] != [1, 2]:
+        raise AssertionError(f"attention {dtype}: launches by route {A.route_launches}, "
+                             f"expected {route} only")
     ref_out, ref_lse = A.attention_reference(q.float(), k.float(), v.float(), mask)
     ref_grads = A.attention_reference_bwd(q.float(), k.float(), v.float(), mask,
                                           ref_out, ref_lse, dout.float())
     torch.cuda.synchronize()
-    errs = check_close(f"attention {dtype} T={T}",
-                       zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads),
-                           (ref_out,) + tuple(ref_grads)), FWD_TOL[dtype])
+    what = f"attention {dtype} T={T} lengths={lengths or 'random 0/1 mask'}"
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{what}: the backward does not repeat bit for bit")
+    errs = check_close(what, zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads),
+                                 (ref_out,) + tuple(ref_grads)), FWD_TOL[dtype])
     lse_err = (lse - ref_lse).abs().max().item()
     if not lse_err <= 1e-3:
-        raise AssertionError(f"lse {dtype} T={T}: |err| {lse_err:.3e}")
-    log(f"  attention {str(dtype):15s} B={B} T={T} lengths={lengths}: "
-        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f", lse {lse_err:.2e}")
+        raise AssertionError(f"{what}: lse |err| {lse_err:.3e}")
+    log(f"  {what} ({route}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f", lse {lse_err:.2e}; backward repeats bit for bit")
+    if dtype == torch.bfloat16:
+        check_rounding(A, what, T, q, k, v, mask, dout, out, lse, grads)
     return errs
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x|: 2^(floor(log2 |x|) - 7)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def check_rounding(A, what, T, q, k, v, mask, dout, out, lse, grads):
+    """The bf16 kernels against the plain version on the same bf16 tensors,
+    which rounds where JAX's Pallas kernel rounds (P before P·V and dV, dS
+    before dQ and dK); the plain backward gets the kernel's own out and lse.
+    Every output within BF16_ULPS bf16 ulps of its max |plain|; the share of
+    elements that differ at all within BF16_DIFF_SHARE for dq, dk, dv, and for
+    out where T fits one key tile (past one tile the kernel rounds P against
+    each tile's running max, the plain version against the row's max)."""
+    r_out, _ = A.attention_reference(q, k, v, mask)
+    r_grads = A.attention_reference_bwd(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    report = []
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads),
+                          (r_out,) + tuple(r_grads)):
+        ulps = (a.float() - b.float()).abs().max().item() / bf16_ulp(b.float().abs().max().item())
+        share = (a != b).float().mean().item()
+        held = name != "out" or T <= ATTENTION_KEY_TILE
+        if not (ulps <= BF16_ULPS and (share <= BF16_DIFF_SHARE or not held)):
+            raise AssertionError(f"{what} against the rounding plain version: {name} "
+                                 f"{ulps} ulps of max, {share:.4f} of elements differ")
+        report.append(f"{name} {ulps} ulp, {share:.4f} differ" + ("" if held else " (not held)"))
+    log(f"    against the plain version rounding as the kernel: {', '.join(report)}")
 
 
 def time_attention(A, B, T, H, D, lengths, dtype):
@@ -395,7 +458,8 @@ class EngineRecorder:
 
 def main_path(cfg, kernel_modules):
     """The driver on the flagship recording; returns (wer, wall, {module:
-    (fwd, bwd) launches}, result detail, recorder)."""
+    (fwd, bwd) launches}, attention's {route: (fwd, bwd)}, result detail,
+    recorder)."""
     import pickle
 
     from dynamic_asr_eval_tpu_torch.evals import run
@@ -418,11 +482,12 @@ def main_path(cfg, kernel_modules):
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = {k: (m.fwd_launches, m.bwd_launches) for k, m in kernel_modules.items()}
+            routes = {r: tuple(c) for r, c in kernel_modules["attention"].route_launches.items()}
         finally:
             run.build_engine = build_engine
         with open(os.path.join(tmp, "r_1.pkl"), "rb") as f:
             detail = pickle.load(f)
-    return wer, wall, launches, detail, recorder
+    return wer, wall, launches, routes, detail, recorder
 
 
 def check_launches(launches, expect):
@@ -471,19 +536,40 @@ def f32_model(params, **overrides):
     return model
 
 
-def check_attention_model(params):
+def check_attention_model(params, A):
     """The full-depth model in f32 on a small input: kernel path against the
-    plain attention path."""
+    plain attention path, output on valid frames and weight gradients of the
+    valid frames' summed log-probs.  Returns the f32 route's (fwd, bwd)
+    launches in the kernel-path run (its parity launches)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(2, 80, 4000, generator=g, device="cuda")
     lengths = torch.tensor([4000, 3001], device="cuda")
-    with torch.no_grad():
-        a = f32_model(params)(x, lengths)
-        b = f32_model(params, attention_impl="xla")(x, lengths)
+
+    def run(model):
+        out = model(x, lengths)
+        logp = out["final_posteriors"]
+        valid = torch.arange(logp.shape[1], device="cuda")[None] < out["length"][:, None]
+        loss = (logp * valid[..., None]).sum()
+        names, weights = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, weights, allow_unused=True)
+        return out, {n: g for n, g in zip(names, grads) if g is not None}
+
+    A.reset_counters()
+    a, grads_a = run(f32_model(params))
+    torch.cuda.synchronize()
+    launches = tuple(A.route_launches["cuda_core"])
+    b, grads_b = run(f32_model(params, attention_impl="xla"))
     err = valid_frame_err(a, b)
-    if not err <= 1e-3:
-        raise AssertionError(f"kernel-path model vs plain path: |err| {err:.3e} > 1e-3")
-    log(f"  full-depth f32 model, kernel vs plain attention on valid frames: {err:.2e}")
+    top = {n: g.abs().max().item() for n, g in grads_b.items()}
+    floor = 1e-2 * max(top.values())  # a weight whose gradient is ~0 on both paths
+    gerr = max((grads_a[n] - grads_b[n]).abs().max().item() / max(top[n], floor) for n in grads_b)
+    if not (err <= 1e-3 and gerr <= 1e-3 and launches[0] > 0 and launches[1] > 0):
+        raise AssertionError(f"kernel-path model vs plain path: output |err| {err:.3e}, weight "
+                             f"gradients {gerr:.3e} of max (> 1e-3?), f32 launches {launches}")
+    log(f"  full-depth f32 model, kernel vs plain attention on valid frames: {err:.2e}; weight "
+        f"gradients {gerr:.2e} of max; f32 (cuda_core) launches fwd {launches[0]}, "
+        f"bwd {launches[1]}")
+    return launches
 
 
 def check_subsample_model(params, S):
@@ -514,6 +600,32 @@ def check_subsample_model(params, S):
                              f"vs conv model {err_conv:.3e} (> 1e-3)")
     log(f"  full-depth f32 model, subsampling kernel vs plain version {err_plain:.2e}, "
         f"vs the conv model {err_conv:.2e} on valid frames")
+
+
+def ptxas_report(build_log: str):
+    """(mangled kernel name, registers, spill-store bytes) for each entry in
+    nvcc's ``-Xptxas -v`` output."""
+    rows, name, spills = [], None, 0
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], 0
+        elif "spill stores" in line and name is not None:
+            spills = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif "registers" in line and name is not None:
+            rows.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spills))
+            name = None
+    return rows
+
+
+def demangle(names):
+    """The kernels' names without their parameters, by ``cu++filt -p`` (it
+    ships beside nvcc)."""
+    from dynamic_asr_eval_tpu_torch.kernels._build import nvcc
+
+    tool = os.path.join(os.path.dirname(nvcc()), "cu++filt")
+    out = subprocess.run([tool, "-p"], input="\n".join(names), capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.splitlines()
 
 
 def family(name: str) -> str:
@@ -580,16 +692,19 @@ def profile_engine(recorder, card, path):
 def drive(label, cfg, kernel_modules, expect, card, check_model):
     log(f"[5{label}] main path: evals.run.main, NSTI on a {N_FRAMES}-frame recording, flagship, "
         f"bf16, subsampling_impl={cfg.subsampling_impl!r}")
-    wer, wall, launches, detail, recorder = main_path(cfg, kernel_modules)
+    wer, wall, launches, routes, detail, recorder = main_path(cfg, kernel_modules)
     check_launches(launches, expect)
-    log(f"  WER {wer}; launches {launches}; driver wall {wall:.3f} s "
+    if routes != {"tensor_core": launches["attention"], "cuda_core": (0, 0)}:
+        raise AssertionError(f"attention launches by route {routes}: not all on the bf16 "
+                             f"tensor-core kernels")
+    log(f"  WER {wer}; launches {launches}; attention by route {routes}; driver wall {wall:.3f} s "
         f"(record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up)")
     log(f"[6{label}] output checks")
     params = check_driver_output(cfg, wer, detail, recorder)
-    check_model(params)
+    model_launches = check_model(params)
     log(f"[7{label}] where the time goes: the driver's engine, warm, on {card}")
     profile_engine(recorder, card, f"subsampling_{cfg.subsampling_impl}")
-    return launches
+    return launches, routes, model_launches
 
 
 def main() -> int:
@@ -612,22 +727,24 @@ def main() -> int:
         "TF32 off for matmuls and cuDNN in every phase")
 
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(m.LIBRARY.load) for m in (A, S, D)]:
+    libraries = list(A.LIBRARIES.values()) + [S.LIBRARY, D.LIBRARY]
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(lib.load) for lib in libraries]:
             fut.result()
     log(f"[2] kernels built in {time.time() - t0:.2f} s")
-    for mod in (A, S, D):
-        lib = mod.LIBRARY
+    for lib in libraries:
         log(f"  {lib.source.name}: nvcc {lib.build_seconds} s")
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"    {line.strip()}")
+        rows = ptxas_report(lib.build_log)
+        for name, (_, regs, spills) in zip(demangle([r[0] for r in rows]), rows):
+            log(f"    {name}: {regs} registers, {spills} bytes spill stores")
 
     log("[3] kernels against their plain versions")
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         errs[("attn", dtype)] = check_attention(A, 2, 2048, 6, 128, [2048, 1600], dtype)
         check_attention(A, 3, 1000, 6, 128, [1000, 777, 1000], dtype)
+    check_attention(A, 2, 2048, 6, 128, None, torch.bfloat16)
+    check_attention(A, 2, 37, 6, 128, [37, 20], torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32):
         errs[("sub", dtype)] = check_subsample(S, SUB_FLAGSHIP, dtype)
         check_subsample(S, SUB_RAGGED, dtype)
@@ -636,11 +753,13 @@ def main() -> int:
         if shape == SDTW_BENCH:
             errs["sdtw"] = e
 
-    log("[4] timing at the flagship (attention, subsampling: bf16) and benchmark "
-        "(soft-DTW: f32) shapes")
+    log("[4] timing at the flagship (attention: bf16 and f32; subsampling: bf16) and "
+        "benchmark (soft-DTW: f32) shapes")
     times = {}
     for name, (t, bnd) in (
             ("flash_attention", time_attention(A, 2, 2048, 6, 128, [2048, 1600], torch.bfloat16)),
+            ("flash_attention_f32",
+             time_attention(A, 2, 2048, 6, 128, [2048, 1600], torch.float32)),
             ("fused_subsample", time_subsample(S)),
             ("softdtw", time_softdtw(D))):
         times[name] = (t, bnd)
@@ -650,12 +769,13 @@ def main() -> int:
             log(f"  {name} bound {k}: {ms * 1e3:.2f} us ({by})")
 
     attn_per_window = (flagship_config().n_layers, flagship_config().n_layers)
-    conv_launches = drive("", flagship_config(), {"attention": A}, {"attention": attn_per_window},
-                          card, check_attention_model)
-    pallas_launches = drive("b", flagship_config(subsampling_impl="pallas"),
-                            {"attention": A, "subsample": S},
-                            {"attention": attn_per_window, "subsample": (1, 1)}, card,
-                            lambda params: check_subsample_model(params, S))
+    _, routes, parity_launches = drive("", flagship_config(), {"attention": A},
+                                       {"attention": attn_per_window}, card,
+                                       lambda params: check_attention_model(params, A))
+    pallas_launches, _, _ = drive("b", flagship_config(subsampling_impl="pallas"),
+                                  {"attention": A, "subsample": S},
+                                  {"attention": attn_per_window, "subsample": (1, 1)}, card,
+                                  lambda params: check_subsample_model(params, S))
 
     log("[8] soft-DTW's own path: kernels.softdtw.benchmark(use_pallas=True)")
     D.reset_counters()
@@ -670,31 +790,40 @@ def main() -> int:
         f"launches fwd {sdtw_launches[0]}, bwd {sdtw_launches[1]}; plain version "
         f"{plain['seconds_per_iter'] * 1e3:.3f} ms per iteration")
 
-    sources = {"flash_attention": "flash_attention.cu", "fused_subsample": "fused_subsample.cu",
-               "softdtw": "softdtw.cu"}
+    sources = {"flash_attention": "flash_attention_bf16.cu",
+               "flash_attention_f32": "flash_attention.cu",
+               "fused_subsample": "fused_subsample.cu", "softdtw": "softdtw.cu"}
     replaces = {
         ("flash_attention", "fwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
         ("flash_attention", "bwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
+        ("flash_attention_f32", "fwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
+        ("flash_attention_f32", "bwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
         ("fused_subsample", "fwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:278",
         ("fused_subsample", "bwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:438",
         ("softdtw", "fwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:129",
         ("softdtw", "bwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:92",
     }
-    launches = {"flash_attention": conv_launches["attention"],
+    # launches on the main path ("conv" run, by route; soft-DTW: its own
+    # path); the f32 route is the parity route and runs 0 times there, its
+    # count in phase 6's f32 model run goes under "parity_launches"
+    launches = {"flash_attention": routes["tensor_core"], "flash_attention_f32": routes["cuda_core"],
                 "fused_subsample": pallas_launches["subsample"], "softdtw": sdtw_launches}
     err_keys = {
         ("flash_attention", "fwd"): (errs[("attn", torch.bfloat16)], ("out",)),
         ("flash_attention", "bwd"): (errs[("attn", torch.bfloat16)], ("dq", "dk", "dv")),
+        ("flash_attention_f32", "fwd"): (errs[("attn", torch.float32)], ("out",)),
+        ("flash_attention_f32", "bwd"): (errs[("attn", torch.float32)], ("dq", "dk", "dv")),
         ("fused_subsample", "fwd"): (errs[("sub", torch.bfloat16)], ("out",)),
         ("fused_subsample", "bwd"): (errs[("sub", torch.bfloat16)], ("gx",) + S.WEIGHT_NAMES),
         ("softdtw", "fwd"): (errs["sdtw"], ("R",)),
         ("softdtw", "bwd"): (errs["sdtw"], ("E",)),
     }
     kernels = []
-    for name in ("flash_attention", "fused_subsample", "softdtw"):
+    for name in ("flash_attention", "flash_attention_f32", "fused_subsample", "softdtw"):
         t, bnd = times[name]
         for i, kind in enumerate(("fwd", "bwd")):
             e, keys = err_keys[(name, kind)]
+            extra = {"parity_launches": parity_launches[i]} if name == "flash_attention_f32" else {}
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",
@@ -709,6 +838,7 @@ def main() -> int:
                 "bound_us": bnd[kind][0] * 1e3,
                 "bound_by": bnd[kind][1],
                 "library_ms": t.get(f"{kind}_library"),
+                **extra,
             })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,4 @@
-"""Masked self-attention for the conformer: a hand-written Hopper kernel.
+"""Masked self-attention for the conformer: hand-written Hopper kernels.
 
 Counterpart of the JAX package's ``kernels/attention.py:56``
 (``flash_attention``), which delegates to JAX's Pallas TPU flash-attention
@@ -7,21 +7,32 @@ kernels (``_flash_attention_impl`` forward, ``_flash_attention_bwd_dkv`` and
 
 - :func:`flash_attention` is the entry point the model calls.  It is a
   ``torch.autograd.Function``: on a CUDA tensor the forward and the backward
-  launch the kernels of ``csrc/flash_attention.cu`` (built with ``nvcc`` for
-  ``sm_90a`` at first use, bound with ``ctypes``); on a CPU tensor they run
-  the plain versions below.  There is no fallback from the kernel to anything
-  else: a CUDA tensor goes through the kernel or the call raises.
+  launch a kernel, chosen by dtype (the route); on a CPU tensor they run the
+  plain versions below.  There is no fallback from a kernel to anything
+  else: a CUDA tensor goes through its route's kernel or the call raises.
+- Routes (``ROUTES``):
+  - bf16 → ``"tensor_core"``: ``csrc/flash_attention_bf16.cu``, every product
+    on the tensor cores (``mma.sync`` m16n8k16, bf16 in, f32 sums).  The
+    main path: the flagship runs in bf16.  D must be a multiple of 8 and at
+    most 128 (16-byte rows for the asynchronous copies), else ``ValueError``.
+  - f32 → ``"cuda_core"``: ``csrc/flash_attention.cu``, CUDA-core FMAs in
+    f32, the parity route (TF32 tensor cores could not meet its 1e-4 bar).
+  Both are built with ``nvcc`` for ``sm_90a`` at first use and bound with
+  ``ctypes``.
 - :func:`attention_reference` / :func:`attention_reference_bwd` are the plain
   PyTorch versions (einsum + masked softmax), with the same segment
   semantics: key j counts for query i only if ``mask[i] == mask[j]``, so a
-  padding query attends padding keys only, as the TPU kernel does.
-- ``fwd_launches`` / ``bwd_launches`` count kernel launches (the plain path
-  and the comparisons do not count), so a run can show that it went through
-  the kernel.
+  padding query attends padding keys only, as the TPU kernel does.  They
+  round where the TPU kernel rounds (a no-op in f32): P to the value dtype
+  before P·V (unnormalised, against the row max), and in the backward P
+  before dV and dS (scale included) before dQ and dK.
+- ``fwd_launches`` / ``bwd_launches`` count kernel launches of either route,
+  ``route_launches[route]`` = [forward, backward] per route (the plain path
+  and the comparisons do not count), so a run can show which kernels it went
+  through.
 
-Bound on the H100 and what the design does about it: see the header of
-``csrc/flash_attention.cu`` (compute bound at the flagship shape; this first
-kernel uses CUDA-core FMAs, so the tensor-core peak is far off).
+Bound on the H100 and what each design does about it: see the headers of the
+two sources (compute bound at the flagship shape).
 """
 
 from __future__ import annotations
@@ -34,20 +45,23 @@ import torch
 
 from dynamic_asr_eval_tpu_torch.kernels._build import CudaLibrary
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 MAX_HEAD_DIM = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 
 # launch counters: +1 per forward kernel launch and per backward launch
 # (one backward launch runs the Delta, dK/dV and dQ kernels)
 fwd_launches = 0
 bwd_launches = 0
+route_launches = {route: [0, 0] for route in ROUTES.values()}
 
 
 def reset_counters() -> None:
     global fwd_launches, bwd_launches
     fwd_launches = 0
     bwd_launches = 0
+    for counts in route_launches.values():
+        counts[:] = [0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -60,21 +74,30 @@ def _same_segment(mask: torch.Tensor) -> torch.Tensor:
     return (seg[:, :, None] == seg[:, None, :])[:, None]  # [B, 1, T, S]
 
 
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x (f32) rounded to ``dtype`` and back: where the TPU kernel casts an
+    operand before a product."""
+    return x.to(dtype).float()
+
+
 def attention_reference(q, k, v, mask):
     """q, k, v [B, T, H, D], mask [B, T] bool → (out [B, T, H, D] in q's
-    dtype, lse [B, H, T] f32).  Computed in f32."""
+    dtype, lse [B, H, T] f32).  Computed in f32; P = exp(s - max s) is
+    rounded to v's dtype before P·V and the row sum taken in f32."""
     D = q.shape[-1]
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(D)
     logits = logits.masked_fill(~_same_segment(mask), float("-inf"))
     lse = torch.logsumexp(logits, dim=-1)
-    attn = torch.exp(logits - lse[..., None])
-    out = torch.einsum("bhts,bshd->bthd", attn, v.float())
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhts,bshd->bthd", _round(p, v.dtype), v.float())
+    out = out / p.sum(-1).transpose(1, 2)[..., None]
     return out.to(q.dtype), lse
 
 
 def attention_reference_bwd(q, k, v, mask, out, lse, dout):
     """Plain backward with the kernel's algorithm: P recomputed from the
-    log-sum-exp, Delta = rowsum(dO * O).  Returns (dq, dk, dv) in q's dtype."""
+    log-sum-exp, Delta = rowsum(dO * O), P rounded before dV and dS (scale
+    included) before dQ and dK.  Returns (dq, dk, dv) in q's dtype."""
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -82,11 +105,11 @@ def attention_reference_bwd(q, k, v, mask, out, lse, dout):
     s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
     p = torch.exp(s - lse[..., None]).masked_fill(~_same_segment(mask), 0.0)
     delta = (dof * out.float()).sum(-1).transpose(1, 2)  # [B, H, T]
-    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    dv = torch.einsum("bhts,bthd->bshd", _round(p, dout.dtype), dof)
     dp = torch.einsum("bthd,bshd->bhts", dof, vf)
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
-    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
+    ds = _round(p * (dp - delta[..., None]) * scale, q.dtype)
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -96,29 +119,19 @@ def attention_reference_bwd(q, k, v, mask, out, lse, dout):
 
 
 def _bind(lib) -> None:
+    """Both sources export ``dae_flash_attention_fwd`` / ``_bwd`` with one
+    signature (pointers typed by their route's dtype)."""
     vp, ll, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.dae_flash_attention_fwd.restype = i32
-    lib.dae_flash_attention_fwd.argtypes = (
-        [i32, vp, vp, vp] + [ll] * 9 + [vp, vp, vp] + [i32] * 4 + [f32, vp])
-    lib.dae_flash_attention_bwd.restype = i32
-    lib.dae_flash_attention_bwd.argtypes = (
-        [i32, vp, vp, vp] + [ll] * 9 + [vp] * 8 + [i32] * 4 + [f32, vp])
+    fwd, bwd = lib.dae_flash_attention_fwd, lib.dae_flash_attention_bwd
+    fwd.restype = bwd.restype = i32
+    fwd.argtypes = [vp, vp, vp] + [ll] * 9 + [vp, vp, vp] + [i32] * 4 + [f32, vp]
+    bwd.argtypes = [vp, vp, vp] + [ll] * 9 + [vp] * 8 + [i32] * 4 + [f32, vp]
 
 
-LIBRARY = CudaLibrary(SOURCE, _bind)
-
-
-def __getattr__(name):
-    """``build_seconds`` and ``build_log`` of this process's build."""
-    if name in ("build_seconds", "build_log"):
-        return getattr(LIBRARY, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def build() -> Path:
-    """Compile ``csrc/flash_attention.cu`` (see :mod:`._build`).  Raises on
-    failure."""
-    return LIBRARY.build()
+LIBRARIES = {
+    "cuda_core": CudaLibrary(CSRC / "flash_attention.cu", _bind),
+    "tensor_core": CudaLibrary(CSRC / "flash_attention_bf16.cu", _bind),
+}
 
 
 def _validate(q, k, v, mask):
@@ -128,7 +141,7 @@ def _validate(q, k, v, mask):
     B, T, H, D = q.shape
     if tuple(mask.shape) != (B, T):
         raise ValueError(f"mask must be [B, T] = {(B, T)}, got {tuple(mask.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in ROUTES:
         raise TypeError(f"flash attention takes float32 or bfloat16 q/k/v, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     devices = {t.device for t in (q, k, v, mask)}
@@ -138,43 +151,60 @@ def _validate(q, k, v, mask):
         raise ValueError("q, k, v need a contiguous last (head) dimension")
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM} is not supported")
+    if q.device.type == "cuda" and ROUTES[q.dtype] == "tensor_core" and D % 8:
+        raise ValueError(f"the bf16 tensor-core kernels need a head dim that is a "
+                         f"multiple of 8 (16-byte rows), got {D}")
+
+
+def _aligned(x):
+    """x itself if its rows start on 16 bytes, as the tensor-core kernels'
+    asynchronous copies need; else a contiguous copy (D % 8 == 0 makes its
+    strides multiples of 8 elements)."""
+    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(q, k, v, seg, which, *tensors):
+    """Call ``dae_flash_attention_<which>`` of q's route; returns the route."""
+    route = ROUTES[q.dtype]
+    library = LIBRARIES[route]
+    if route == "tensor_core":
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    B, T, H, D = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = getattr(library.load(), f"dae_flash_attention_{which}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        seg.data_ptr(), *(t.data_ptr() for t in tensors),
+        B, H, T, D, 1.0 / math.sqrt(D), stream)
+    library.check(code, f"flash attention {which} ({route})")
+    return route
 
 
 def _kernel_fwd(q, k, v, seg):
     global fwd_launches
-    lib = LIBRARY.load()
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.dae_flash_attention_fwd(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, H, T, D, 1.0 / math.sqrt(D), stream)
-    LIBRARY.check(code, "flash attention forward")
+    route = _launch(q, k, v, seg, "fwd", out, lse)
     fwd_launches += 1
+    route_launches[route][0] += 1
     return out, lse
 
 
 def _kernel_bwd(q, k, v, seg, out, lse, dout):
     global bwd_launches
-    lib = LIBRARY.load()
     B, T, H, D = q.shape
-    dout = dout.contiguous()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty_like(dq)
     dv = torch.empty_like(dq)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.dae_flash_attention_bwd(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        seg.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, T, D, 1.0 / math.sqrt(D), stream)
-    LIBRARY.check(code, "flash attention backward")
+    if ROUTES[q.dtype] == "tensor_core":
+        dout = _aligned(dout)
+    route = _launch(q, k, v, seg, "bwd", out, dout, lse, delta, dq, dk, dv)
     bwd_launches += 1
+    route_launches[route][1] += 1
     return dq, dk, dv
 
 
@@ -200,7 +230,7 @@ def flash_attention_bwd(q, k, v, mask, out, lse, dout):
         raise ValueError(f"lse must be float32 [B, H, T], got {lse.dtype} {tuple(lse.shape)}")
     if q.device.type == "cuda":
         seg = mask.to(torch.int32).contiguous()
-        return _kernel_bwd(q, k, v, seg, out.contiguous(), lse.contiguous(), dout)
+        return _kernel_bwd(q, k, v, seg, out.contiguous(), lse.contiguous(), dout.contiguous())
     if q.device.type == "cpu":
         return attention_reference_bwd(q, k, v, mask, out, lse, dout)
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")

@@ -1,16 +1,19 @@
-// Masked flash attention for the conformer, forward and backward, for sm_90a.
+// Masked flash attention for the conformer in f32, forward and backward, for
+// sm_90a: the CUDA-core route.  bf16 input goes to the tensor-core kernels of
+// flash_attention_bf16.cu instead; this file serves f32, the parity route,
+// where TF32 tensor cores could not meet the 1e-4 agreement it is held to.
 //
 // Replaces the JAX package's kernels/attention.py:56 (`flash_attention`),
 // which hands the work to JAX's Pallas TPU kernels
 // (jax.experimental.pallas.ops.tpu.flash_attention: `_flash_attention_impl`
 // forward, `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq` backward).
 //
-// What it computes.  q, k, v [B, T, H, D] (any strides with a contiguous last
-// dimension) and an int32 segment id per frame [B, T] (valid = 1, pad = 0).
-// Key j counts for query i only when seg[i] == seg[j] (the TPU kernel's
+// What it computes.  q, k, v [B, T, H, D] f32 (any strides with a contiguous
+// last dimension) and an int32 segment id per frame [B, T] (valid = 1, pad =
+// 0).  Key j counts for query i only when seg[i] == seg[j] (the TPU kernel's
 // segment-id semantics, padding rows included).  Keys past T are masked by
 // bound.  Softmax scale is passed in (1/sqrt(D)).
-//   forward : O [B, T, H, D] in the input type, row log-sum-exp L [B, H, T] f32
+//   forward : O [B, T, H, D], row log-sum-exp L [B, H, T]
 //   backward: Delta = rowsum(dO * O); dK, dV (one block per key tile, loop
 //             over query tiles); dQ (one block per query tile, loop over key
 //             tiles).  P is recomputed from L.  No atomics: every output
@@ -18,22 +21,19 @@
 //             same in every run.
 //
 // Bound on this card.  At the flagship shape (B 2, T 2048, H 6, D 128) the
-// forward is 4*B*H*T^2*D = 25.8 GFLOP (26 us at 989 TFLOP/s bf16 dense) and
-// reads/writes ~25 MB (8 us at 3.35 TB/s): compute bound.  The backward is
-// about 2.5x the forward.
+// forward is 4*B*H*T^2*D = 25.8 GFLOP: 0.39 ms at 67 TFLOP/s, the f32 rate
+// outside the tensor cores, against ~50 MB of traffic (15 us at 3.35 TB/s):
+// compute bound.  The backward is about 2.5x the forward.
 //
-// Design.  Correct and simple first: tiles of 64 queries x 64 keys staged in
-// shared memory as f32 (rows padded to D+1 floats so that the 16 threads of a
-// half-warp reading 16 different rows hit 16 different banks), every product
-// on CUDA-core FMAs accumulated in f32, online softmax with a running max and
-// sum per row in registers.  256 threads; a thread owns a 4x4 block of the
-// score tile and a 4 x (D/16) block of the output tile.  It never holds the
-// [B, H, T, T] matrix in device memory.  The tensor cores (wgmma), TMA and
-// warp specialisation are not used yet: that is where the remaining factor to
-// the bound lies.
+// Design.  Correct and simple: tiles of 64 queries x 64 keys staged in shared
+// memory (rows padded to D+1 floats so that the 16 threads of a half-warp
+// reading 16 different rows hit 16 different banks), every product on
+// CUDA-core FMAs, online softmax with a running max and sum per row in
+// registers.  256 threads; a thread owns a 4x4 block of the score tile and a
+// 4 x (D/16) block of the output tile.  It never holds the [B, H, T, T]
+// matrix in device memory.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -50,25 +50,15 @@ struct Strides {
   long long b, t, h;              // element strides; the last dim has stride 1
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // rows [row0, row0 + BM) of slice (b, h) into dst [BM][LD]; rows past T are 0
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, Strides s,
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, Strides s,
                                           int b, int h, int row0, int T_len, int D) {
   for (int idx = threadIdx.x; idx < BM * D; idx += THREADS) {
     const int r = idx / D;
     const int d = idx - r * D;
     const int t = row0 + r;
     float x = 0.f;
-    if (t < T_len) x = to_f(src[(long long)b * s.b + (long long)t * s.t + (long long)h * s.h + d]);
+    if (t < T_len) x = src[(long long)b * s.b + (long long)t * s.t + (long long)h * s.h + d];
     dst[r * LD + d] = x;
   }
 }
@@ -127,11 +117,10 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, const
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            Strides sq, Strides sk, Strides sv, const int32_t* __restrict__ seg,
-           T* __restrict__ o, float* __restrict__ lse, int H, int T_len, int D, float scale) {
+           float* __restrict__ o, float* __restrict__ lse, int H, int T_len, int D, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BM * LD;
@@ -218,11 +207,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int t = row0 + ty + 16 * i;
     if (t < T_len) {
       const float inv = 1.f / l[i];
-      T* orow = o + (((long long)b * T_len + t) * H + h) * D;
+      float* orow = o + (((long long)b * T_len + t) * H + h) * D;
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) orow[d] = from_f<T>(acc[i][j] * inv);
+        if (d < D) orow[d] = acc[i][j] * inv;
       }
       if (tx == 0) lse[(long long)bh * T_len + t] = m[i] + logf(l[i]);
     }
@@ -235,15 +224,14 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
 // Delta[b, h, t] = sum_d dO * O, one warp per (b, t, h) row; o and dout are
 // contiguous [B, T, H, D]
-template <typename T>
-__global__ void bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+__global__ void bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                                  float* __restrict__ delta, long long n_rows, int H, int T_len,
                                  int D) {
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= n_rows) return;  // uniform across the warp
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += to_f(o[row * D + d]) * to_f(dout[row * D + d]);
+  for (int d = lane; d < D; d += 32) acc += o[row * D + d] * dout[row * D + d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -255,12 +243,13 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ 
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                Strides sq, Strides sk, Strides sv, const T* __restrict__ dout,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v,
+                Strides sq, Strides sk, Strides sv, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                const int32_t* __restrict__ seg, T* __restrict__ dk, T* __restrict__ dv, int H,
+                const int32_t* __restrict__ seg, float* __restrict__ dk, float* __restrict__ dv,
+                int H,
                 int T_len, int D, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -355,20 +344,19 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int j = 0; j < DPT; ++j) {
         const int d = tx + 16 * j;
         if (d < D) {
-          dk[off + d] = from_f<T>(adk[i][j] * scale);
-          dv[off + d] = from_f<T>(adv[i][j]);
+          dk[off + d] = adk[i][j] * scale;
+          dv[off + d] = adv[i][j];
         }
       }
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              Strides sq, Strides sk, Strides sv, const T* __restrict__ dout,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+              Strides sq, Strides sk, Strides sv, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              const int32_t* __restrict__ seg, T* __restrict__ dq, int H, int T_len, int D,
+              const int32_t* __restrict__ seg, float* __restrict__ dq, int H, int T_len, int D,
               float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -444,11 +432,11 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int i = 0; i < 4; ++i) {
     const int t = row0 + ty + 16 * i;
     if (t < T_len) {
-      T* row = dq + (((long long)b * T_len + t) * H + h) * D;
+      float* row = dq + (((long long)b * T_len + t) * H + h) * D;
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) row[d] = from_f<T>(adq[i][j] * scale);
+        if (d < D) row[d] = adq[i][j] * scale;
       }
     }
   }
@@ -460,91 +448,61 @@ constexpr size_t kDkdvSmem =
 constexpr size_t kDqSmem =
     (4 * BM * LD + BM * LDP + 2 * BM) * sizeof(float) + 2 * BM * sizeof(int);
 
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, Strides sq, Strides sk, Strides sv,
-               const int32_t* seg, void* o, float* lse, int B, int H, int T_len, int D,
-               float scale, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kFwdSmem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((T_len + BM - 1) / BM, B * H);
-  fwd_kernel<T><<<grid, THREADS, kFwdSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), sq, sk, sv,
-      seg, static_cast<T*>(o), lse, H, T_len, D, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, Strides sq, Strides sk, Strides sv,
-               const int32_t* seg, const void* o, const void* dout, const float* lse,
-               float* delta, void* dq, void* dk, void* dv, int B, int H, int T_len, int D,
-               float scale, cudaStream_t stream) {
-  const long long n_rows = (long long)B * T_len * H;
-  const int rows_per_block = 8;
-  bwd_delta_kernel<T><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block),
-                        32 * rows_per_block, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, n_rows, H, T_len, D);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  e = cudaFuncSetAttribute(bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kDkdvSmem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kDqSmem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((T_len + BM - 1) / BM, B * H);
-  bwd_dkdv_kernel<T><<<grid, THREADS, kDkdvSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), sq, sk, sv,
-      static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dk), static_cast<T*>(dv), H,
-      T_len, D, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  bwd_dq_kernel<T><<<grid, THREADS, kDqSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), sq, sk, sv,
-      static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dq), H, T_len, D, scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are element strides of the
-// batch, time and head dimensions.  Returns a cudaError_t (0 on success).
-extern "C" int dae_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
+// Strides are element strides of the batch, time and head dimensions.
+// Returns a cudaError_t (0 on success).
+extern "C" int dae_flash_attention_fwd(const float* q, const float* k, const float* v,
                                        long long sqb, long long sqt, long long sqh,
                                        long long skb, long long skt, long long skh,
                                        long long svb, long long svt, long long svh,
-                                       const int32_t* seg, void* o, float* lse, int B, int H,
-                                       int T_len, int D, float scale, void* stream) {
+                                       const int32_t* seg, float* o, float* lse, int B,
+                                       int H, int T_len, int D, float scale, void* stream) {
   if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
   const Strides sq = {sqb, sqt, sqh}, sk = {skb, skt, skh}, sv = {svb, svt, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
-  return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kFwdSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((T_len + BM - 1) / BM, B * H);
+  fwd_kernel<<<grid, THREADS, kFwdSmem, st>>>(q, k, v, sq, sk, sv, seg, o, lse, H, T_len, D,
+                                              scale);
+  return (int)cudaGetLastError();
 }
 
 // o and dout are contiguous [B, T, H, D]; dq, dk, dv are written contiguous
 // [B, T, H, D]; delta is f32 scratch [B, H, T].
-extern "C" int dae_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+extern "C" int dae_flash_attention_bwd(const float* q, const float* k, const float* v,
                                        long long sqb, long long sqt, long long sqh,
                                        long long skb, long long skt, long long skh,
                                        long long svb, long long svt, long long svh,
-                                       const int32_t* seg, const void* o, const void* dout,
-                                       const float* lse, float* delta, void* dq, void* dk,
-                                       void* dv, int B, int H, int T_len, int D, float scale,
-                                       void* stream) {
+                                       const int32_t* seg, const float* o,
+                                       const float* dout, const float* lse, float* delta,
+                                       float* dq, float* dk, float* dv, int B, int H,
+                                       int T_len, int D, float scale, void* stream) {
   if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
   const Strides sq = {sqb, sqt, sqh}, sk = {skb, skt, skh}, sv = {svb, svt, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_bwd<float>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H,
-                             T_len, D, scale, st);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv,
-                                     B, H, T_len, D, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const long long n_rows = (long long)B * T_len * H;
+  const int rows_per_block = 8;
+  bwd_delta_kernel<<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block),
+                     32 * rows_per_block, 0, st>>>(o, dout, delta, n_rows, H, T_len, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kDkdvSmem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kDqSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((T_len + BM - 1) / BM, B * H);
+  bwd_dkdv_kernel<<<grid, THREADS, kDkdvSmem, st>>>(q, k, v, sq, sk, sv, dout, lse, delta, seg,
+                                                    dk, dv, H, T_len, D, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_dq_kernel<<<grid, THREADS, kDqSmem, st>>>(q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, H,
+                                                T_len, D, scale);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* dae_cuda_error_string(int code) {
