@@ -5,9 +5,9 @@
 Phases (each raises on failure; the script then exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the hand-written CUDA kernels from the checkout (one nvcc per
-   source, all started together, sm_90a) and print each kernel's registers
-   and spills;
+2. build the hand-written CUDA kernels from the checkout (five sources, one
+   nvcc each, all started together, sm_90a) and print each kernel's
+   registers and spills;
 3. each kernel against its plain PyTorch version on the same inputs, TF32
    off, the plain version computed in f32.  Tolerance: |kernel - plain| <=
    1e-4 (f32) or 2e-2 (bf16) of max |plain|:
@@ -22,20 +22,27 @@ Phases (each raises on failure; the script then exits non-zero):
      most 5 % of elements differing in dq, dk, dv, and in out at T 37);
    - fused subsampling, forward and backward (gx and all 10 weight
      gradients), at the flagship window [2, 16384, 80] with C 256 and ragged
-     [3, 1001, 80], bf16 and f32; the backward runs twice and must repeat bit
-     for bit (no atomics);
+     [3, 1001, 80], bf16 (the tensor-core kernels) and f32 (the CUDA-core
+     kernels); the backward runs twice and must repeat bit for bit (no
+     atomics), and each dtype must take its route; the bf16 kernels are also
+     held against the plain version on the bf16 tensors
+     (``check_subsample_rounding``: every output within 2 bf16 ulps of its
+     max, at most 2 % of out's and 15 % of gx's elements differing);
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
      100 and at (1, 2048, 2048);
 4. kernel, plain and library times (CUDA events after warm-up) at the
    flagship or benchmark shape, and the least time the card could take
-   (bound).  Attention is timed on both routes: bf16 (tensor cores, the
-   main path) and f32 (CUDA cores, the parity route).  Library: SDPA with a
-   boolean mask in the same dtype for attention; for the fused
-   subsampling, the cuDNN stack the ``"conv"`` path runs (four ``F.conv2d``
-   calls with their activations, forward, and backward through autograd);
-   none for soft-DTW.  The port never calls a library yardstick;
+   (bound).  Attention and subsampling are timed on both routes: bf16
+   (tensor cores, the main path) and f32 (CUDA cores, the parity route).
+   Library: SDPA with a boolean mask in the same dtype for attention; for
+   the fused subsampling, the cuDNN stack the ``"conv"`` path runs (four
+   ``F.conv2d`` calls with their activations, forward, and backward through
+   autograd) in the same dtype; none for soft-DTW.  The port never calls a
+   library yardstick.  Then one bf16 subsampling forward and one backward
+   under torch.profiler, broken down by kernel (a
+   ``{"subsample_breakdown": ...}`` line);
 5. the main path: the port's NSTI driver (``evals/run.py`` ``main``) on one
    30720-frame ``synthetic_spec`` recording (9 windows of seq 16384 /
    overlap 14336, the last ragged at 14336 frames) at the flagship widths
@@ -56,10 +63,13 @@ Phases (each raises on failure; the script then exits non-zero):
    run under torch.profiler for device busy time, idle share, device time
    by kernel family and the top kernels (a ``{"profile": ...}`` line);
 5b-7b. the same for ``subsampling_impl="pallas"`` (the fused subsampling
-   kernel on the path); 6b also holds the full-depth f32 model with the
-   kernel against the same model on the plain subsampling version and
-   against the ``"conv"`` model, on lengths [4000, 3000] (multiples of 8,
-   where the two semantics agree), within 1e-3 on valid frames;
+   kernels on the path; every subsampling launch must have taken the bf16
+   route too); 6b also holds the full-depth f32 model through the f32
+   subsampling kernels against the same model on the plain subsampling
+   version (output and weight gradients) and against the ``"conv"`` model
+   (output), on lengths [4000, 3000] (multiples of 8, where the two
+   semantics agree), within 1e-3 on valid frames: this run's f32-route
+   launches are ``fused_subsample_f32``'s ``parity_launches``;
 8. soft-DTW's own path: ``benchmark(use_pallas=True)`` on the card, value
    and gradient of ``SoftDTW`` through both kernels, its launch counters
    zeroed just before and read just after.
@@ -88,6 +98,10 @@ FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (tests/test_torch_chip_smoke.py)
 BF16_ULPS = 1.0
 BF16_DIFF_SHARE = 0.05
+# the bf16 subsampling kernels against the rounding plain version: bf16 ulps
+# of max |plain| for every output, share of differing elements for out and gx
+SUB_BF16_ULPS = 2.0
+SUB_DIFF_SHARE = {"out": 0.02, "gx": 0.15}
 ATTENTION_KEY_TILE = 64  # keys per tile of the bf16 forward kernel
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
@@ -104,7 +118,8 @@ SDTW_CASES = ((SDTW_BENCH, 0), ((2, 1500, 700), 100), ((1, 2048, 2048), 0))
 FAMILIES = (
     ("flash_attention", ("tc_attention_", "fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
                          "bwd_delta_kernel")),
-    ("fused_subsample", ("::pw_kernel<", "::wgrad_kernel<", "::dw_bwd_kernel<", "::gx_kernel<",
+    ("fused_subsample", ("::tc_pw_kernel<", "::tc_wgrad_kernel(", "::weights_kernel(",
+                         "::pw_kernel<", "::wgrad_kernel<", "::dw_bwd_kernel<", "::gx_kernel",
                          "namespace)::reduce_kernel(")),
     ("conv", ("conv", "cudnn", "fprop", "implicit", "wgrad", "dgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "ampere_", "cublas")),
@@ -298,20 +313,54 @@ def subsample_inputs(S, B, T, F, C, dtype, seed=0):
 
 def check_subsample(S, shape, dtype):
     x, ws, gout = subsample_inputs(S, *shape, dtype)
+    S.reset_counters()
     out = S.fused_subsample_fwd(x, ws)
     gx, gws = S.fused_subsample_bwd(x, ws, gout)
     gx2, gws2 = S.fused_subsample_bwd(x, ws, gout)
+    route = S.ROUTES[dtype]
+    if S.route_launches[route] != [1, 2]:
+        raise AssertionError(f"fused subsampling {dtype}: launches by route {S.route_launches}, "
+                             f"expected {route} only")
     ref = S.fused_subsample_reference(x.float(), *ws)
     ref_gx, ref_gws = S.fused_subsample_reference_bwd(x.float(), ws, gout.float(), "silu", True)
     torch.cuda.synchronize()
+    what = f"fused subsampling {dtype} {shape}"
     if not (torch.equal(gx, gx2) and all(torch.equal(a, b) for a, b in zip(gws, gws2))):
-        raise AssertionError(f"fused subsampling backward {shape} {dtype} does not repeat bit for bit")
-    errs = check_close(f"fused subsampling {dtype} {shape}",
-                       zip(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + gws,
-                           [ref, ref_gx] + ref_gws), FWD_TOL[dtype])
-    log(f"  fused subsampling {str(dtype):15s} {shape}: out {errs['out']:.2e}, gx {errs['gx']:.2e}, "
+        raise AssertionError(f"{what}: the backward does not repeat bit for bit")
+    errs = check_close(what, zip(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + gws,
+                                 [ref, ref_gx] + ref_gws), FWD_TOL[dtype])
+    log(f"  {what} ({route}): out {errs['out']:.2e}, gx {errs['gx']:.2e}, "
         f"weights {max(errs[n] for n in S.WEIGHT_NAMES):.2e}; backward repeats bit for bit")
+    if dtype == torch.bfloat16:
+        check_subsample_rounding(S, what, x, ws, gout, out, gx, gws)
     return errs
+
+
+def check_subsample_rounding(S, what, x, ws, gout, out, gx, gws):
+    """The bf16 kernels against the plain version on the same bf16 tensors,
+    which rounds where the TPU kernel (and so the kernels) round.  Every
+    output within SUB_BF16_ULPS bf16 ulps of its max |plain|; the share of
+    elements that differ at all within SUB_DIFF_SHARE for out and gx (the
+    weight gradients are f32 sums taken in another order, so all of their
+    elements differ a little)."""
+    r_out = S.fused_subsample_reference(x, *ws)
+    r_gx, r_gws = S.fused_subsample_reference_bwd(x, ws, gout, "silu", True)
+    torch.cuda.synchronize()
+    report, worst = [], 0.0
+    for name, a, b in zip(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + gws, [r_out, r_gx] + r_gws):
+        ulps = (a.float() - b.float()).abs().max().item() / bf16_ulp(b.float().abs().max().item())
+        worst = max(worst, ulps)
+        if name in ("out", "gx"):
+            share = (a != b.to(a.dtype)).float().mean().item()
+            if not share <= SUB_DIFF_SHARE[name]:
+                raise AssertionError(f"{what} against the rounding plain version: {name} {share:.4f} "
+                                     f"of elements differ")
+            report.append(f"{name} {ulps:.2f} ulp, {share:.4f} differ")
+        if not ulps <= SUB_BF16_ULPS:
+            raise AssertionError(f"{what} against the rounding plain version: {name} {ulps} ulps "
+                                 f"of max")
+    log(f"    against the plain version rounding as the kernels: {', '.join(report)}, "
+        f"weights <= {worst:.2f} ulp")
 
 
 def conv_weights(S, ws, dtype):
@@ -372,6 +421,41 @@ def time_subsample(S, dtype=torch.bfloat16):
     bounds = {k: bound(f, b, PEAK_FLOPS[dtype])
               for k, (f, b) in subsample_work(*SUB_FLAGSHIP, dtype).items()}
     return t, bounds
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without ``void``, the namespace and the parameters."""
+    name = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0]
+
+
+def subsample_breakdown(S, card):
+    """One forward and one backward call of the bf16 route at the flagship
+    window (no gx, as on the main path) under torch.profiler: device ms and
+    launches of each kernel inside them (a ``{"subsample_breakdown": ...}``
+    line)."""
+    x, ws, gout = subsample_inputs(S, *SUB_FLAGSHIP, torch.bfloat16, seed=1)
+    result = {"card": card, "shape": SUB_FLAGSHIP}
+    for kind, fn in (("fwd", lambda: S.fused_subsample_fwd(x, ws)),
+                     ("bwd", lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=False))):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
+                rows.append([kernel_name(evt.key), evt.count, dev_us / 1e3])
+        result[kind] = sorted(rows, key=lambda r: -r[2]) or "not measured"
+    for kind in ("fwd", "bwd"):
+        log(f"  fused subsampling bf16 {kind} by kernel: " + (
+            ", ".join(f"{n} x{c} {ms:.4f} ms" for n, c, ms in result[kind])
+            if isinstance(result[kind], list) else result[kind]))
+    print(json.dumps({"subsample_breakdown": result}))
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +542,7 @@ class EngineRecorder:
 
 def main_path(cfg, kernel_modules):
     """The driver on the flagship recording; returns (wer, wall, {module:
-    (fwd, bwd) launches}, attention's {route: (fwd, bwd)}, result detail,
+    (fwd, bwd) launches}, {module: {route: (fwd, bwd)}}, result detail,
     recorder)."""
     import pickle
 
@@ -482,7 +566,8 @@ def main_path(cfg, kernel_modules):
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = {k: (m.fwd_launches, m.bwd_launches) for k, m in kernel_modules.items()}
-            routes = {r: tuple(c) for r, c in kernel_modules["attention"].route_launches.items()}
+            routes = {k: {r: tuple(c) for r, c in m.route_launches.items()}
+                      for k, m in kernel_modules.items()}
         finally:
             run.build_engine = build_engine
         with open(os.path.join(tmp, "r_1.pkl"), "rb") as f:
@@ -536,6 +621,26 @@ def f32_model(params, **overrides):
     return model
 
 
+def model_run(model, x, lengths):
+    """The model's output and the weight gradients of its valid frames'
+    summed log-probs."""
+    out = model(x, lengths)
+    logp = out["final_posteriors"]
+    valid = torch.arange(logp.shape[1], device="cuda")[None] < out["length"][:, None]
+    loss = (logp * valid[..., None]).sum()
+    names, weights = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, weights, allow_unused=True)
+    return out, {n: g for n, g in zip(names, grads) if g is not None}
+
+
+def grad_err(grads_a, grads_b):
+    """Largest difference of two gradient sets, each weight against its own
+    max |value| (or 1 % of the largest where that is more)."""
+    top = {n: g.abs().max().item() for n, g in grads_b.items()}
+    floor = 1e-2 * max(top.values())  # a weight whose gradient is ~0 on both paths
+    return max((grads_a[n] - grads_b[n]).abs().max().item() / max(top[n], floor) for n in grads_b)
+
+
 def check_attention_model(params, A):
     """The full-depth model in f32 on a small input: kernel path against the
     plain attention path, output on valid frames and weight gradients of the
@@ -544,25 +649,13 @@ def check_attention_model(params, A):
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(2, 80, 4000, generator=g, device="cuda")
     lengths = torch.tensor([4000, 3001], device="cuda")
-
-    def run(model):
-        out = model(x, lengths)
-        logp = out["final_posteriors"]
-        valid = torch.arange(logp.shape[1], device="cuda")[None] < out["length"][:, None]
-        loss = (logp * valid[..., None]).sum()
-        names, weights = zip(*model.named_parameters())
-        grads = torch.autograd.grad(loss, weights, allow_unused=True)
-        return out, {n: g for n, g in zip(names, grads) if g is not None}
-
     A.reset_counters()
-    a, grads_a = run(f32_model(params))
+    a, grads_a = model_run(f32_model(params), x, lengths)
     torch.cuda.synchronize()
     launches = tuple(A.route_launches["cuda_core"])
-    b, grads_b = run(f32_model(params, attention_impl="xla"))
+    b, grads_b = model_run(f32_model(params, attention_impl="xla"), x, lengths)
     err = valid_frame_err(a, b)
-    top = {n: g.abs().max().item() for n, g in grads_b.items()}
-    floor = 1e-2 * max(top.values())  # a weight whose gradient is ~0 on both paths
-    gerr = max((grads_a[n] - grads_b[n]).abs().max().item() / max(top[n], floor) for n in grads_b)
+    gerr = grad_err(grads_a, grads_b)
     if not (err <= 1e-3 and gerr <= 1e-3 and launches[0] > 0 and launches[1] > 0):
         raise AssertionError(f"kernel-path model vs plain path: output |err| {err:.3e}, weight "
                              f"gradients {gerr:.3e} of max (> 1e-3?), f32 launches {launches}")
@@ -574,32 +667,39 @@ def check_attention_model(params, A):
 
 def check_subsample_model(params, S):
     """The full-depth f32 model with ``"pallas"`` subsampling: through the
-    kernel, against the same model on the plain subsampling version, and
-    against the ``"conv"`` model, at lengths that are multiples of 8."""
+    kernels (the f32 route), against the same model on the plain subsampling
+    version (output on valid frames and weight gradients of the valid frames'
+    summed log-probs) and against the ``"conv"`` model (output), at lengths
+    that are multiples of 8.  Returns the f32 route's (fwd, bwd) launches
+    (its parity launches)."""
     import dynamic_asr_eval_tpu_torch.models.conformer as conformer
 
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(2, 80, 4000, generator=g, device="cuda")
     lengths = torch.tensor([4000, 3000], device="cuda")
     model = f32_model(params, subsampling_impl="pallas")
+    S.reset_counters()
+    a, grads_a = model_run(model, x, lengths)
+    torch.cuda.synchronize()
+    launches = tuple(S.route_launches["cuda_core"])
+    kernel_entry = conformer.fused_subsample
+    conformer.fused_subsample = S.fused_subsample_reference
+    try:
+        b, grads_b = model_run(model, x, lengths)
+    finally:
+        conformer.fused_subsample = kernel_entry
     with torch.no_grad():
-        S.reset_counters()
-        a = model(x, lengths)
-        if S.fwd_launches != 1:
-            raise AssertionError(f"the pallas model launched the kernel {S.fwd_launches} times")
-        kernel_entry = conformer.fused_subsample
-        conformer.fused_subsample = S.fused_subsample_reference
-        try:
-            b = model(x, lengths)
-        finally:
-            conformer.fused_subsample = kernel_entry
         c = f32_model(params)(x, lengths)
     err_plain, err_conv = valid_frame_err(a, b), valid_frame_err(a, c)
-    if not (err_plain <= 1e-3 and err_conv <= 1e-3):
-        raise AssertionError(f"pallas model: vs plain subsampling {err_plain:.3e}, "
-                             f"vs conv model {err_conv:.3e} (> 1e-3)")
-    log(f"  full-depth f32 model, subsampling kernel vs plain version {err_plain:.2e}, "
-        f"vs the conv model {err_conv:.2e} on valid frames")
+    gerr = grad_err(grads_a, grads_b)
+    if not (err_plain <= 1e-3 and err_conv <= 1e-3 and gerr <= 1e-3 and launches == (1, 1)):
+        raise AssertionError(f"pallas model: vs plain subsampling {err_plain:.3e} (weight gradients "
+                             f"{gerr:.3e} of max), vs conv model {err_conv:.3e} (> 1e-3?); f32 "
+                             f"launches {launches}")
+    log(f"  full-depth f32 model, subsampling kernels vs plain version {err_plain:.2e} (weight "
+        f"gradients {gerr:.2e} of max), vs the conv model {err_conv:.2e} on valid frames; f32 "
+        f"(cuda_core) launches fwd {launches[0]}, bwd {launches[1]}")
+    return launches
 
 
 def ptxas_report(build_log: str):
@@ -694,10 +794,11 @@ def drive(label, cfg, kernel_modules, expect, card, check_model):
         f"bf16, subsampling_impl={cfg.subsampling_impl!r}")
     wer, wall, launches, routes, detail, recorder = main_path(cfg, kernel_modules)
     check_launches(launches, expect)
-    if routes != {"tensor_core": launches["attention"], "cuda_core": (0, 0)}:
-        raise AssertionError(f"attention launches by route {routes}: not all on the bf16 "
-                             f"tensor-core kernels")
-    log(f"  WER {wer}; launches {launches}; attention by route {routes}; driver wall {wall:.3f} s "
+    for name, by_route in routes.items():
+        if by_route != {"tensor_core": launches[name], "cuda_core": (0, 0)}:
+            raise AssertionError(f"{name} launches by route {by_route}: not all on the bf16 "
+                                 f"tensor-core kernels")
+    log(f"  WER {wer}; launches {launches}; by route {routes}; evals.run wall {wall:.3f} s "
         f"(record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up)")
     log(f"[6{label}] output checks")
     params = check_driver_output(cfg, wer, detail, recorder)
@@ -727,7 +828,7 @@ def main() -> int:
         "TF32 off for matmuls and cuDNN in every phase")
 
     t0 = time.time()
-    libraries = list(A.LIBRARIES.values()) + [S.LIBRARY, D.LIBRARY]
+    libraries = list(A.LIBRARIES.values()) + list(S.LIBRARIES.values()) + [D.LIBRARY]
     with ThreadPoolExecutor(len(libraries)) as pool:
         for fut in [pool.submit(lib.load) for lib in libraries]:
             fut.result()
@@ -753,7 +854,7 @@ def main() -> int:
         if shape == SDTW_BENCH:
             errs["sdtw"] = e
 
-    log("[4] timing at the flagship (attention: bf16 and f32; subsampling: bf16) and "
+    log("[4] timing at the flagship (attention and subsampling: bf16 and f32) and "
         "benchmark (soft-DTW: f32) shapes")
     times = {}
     for name, (t, bnd) in (
@@ -761,18 +862,20 @@ def main() -> int:
             ("flash_attention_f32",
              time_attention(A, 2, 2048, 6, 128, [2048, 1600], torch.float32)),
             ("fused_subsample", time_subsample(S)),
+            ("fused_subsample_f32", time_subsample(S, torch.float32)),
             ("softdtw", time_softdtw(D))):
         times[name] = (t, bnd)
         for k, v in t.items():
             log(f"  {name} {k}: {v:.4f} ms")
         for k, (ms, by) in bnd.items():
             log(f"  {name} bound {k}: {ms * 1e3:.2f} us ({by})")
+    subsample_breakdown(S, card)
 
     attn_per_window = (flagship_config().n_layers, flagship_config().n_layers)
     _, routes, parity_launches = drive("", flagship_config(), {"attention": A},
                                        {"attention": attn_per_window}, card,
                                        lambda params: check_attention_model(params, A))
-    pallas_launches, _, _ = drive("b", flagship_config(subsampling_impl="pallas"),
+    _, pallas_routes, sub_parity_launches = drive("b", flagship_config(subsampling_impl="pallas"),
                                   {"attention": A, "subsample": S},
                                   {"attention": attn_per_window, "subsample": (1, 1)}, card,
                                   lambda params: check_subsample_model(params, S))
@@ -792,7 +895,8 @@ def main() -> int:
 
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
-               "fused_subsample": "fused_subsample.cu", "softdtw": "softdtw.cu"}
+               "fused_subsample": "fused_subsample_bf16.cu",
+               "fused_subsample_f32": "fused_subsample.cu", "softdtw": "softdtw.cu"}
     replaces = {
         ("flash_attention", "fwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
         ("flash_attention", "bwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
@@ -800,14 +904,21 @@ def main() -> int:
         ("flash_attention_f32", "bwd"): "dynamic_asr_eval_tpu/kernels/attention.py:56",
         ("fused_subsample", "fwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:278",
         ("fused_subsample", "bwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:438",
+        ("fused_subsample_f32", "fwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:278",
+        ("fused_subsample_f32", "bwd"): "dynamic_asr_eval_tpu/kernels/subsample.py:438",
         ("softdtw", "fwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:129",
         ("softdtw", "bwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:92",
     }
-    # launches on the main path ("conv" run, by route; soft-DTW: its own
-    # path); the f32 route is the parity route and runs 0 times there, its
-    # count in phase 6's f32 model run goes under "parity_launches"
-    launches = {"flash_attention": routes["tensor_core"], "flash_attention_f32": routes["cuda_core"],
-                "fused_subsample": pallas_launches["subsample"], "softdtw": sdtw_launches}
+    # launches on the main path (by route: attention in the "conv" run,
+    # subsampling in the "pallas" run; soft-DTW: its own path); the f32 routes
+    # are the parity routes and run 0 times there, their counts in the f32
+    # model runs of phases 6 and 6b go under "parity_launches"
+    launches = {"flash_attention": routes["attention"]["tensor_core"],
+                "flash_attention_f32": routes["attention"]["cuda_core"],
+                "fused_subsample": pallas_routes["subsample"]["tensor_core"],
+                "fused_subsample_f32": pallas_routes["subsample"]["cuda_core"],
+                "softdtw": sdtw_launches}
+    parity = {"flash_attention_f32": parity_launches, "fused_subsample_f32": sub_parity_launches}
     err_keys = {
         ("flash_attention", "fwd"): (errs[("attn", torch.bfloat16)], ("out",)),
         ("flash_attention", "bwd"): (errs[("attn", torch.bfloat16)], ("dq", "dk", "dv")),
@@ -815,15 +926,18 @@ def main() -> int:
         ("flash_attention_f32", "bwd"): (errs[("attn", torch.float32)], ("dq", "dk", "dv")),
         ("fused_subsample", "fwd"): (errs[("sub", torch.bfloat16)], ("out",)),
         ("fused_subsample", "bwd"): (errs[("sub", torch.bfloat16)], ("gx",) + S.WEIGHT_NAMES),
+        ("fused_subsample_f32", "fwd"): (errs[("sub", torch.float32)], ("out",)),
+        ("fused_subsample_f32", "bwd"): (errs[("sub", torch.float32)], ("gx",) + S.WEIGHT_NAMES),
         ("softdtw", "fwd"): (errs["sdtw"], ("R",)),
         ("softdtw", "bwd"): (errs["sdtw"], ("E",)),
     }
     kernels = []
-    for name in ("flash_attention", "flash_attention_f32", "fused_subsample", "softdtw"):
+    for name in ("flash_attention", "flash_attention_f32", "fused_subsample", "fused_subsample_f32",
+                 "softdtw"):
         t, bnd = times[name]
         for i, kind in enumerate(("fwd", "bwd")):
             e, keys = err_keys[(name, kind)]
-            extra = {"parity_launches": parity_launches[i]} if name == "flash_attention_f32" else {}
+            extra = {"parity_launches": parity[name][i]} if name in parity else {}
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",

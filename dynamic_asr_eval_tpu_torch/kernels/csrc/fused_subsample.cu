@@ -1,15 +1,18 @@
-// Fused x8 dw-striding subsampling stack, forward and backward, for sm_90a.
+// Fused x8 dw-striding subsampling stack, forward and backward, for sm_90a,
+// on CUDA cores: the f32 (parity) route.  bf16 input goes to the
+// tensor-core kernels of fused_subsample_bf16.cu instead.
 //
 // Replaces the JAX package's kernels/subsample.py: `fused_subsample`
 // (:504-529), whose forward is the Pallas call `_fwd_pallas` (:278-300,
 // body `_fwd_kernel` :239) and whose backward is `_bwd_pallas` (:438-485,
 // body `_bwd_kernel` :333) under `_fused_bwd` (:532-566).
 //
-// What it computes.  x [B, T, F] (F % 8 == 0) in the compute type T (f32 or
-// bf16); weights f32 in the JAX layouts, packed into one buffer (see
-// `Pack`): k9, dw1, dw2 [9, C] with (dt, df) row-major, pw1, pw2
-// [C_in, C_out], biases [C].  Every 3x3 conv has stride 2 and padding
-// (1, 1); there are no masks between stages (the TPU kernel's semantics):
+// What it computes.  x [B, T, F] (F % 8 == 0) in the compute type T (the
+// kernels are templates on it; the entry points take f32); weights f32 in
+// the JAX layouts, packed into one buffer (see `Pack`): k9, dw1, dw2 [9, C]
+// with (dt, df) row-major, pw1, pw2 [C_in, C_out], biases [C].  Every 3x3
+// conv has stride 2 and padding (1, 1); there are no masks between stages
+// (the TPU kernel's semantics):
 //   s0 = act(conv3x3(x; k9) + b0)                      [B, T0, F0, C]
 //   d1 = dwconv3x3(s0; dw1) + bdw1;  s1 = act(d1 @ pw1 + bpw1)   [B, T1, F1, C]
 //   d2 = dwconv3x3(s1; dw2) + bdw2;  out = act(d2 @ pw2 + bpw2)  [B, T2, F2, C]
@@ -43,7 +46,7 @@
 //   each block writes f32 partials over a fixed range of positions and
 //   `reduce_kernel` sums them in a fixed order.  No atomics: runs repeat
 //   bit for bit.
-// Tensor cores (wgmma), TMA and keeping s1 on chip are later work.
+// TF32 tensor cores could not hold the f32 route to its parity bars.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -703,40 +706,38 @@ bool dims_ok(int B, int T, int F, int C) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  act: 0 silu, 1 relu, 2 gelu (tanh).
-// w: the packed f32 weights (k9, b0, dw1, bdw1, pw1, bpw1, dw2, bdw2, pw2,
-// bpw2).  Tensors are contiguous.  Each entry point returns a cudaError_t.
+// The f32 (parity) route: dtype 0 only (bf16 goes to fused_subsample_bf16.cu,
+// which exports the same entry points).  act: 0 silu, 1 relu, 2 gelu
+// (tanh).  w: the packed f32 weights (k9, b0, dw1, bdw1, pw1, bpw1, dw2,
+// bdw2, pw2, bpw2).  Tensors are contiguous.  Each entry point returns a
+// cudaError_t.
 
-// Bytes of scratch the backward needs (the forward needs B*T1*F1*C
-// elements of the compute type for s1).
-extern "C" long long dae_fused_subsample_workspace(int dtype, int B, int T, int F, int C) {
-  if (!dims_ok(B, T, F, C) || (dtype != 0 && dtype != 1)) return -1;
-  return (long long)make_work(make_dims(B, T, F, C), dtype == 0 ? 4 : 2).total;
+// Bytes of scratch the forward (pass 0: s1) or the backward (pass 1) needs;
+// -1 for what the kernels do not take
+extern "C" long long dae_fused_subsample_workspace(int dtype, int pass, int B, int T, int F,
+                                                   int C) {
+  if (!dims_ok(B, T, F, C) || dtype != 0 || (pass != 0 && pass != 1)) return -1;
+  const Dims d = make_dims(B, T, F, C);
+  return pass == 0 ? (long long)align256(d.M1 * C * sizeof(float))
+                   : (long long)make_work(d, sizeof(float)).total;
 }
 
-// x [B, T, F] -> out [B, T2, F2, C]; s1 scratch [B, T1, F1, C]
+// x [B, T, F] -> out [B, T2, F2, C]; work holds the forward's workspace (s1)
 extern "C" int dae_fused_subsample_fwd(int dtype, int act, const void* x, int B, int T, int F,
-                                       int C, const float* w, void* s1, void* out, void* stream) {
-  if (!dims_ok(B, T, F, C) || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(B, T, F, C);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return forward<float>(x, d, w, act, s1, out, st);
-  if (dtype == 1) return forward<__nv_bfloat16>(x, d, w, act, s1, out, st);
-  return (int)cudaErrorInvalidValue;
+                                       int C, const float* w, void* out, void* work, void* stream) {
+  if (!dims_ok(B, T, F, C) || dtype != 0 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  return forward<float>(x, make_dims(B, T, F, C), w, act, work, out,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // g [B, T2, F2, C] -> gx [B, T, F] (skipped when gx is null) and the packed
-// f32 weight gradients gw; work holds dae_fused_subsample_workspace bytes
+// f32 weight gradients gw; work holds the backward's workspace bytes
 extern "C" int dae_fused_subsample_bwd(int dtype, int act, const void* x, const void* g, int B,
                                        int T, int F, int C, const float* w, void* gx, float* gw,
                                        void* work, void* stream) {
-  if (!dims_ok(B, T, F, C) || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(B, T, F, C);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  char* wk = static_cast<char*>(work);
-  if (dtype == 0) return backward<float>(x, g, d, w, act, gx, gw, wk, st);
-  if (dtype == 1) return backward<__nv_bfloat16>(x, g, d, w, act, gx, gw, wk, st);
-  return (int)cudaErrorInvalidValue;
+  if (!dims_ok(B, T, F, C) || dtype != 0 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  return backward<float>(x, g, make_dims(B, T, F, C), w, act, gx, gw, static_cast<char*>(work),
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* dae_cuda_error_string(int code) {

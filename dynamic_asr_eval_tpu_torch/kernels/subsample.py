@@ -14,17 +14,27 @@ whose valid length is not a multiple of 8.
 
 - :func:`fused_subsample` is the entry point.  It is a
   ``torch.autograd.Function``: on CUDA tensors the forward and the backward
-  launch the kernels of ``csrc/fused_subsample.cu`` (``nvcc`` for ``sm_90a``
-  at first use, ``ctypes``); on CPU tensors they run the plain version and
-  autograd through it.  A CUDA tensor goes through the kernel or the call
-  raises.
+  launch a kernel, chosen by dtype (the route); on CPU tensors they run the
+  plain version and autograd through it.  A CUDA tensor goes through its
+  route's kernel or the call raises: there is no fallback.
+- Routes (``ROUTES``):
+  - bf16 → ``"tensor_core"``: ``csrc/fused_subsample_bf16.cu``, both
+    pointwise products, forward and backward, on the tensor cores
+    (``mma.sync`` m16n8k16, bf16 in, f32 sums).  The main path: the flagship
+    runs in bf16.
+  - f32 → ``"cuda_core"``: ``csrc/fused_subsample.cu``, CUDA-core FMAs in
+    f32, the parity route (TF32 tensor cores could not hold its bars).
+  Both export the same C entry points (``dae_fused_subsample_fwd``,
+  ``_bwd``, ``_workspace``), are built with ``nvcc`` for ``sm_90a`` at first
+  use and bound with ``ctypes``.  Any B, T, F % 8 == 0 and C <= 256.
 - :func:`fused_subsample_reference` is the plain PyTorch version
   (``F.conv2d``), rounding to the compute dtype where the TPU kernel does.
-- ``fwd_launches`` / ``bwd_launches`` count kernel launches (the plain path
+- ``fwd_launches`` / ``bwd_launches`` count kernel launches of either route,
+  ``route_launches[route]`` = [forward, backward] per route (the plain path
   does not count).
 
-Bound on the H100 and what the design does about it: see the header of
-``csrc/fused_subsample.cu``.
+Bound on the H100 and what each design does about it: see the headers of the
+two sources.
 """
 
 from __future__ import annotations
@@ -37,23 +47,28 @@ import torch.nn.functional as F
 
 from dynamic_asr_eval_tpu_torch.kernels._build import CudaLibrary
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_subsample.cu"
-MAX_CHANNELS = 256  # the kernel keeps one output row of C channels per block
+CSRC = Path(__file__).resolve().parent / "csrc"
+MAX_CHANNELS = 256  # a block keeps all C output channels of its positions
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"silu": 0, "relu": 1, "gelu": 2}
 _ACTS = {"silu": F.silu, "relu": F.relu,
          "gelu": lambda z: F.gelu(z, approximate="tanh")}  # jax.nn.gelu's default
 WEIGHT_NAMES = ("k9", "b0", "dw1", "bdw1", "pw1", "bpw1", "dw2", "bdw2", "pw2", "bpw2")
 
-# launch counters: +1 per forward and per backward kernel launch
+# launch counters: +1 per forward and per backward kernel launch (each runs
+# several kernels, one after another)
 fwd_launches = 0
 bwd_launches = 0
+route_launches = {route: [0, 0] for route in ROUTES.values()}
 
 
 def reset_counters() -> None:
     global fwd_launches, bwd_launches
     fwd_launches = 0
     bwd_launches = 0
+    for counts in route_launches.values():
+        counts[:] = [0, 0]
 
 
 def ceil_chain(T: int):
@@ -102,16 +117,20 @@ def fused_subsample_reference(x, k9, b0, dw1, bdw1, pw1, bpw1, dw2, bdw2, pw2, b
 
 
 def _bind(lib) -> None:
+    """Both sources export the same three entry points with one signature."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dae_fused_subsample_workspace.restype = i64
-    lib.dae_fused_subsample_workspace.argtypes = [i32] * 5
+    lib.dae_fused_subsample_workspace.argtypes = [i32] * 6
     lib.dae_fused_subsample_fwd.restype = i32
     lib.dae_fused_subsample_fwd.argtypes = [i32, i32, vp] + [i32] * 4 + [vp] * 4
     lib.dae_fused_subsample_bwd.restype = i32
     lib.dae_fused_subsample_bwd.argtypes = [i32, i32, vp, vp] + [i32] * 4 + [vp] * 5
 
 
-LIBRARY = CudaLibrary(SOURCE, _bind)
+LIBRARIES = {
+    "cuda_core": CudaLibrary(CSRC / "fused_subsample.cu", _bind),
+    "tensor_core": CudaLibrary(CSRC / "fused_subsample_bf16.cu", _bind),
+}
 
 
 def _validate(x, weights, act_name):
@@ -120,7 +139,7 @@ def _validate(x, weights, act_name):
     B, T, Fd = x.shape
     if Fd % 8:
         raise ValueError(f"feat dim {Fd} must be divisible by 8")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in ROUTES:
         raise TypeError(f"fused subsampling takes float32 or bfloat16 x, got {x.dtype}")
     if act_name not in _ACT_CODES:
         raise ValueError(f"unknown activation {act_name!r}")
@@ -145,48 +164,58 @@ def _pack(weights):
     return torch.cat([w.float().reshape(-1) for w in weights])
 
 
+def _workspace(lib, x, C, which):
+    """The scratch of the forward (``which`` 0) or the backward (1)."""
+    B, T, Fd = x.shape
+    nbytes = lib.dae_fused_subsample_workspace(_DTYPE_CODES[x.dtype], which, B, T, Fd, C)
+    if nbytes < 0:
+        raise ValueError(f"the kernel does not take x {tuple(x.shape)} with {C} channels")
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+
 def _kernel_fwd(x, weights, act_name):
     global fwd_launches
-    lib = LIBRARY.load()
+    route = ROUTES[x.dtype]
+    library = LIBRARIES[route]
+    lib = library.load()
     B, T, Fd = x.shape
     C = weights[0].shape[1]
-    _, T1, T2 = ceil_chain(T)
     x = x.contiguous()
     w = _pack(weights)
-    s1 = torch.empty((B, T1, Fd // 4, C), dtype=x.dtype, device=x.device)
-    out = torch.empty((B, T2, Fd // 8, C), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, ceil_chain(T)[2], Fd // 8, C), dtype=x.dtype, device=x.device)
+    work = _workspace(lib, x, C, 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.dae_fused_subsample_fwd(_DTYPE_CODES[x.dtype], _ACT_CODES[act_name], x.data_ptr(),
-                                       B, T, Fd, C, w.data_ptr(), s1.data_ptr(), out.data_ptr(),
+                                       B, T, Fd, C, w.data_ptr(), out.data_ptr(), work.data_ptr(),
                                        stream)
-    LIBRARY.check(code, "fused subsampling forward")
+    library.check(code, f"fused subsampling forward ({route})")
     fwd_launches += 1
+    route_launches[route][0] += 1
     return out
 
 
 def _kernel_bwd(x, weights, g, act_name, need_gx):
     """(gx or None, [10 weight gradients in f32])."""
     global bwd_launches
-    lib = LIBRARY.load()
+    route = ROUTES[x.dtype]
+    library = LIBRARIES[route]
+    lib = library.load()
     B, T, Fd = x.shape
     C = weights[0].shape[1]
     x = x.contiguous()
     g = g.to(x.dtype).contiguous()
     w = _pack(weights)
-    dtype = _DTYPE_CODES[x.dtype]
-    nbytes = lib.dae_fused_subsample_workspace(dtype, B, T, Fd, C)
-    if nbytes < 0:
-        raise ValueError(f"the kernel does not take x {tuple(x.shape)} with {C} channels")
-    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    work = _workspace(lib, x, C, 1)
     gw = torch.empty_like(w)
     gx = torch.empty_like(x) if need_gx else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.dae_fused_subsample_bwd(dtype, _ACT_CODES[act_name], x.data_ptr(), g.data_ptr(),
-                                       B, T, Fd, C, w.data_ptr(),
+    code = lib.dae_fused_subsample_bwd(_DTYPE_CODES[x.dtype], _ACT_CODES[act_name], x.data_ptr(),
+                                       g.data_ptr(), B, T, Fd, C, w.data_ptr(),
                                        gx.data_ptr() if need_gx else None, gw.data_ptr(),
                                        work.data_ptr(), stream)
-    LIBRARY.check(code, "fused subsampling backward")
+    library.check(code, f"fused subsampling backward ({route})")
     bwd_launches += 1
+    route_launches[route][1] += 1
     grads = list(torch.split(gw, [wt.numel() for wt in weights]))
     return gx, [gr.view(wt.shape) for gr, wt in zip(grads, weights)]
 

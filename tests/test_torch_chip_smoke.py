@@ -1,12 +1,13 @@
 """Helpers of chip_smoke.py that read text or CPU tensors only: phase 2's
-report of nvcc's ``-Xptxas -v`` output, and phase 3's check that the bf16
-kernels round where the plain version rounds."""
+report of nvcc's ``-Xptxas -v`` output, phase 3's checks that the bf16
+kernels round where the plain version rounds, and phase 4's kernel names."""
 
 import pytest
 import torch
 
 import chip_smoke
 from dynamic_asr_eval_tpu_torch.kernels import attention as A
+from dynamic_asr_eval_tpu_torch.kernels import subsample as S
 
 NS = "_ZN56_GLOBAL__N__53e36a9c_23_flash_attention_bf16_cu_ce332a91"
 FWD = NS + "16tc_attention_fwdILi128EEEvPK13__nv_bfloat16S3_S3_NS_7StridesES4_S4_PKiPS1_Pfiiif"
@@ -60,3 +61,47 @@ def test_check_rounding_holds_the_rounding_points(monkeypatch, T, plain_rounds):
     else:
         with pytest.raises(AssertionError, match="elements differ"):
             chip_smoke.check_rounding(A, *args)
+
+
+def _subsample_case(C=32):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 200, 16, generator=g).bfloat16()
+    shapes = {"k9": (9, C), "dw1": (9, C), "dw2": (9, C), "pw1": (C, C), "pw2": (C, C)}
+    ws = [torch.randn(shapes.get(n, (C,)), generator=g)
+          * (1 / 3 if n in ("k9", "dw1", "dw2") else (C ** -0.5 if n.startswith("pw") else 0.1))
+          for n in S.WEIGHT_NAMES]
+    gout = torch.randn(1, S.ceil_chain(200)[2], 2, C, generator=g).bfloat16()
+    return x, ws, gout
+
+
+@pytest.mark.parametrize("plain_rounds", [True, False])
+def test_check_subsample_rounding_holds_the_rounding_points(monkeypatch, plain_rounds):
+    """Outputs of the plain version on the bf16 tensors (which rounds as the
+    kernels do) pass ``check_subsample_rounding``; those of the plain
+    version in f32, rounded once at the end, fail it: most of out's elements
+    differ."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    x, ws, gout = _subsample_case()
+    if plain_rounds:
+        out = S.fused_subsample_reference(x, *ws)
+        gx, gws = S.fused_subsample_reference_bwd(x, ws, gout, "silu", True)
+    else:
+        out = S.fused_subsample_reference(x.float(), *ws).bfloat16()
+        gx, gws = S.fused_subsample_reference_bwd(x.float(), ws, gout.float(), "silu", True)
+        gx = gx.bfloat16()
+    args = ("case", x, ws, gout, out, gx, gws)
+    if plain_rounds:
+        chip_smoke.check_subsample_rounding(S, *args)
+    else:
+        with pytest.raises(AssertionError, match="elements differ"):
+            chip_smoke.check_subsample_rounding(S, *args)
+
+
+@pytest.mark.parametrize("key,name", [
+    ("void (anonymous namespace)::tc_pw_kernel<0, 1>((anonymous namespace)::PwArgs)",
+     "tc_pw_kernel<0, 1>"),
+    ("(anonymous namespace)::reduce_kernel(float const*, long long, long long, long long, float*)",
+     "reduce_kernel"),
+])
+def test_kernel_name_drops_namespace_and_parameters(key, name):
+    assert chip_smoke.kernel_name(key) == name
