@@ -28,6 +28,9 @@ Phases (each raises on failure; the script then exits non-zero):
      held against the plain version on the bf16 tensors
      (``check_subsample_rounding``: every output within 2 bf16 ulps of its
      max, at most 2 % of out's and 15 % of gx's elements differing);
+   - both bf16 kernels at AWMC's batch-1 shapes, with the same checks:
+     attention [1, 2048, 6, 128] with length 2048 and 1792 (the ragged last
+     window), subsampling [1, 16384, 80];
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
@@ -72,10 +75,31 @@ Phases (each raises on failure; the script then exits non-zero):
    launches are ``fused_subsample_f32``'s ``parity_launches``;
 8. soft-DTW's own path: ``benchmark(use_pallas=True)`` on the card, value
    and gradient of ``SoftDTW`` through both kernels, its launch counters
-   zeroed just before and read just after.
+   zeroed just before and read just after;
+9. checkpoints at flagship width: the seed-0 flagship weights (bf16,
+   ``"pallas_flash"``, ``"pallas"``) saved as a DAE1 file and reloaded by
+   ``load_any_checkpoint`` (state dict bit for bit, config field for
+   field); the same weights as a reference ``{"model", "config"}`` torch
+   pickle, reloaded (the same tensors; its config names no kernel);
+10. the AWMC main path: ``evals/run_dynamic_eval_full.py`` ``main`` with
+   ``--awmc --checkpoint`` the DAE1 file, on phase 5's recording (online, 1
+   epoch, lr 9e-5); the launch counters are zeroed just before and read just
+   after: every attention and subsampling launch on the bf16 route, and per
+   adapted window exactly 24 attention forwards and 6 backwards, 4
+   subsampling forwards and 1 backward (anchor, leader, student, clean);
+   the run's stitched log-probs finite with the expected shape, the
+   student's weights moved, its WER a number.  10b (parity): the full-depth
+   f32 AWMC engine on a 2-window recording (3000 frames at seq 2048 /
+   overlap 1024: 2048 and 1976 frames, multiples of 8) through the f32
+   kernels, against the same engine with ``"xla"`` attention and ``"conv"``
+   subsampling: stitched log-probs within 1e-3 of max |log-prob|, equal
+   greedy ids; its f32-route launches are ``awmc_parity_launches``;
+11. where AWMC's time goes: phase 7's profile of the driver's warm AWMC
+   engine (a ``{"profile": ...}`` line with ``"path": "awmc"``).
 
-Prints the card line, a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.  TF32 stays off throughout.
+Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
+``launches`` on the NSTI path and ``awmc_launches`` on the AWMC path), and
+last ``{"ok": true, "device": {...}}``.  TF32 stays off throughout.
 """
 
 from __future__ import annotations
@@ -115,6 +139,13 @@ SUB_FLAGSHIP = (2, 16384, 80, 256)  # B, T, F, C of one adapted window
 SUB_RAGGED = (3, 1001, 80, 256)
 SDTW_BENCH = (4, 256, 256)  # kernels.softdtw.benchmark defaults, D 64, gamma 1
 SDTW_CASES = ((SDTW_BENCH, 0), ((2, 1500, 700), 100), ((1, 2048, 2048), 0))
+AWMC_PARITY = (3000, 2048, 1024)  # frames, seq, overlap: windows of 2048 and 1976
+RUN_KWARGS = ["-kwargs", "epochs=1", "online=true", "shuffle=false", "optim_lr=9e-5",
+              "spec_augment_n_freq_masks=6", "spec_augment_freq_mask_param=34", "seed=0"]
+# the flagship's fields in a reference checkpoint's config (no kernel named)
+REFERENCE_FIELDS = ("feat_in", "n_layers", "d_model", "n_heads", "head_dim", "vocab_size",
+                    "subsampling_factor", "subsampling_conv_channels", "conv_kernel_size",
+                    "rotary_base_freq", "self_conditioning")
 FAMILIES = (
     ("flash_attention", ("tc_attention_", "fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
                          "bwd_delta_kernel")),
@@ -540,36 +571,36 @@ class EngineRecorder:
         return out
 
 
-def main_path(cfg, kernel_modules):
-    """The driver on the flagship recording; returns (wer, wall, {module:
-    (fwd, bwd) launches}, {module: {route: (fwd, bwd)}}, result detail,
-    recorder)."""
+def main_path(cfg, kernel_modules, driver=None, flags=()):
+    """A driver (default ``evals.run``) on the flagship recording, its
+    ``main`` given ``cfg`` (None: the configuration comes from ``flags``,
+    e.g. ``--checkpoint``); returns (wer, wall, {module: (fwd, bwd)
+    launches}, {module: {route: (fwd, bwd)}}, result detail, recorder)."""
     import pickle
 
-    from dynamic_asr_eval_tpu_torch.evals import run
+    if driver is None:
+        from dynamic_asr_eval_tpu_torch.evals import run as driver
 
     os.environ["DAE_SYNTH_SPEC_FRAMES"] = str(N_FRAMES)
     recorder = EngineRecorder()
-    build_engine = run.build_engine
+    build_engine = driver.build_engine
     with tempfile.TemporaryDirectory() as tmp:
-        args = run.parse_args([
+        args = driver.parse_args([
             "-d", "synthetic_spec", "--quiet", "-s", os.path.join(tmp, "r.pkl"),
-            "-seq", str(SEQ), "-o", str(OVERLAP), "-kwargs", "epochs=1", "online=true",
-            "shuffle=false", "optim_lr=9e-5", "spec_augment_n_freq_masks=6",
-            "spec_augment_freq_mask_param=34", "seed=0"])
-        run.build_engine = recorder.wrap(build_engine)
+            "-seq", str(SEQ), "-o", str(OVERLAP), *flags, *RUN_KWARGS])
+        driver.build_engine = recorder.wrap(build_engine)
         try:
             for mod in kernel_modules.values():
                 mod.reset_counters()
             t0 = time.time()
-            wer = run.main(args, model_config=cfg)
+            wer = driver.main(args, model_config=cfg)
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = {k: (m.fwd_launches, m.bwd_launches) for k, m in kernel_modules.items()}
             routes = {k: {r: tuple(c) for r, c in m.route_launches.items()}
-                      for k, m in kernel_modules.items()}
+                      for k, m in kernel_modules.items() if hasattr(m, "route_launches")}
         finally:
-            run.build_engine = build_engine
+            driver.build_engine = build_engine
         with open(os.path.join(tmp, "r_1.pkl"), "rb") as f:
             detail = pickle.load(f)
     return wer, wall, launches, routes, detail, recorder
@@ -699,6 +730,97 @@ def check_subsample_model(params, S):
     log(f"  full-depth f32 model, subsampling kernels vs plain version {err_plain:.2e} (weight "
         f"gradients {gerr:.2e} of max), vs the conv model {err_conv:.2e} on valid frames; f32 "
         f"(cuda_core) launches fwd {launches[0]}, bwd {launches[1]}")
+    return launches
+
+
+def check_checkpoints(tmp):
+    """Phase 9: the flagship's seed-0 weights through a DAE1 file and a
+    reference torch pickle; returns the DAE1 file's path."""
+    import dataclasses
+
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+    from dynamic_asr_eval_tpu_torch.models.checkpoint import load_any_checkpoint, save_checkpoint
+
+    cfg = flagship_config(subsampling_impl="pallas")
+    state = init_conformer(cfg, seed=0).state_dict()
+    dae, ref = os.path.join(tmp, "flagship.dae"), os.path.join(tmp, "flagship.pt")
+    t0 = time.time()
+    save_checkpoint(dae, state, cfg)
+    t1 = time.time()
+    _, dae_state, dae_cfg = load_any_checkpoint(dae)
+    t2 = time.time()
+    model_cfg = {k: getattr(cfg, k) for k in REFERENCE_FIELDS}
+    torch.save({"model": state, "config": {"model": model_cfg}}, ref)
+    _, ref_state, ref_cfg = load_any_checkpoint(ref)
+    for what, loaded in (("DAE1", dae_state), ("reference pickle", ref_state)):
+        if loaded.keys() != state.keys() or not all(torch.equal(loaded[k], v)
+                                                    for k, v in state.items()):
+            raise AssertionError(f"{what} checkpoint: the reloaded state dict differs")
+    if dataclasses.asdict(dae_cfg) != dataclasses.asdict(cfg):
+        raise AssertionError(f"DAE1 checkpoint: config {dae_cfg} != {cfg}")
+    if any(getattr(ref_cfg, k) != v for k, v in model_cfg.items()):
+        raise AssertionError(f"reference pickle: config {ref_cfg} lost a field of {model_cfg}")
+    log(f"  DAE1 {os.path.getsize(dae) / 1e6:.1f} MB: saved in {t1 - t0:.2f} s, reloaded in "
+        f"{t2 - t1:.2f} s, {len(state)} tensors bit for bit, config field for field; reference "
+        f"pickle reloaded bit for bit (its config names no kernel: attention "
+        f"{ref_cfg.attention_impl!r}, subsampling {ref_cfg.subsampling_impl!r})")
+    return dae
+
+
+def check_awmc_run(cfg, launches, routes, wer, detail, recorder):
+    """Phase 10's checks: exact per-window launches, all on the bf16 route;
+    the driver's own output."""
+    per_window = {"attention": (4 * cfg.n_layers, cfg.n_layers), "subsample": (4, 1)}
+    for name, (fwd, bwd) in per_window.items():
+        expect = (fwd * N_WINDOWS, bwd * N_WINDOWS)
+        if launches[name] != expect:
+            raise AssertionError(f"AWMC {name} launches {launches[name]}, expected {expect} "
+                                 f"(anchor, leader, student and clean forwards, one backward)")
+        if routes[name] != {"tensor_core": expect, "cuda_core": (0, 0)}:
+            raise AssertionError(f"AWMC {name} launches by route {routes[name]}: not all on "
+                                 f"the bf16 tensor-core kernels")
+    return check_driver_output(cfg, wer, detail, recorder)
+
+
+def check_awmc_parity(params, A, S):
+    """Phase 10b: the full-depth f32 AWMC engine through the f32 kernels
+    against the same engine on the plain path; returns the f32 route's
+    launches {module: (fwd, bwd)}."""
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.config import TTAConfig
+    from dynamic_asr_eval_tpu_torch.tta import AWMCEngine
+
+    frames, seq, overlap = AWMC_PARITY
+    spec = np.random.default_rng(5).standard_normal((80, frames)).astype(np.float32)
+    tta = TTAConfig(seq_len=seq, overlap=overlap, epochs=1, online=True, shuffle=False,
+                    lm_tta_beams=0, optim_args={"lr": 9e-5})
+
+    def run(**overrides):
+        model = f32_model(params, **overrides)
+        out = AWMCEngine(model, model.config.blank_id, 8, tta, device="cuda")(
+            None, spec, seq, overlap, rng=0)
+        torch.cuda.synchronize()
+        return out
+
+    A.reset_counters()
+    S.reset_counters()
+    a = run(subsampling_impl="pallas")
+    launches = {"attention": tuple(A.route_launches["cuda_core"]),
+                "subsample": tuple(S.route_launches["cuda_core"])}
+    if A.route_launches["tensor_core"] != [0, 0] or S.route_launches["tensor_core"] != [0, 0]:
+        raise AssertionError("the f32 AWMC engine launched a bf16 kernel")
+    b = run(attention_impl="xla")
+    lp_a, lp_b = a.numpy_logits(), b.numpy_logits()
+    err, scale = float(np.abs(lp_a - lp_b).max()), float(np.abs(lp_b).max())
+    same_ids = np.array_equal(a.greedy_ids(), b.greedy_ids())
+    if not (lp_a.shape == lp_b.shape and err <= 1e-3 * scale and same_ids
+            and min(min(v) for v in launches.values()) > 0):
+        raise AssertionError(f"f32 AWMC, kernels vs plain path: {err:.3e} (max |log-prob| "
+                             f"{scale:.3e}), greedy ids equal {same_ids}, f32 launches {launches}")
+    log(f"  full-depth f32 AWMC engine, kernels vs plain path on {lp_a.shape[0]} frames: "
+        f"{err:.2e} (max |log-prob| {scale:.3e}); greedy ids equal; f32 (cuda_core) launches "
+        f"{launches}")
     return launches
 
 
@@ -846,9 +968,12 @@ def main() -> int:
         check_attention(A, 3, 1000, 6, 128, [1000, 777, 1000], dtype)
     check_attention(A, 2, 2048, 6, 128, None, torch.bfloat16)
     check_attention(A, 2, 37, 6, 128, [37, 20], torch.bfloat16)
+    for length in (2048, 1792):  # AWMC's batch-1 windows
+        check_attention(A, 1, 2048, 6, 128, [length], torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32):
         errs[("sub", dtype)] = check_subsample(S, SUB_FLAGSHIP, dtype)
         check_subsample(S, SUB_RAGGED, dtype)
+    check_subsample(S, (1,) + SUB_FLAGSHIP[1:], torch.bfloat16)
     for shape, bandwidth in SDTW_CASES:
         e = check_softdtw(D, shape, bandwidth)
         if shape == SDTW_BENCH:
@@ -893,6 +1018,25 @@ def main() -> int:
         f"launches fwd {sdtw_launches[0]}, bwd {sdtw_launches[1]}; plain version "
         f"{plain['seconds_per_iter'] * 1e3:.3f} ms per iteration")
 
+    from dynamic_asr_eval_tpu_torch.evals import run_dynamic_eval_full
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[9] checkpoints at flagship width: DAE1 and a reference torch pickle")
+        dae = check_checkpoints(tmp)
+        log(f"[10] AWMC main path: evals.run_dynamic_eval_full.main --awmc --checkpoint (DAE1), "
+            f"{N_FRAMES}-frame recording, flagship, bf16")
+        awmc_modules = {"attention": A, "subsample": S, "softdtw": D}
+        wer, wall, launches, awmc_routes, detail, recorder = main_path(
+            None, awmc_modules, run_dynamic_eval_full, ("--awmc", "--checkpoint", dae))
+        cfg = recorder.engine.model.config
+        log(f"  WER {wer}; launches {launches}; by route {awmc_routes}; driver wall {wall:.3f} s "
+            f"(record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up)")
+        params = check_awmc_run(cfg, launches, awmc_routes, wer, detail, recorder)
+        log("[10b] AWMC parity: full-depth f32 engine, kernels against the plain path")
+        awmc_parity_routes = check_awmc_parity(params, A, S)
+        log(f"[11] where AWMC's time goes: the driver's engine, warm, on {card}")
+        profile_engine(recorder, card, "awmc")
+
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
                "fused_subsample": "fused_subsample_bf16.cu",
@@ -909,16 +1053,24 @@ def main() -> int:
         ("softdtw", "fwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:129",
         ("softdtw", "bwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:92",
     }
-    # launches on the main path (by route: attention in the "conv" run,
-    # subsampling in the "pallas" run; soft-DTW: its own path); the f32 routes
-    # are the parity routes and run 0 times there, their counts in the f32
-    # model runs of phases 6 and 6b go under "parity_launches"
-    launches = {"flash_attention": routes["attention"]["tensor_core"],
-                "flash_attention_f32": routes["attention"]["cuda_core"],
-                "fused_subsample": pallas_routes["subsample"]["tensor_core"],
-                "fused_subsample_f32": pallas_routes["subsample"]["cuda_core"],
-                "softdtw": sdtw_launches}
+    # launches on the NSTI path (by route: attention in the "conv" run,
+    # subsampling in the "pallas" run; soft-DTW: its own path) and on the AWMC
+    # path (phase 10); the f32 routes are the parity routes and run 0 times
+    # there, their counts in the f32 runs of phases 6 and 6b go under
+    # "parity_launches", of phase 10b under "awmc_parity_launches"
+    nsti_launches = {"flash_attention": routes["attention"]["tensor_core"],
+                     "flash_attention_f32": routes["attention"]["cuda_core"],
+                     "fused_subsample": pallas_routes["subsample"]["tensor_core"],
+                     "fused_subsample_f32": pallas_routes["subsample"]["cuda_core"],
+                     "softdtw": sdtw_launches}
     parity = {"flash_attention_f32": parity_launches, "fused_subsample_f32": sub_parity_launches}
+    awmc_launches = {"flash_attention": awmc_routes["attention"]["tensor_core"],
+                     "flash_attention_f32": awmc_routes["attention"]["cuda_core"],
+                     "fused_subsample": awmc_routes["subsample"]["tensor_core"],
+                     "fused_subsample_f32": awmc_routes["subsample"]["cuda_core"],
+                     "softdtw": launches["softdtw"]}
+    awmc_parity = {"flash_attention_f32": awmc_parity_routes["attention"],
+                   "fused_subsample_f32": awmc_parity_routes["subsample"]}
     err_keys = {
         ("flash_attention", "fwd"): (errs[("attn", torch.bfloat16)], ("out",)),
         ("flash_attention", "bwd"): (errs[("attn", torch.bfloat16)], ("dq", "dk", "dv")),
@@ -937,13 +1089,15 @@ def main() -> int:
         t, bnd = times[name]
         for i, kind in enumerate(("fwd", "bwd")):
             e, keys = err_keys[(name, kind)]
-            extra = {"parity_launches": parity[name][i]} if name in parity else {}
+            extra = ({"parity_launches": parity[name][i],
+                      "awmc_parity_launches": awmc_parity[name][i]} if name in parity else {})
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",
                 "source": f"dynamic_asr_eval_tpu_torch/kernels/csrc/{sources[name]}",
                 "replaces": replaces[(name, kind)],
-                "launches": launches[name][i],
+                "launches": nsti_launches[name][i],
+                "awmc_launches": awmc_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

@@ -2,7 +2,8 @@
 filterbank → log → per-feature normalization over time.
 
 Counterpart of the JAX package's ``audio/features.py`` (16 kHz, 25 ms window,
-10 ms hop, 80 mels, reflect padding of n_fft/2 at both ends).
+10 ms hop, 80 mels, reflect padding of n_fft/2 at both ends), with
+:func:`zero_out_spectrogram` for TEDLIUM's ignored segments.
 """
 
 from __future__ import annotations
@@ -80,3 +81,17 @@ def log_mel_spectrogram(
     from an exact result on the normalized output."""
     out = log_mel(torch.as_tensor(np.asarray(audio, np.float64)), config)
     return out.numpy().astype(np.float32)[None]
+
+
+def zero_out_spectrogram(spec: np.ndarray, regions_seconds,
+                         config: FeaturizerConfig = FeaturizerConfig()) -> np.ndarray:
+    """A copy of ``spec`` ([1, F, T] or [F, T]) with the frames covering each
+    (start_s, end_s) region set to 0: floor of the start, ceil of the end."""
+    spec = np.array(spec, copy=True)
+    fps = config.sample_rate / config.hop_length
+    T = spec.shape[-1]
+    for start_s, end_s in regions_seconds:
+        a = int(np.floor(start_s * fps))
+        b = int(np.ceil(end_s * fps))
+        spec[..., max(a, 0) : min(b, T)] = 0.0
+    return spec

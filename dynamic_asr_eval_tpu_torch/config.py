@@ -1,17 +1,56 @@
 """Configuration: the shared CLI argument system and the TTA knob bundles.
 
 Counterpart of the JAX package's ``config.py`` with the same CLI surface
-(``-seq``, ``-o``, ``-kwargs key=value`` ...) and the same dataclasses.
-``yaml`` is imported only inside the functions that read a yaml file, so the
-GPU path needs no PyYAML.
+(``-seq``, ``-o``, ``-kwargs key=value`` ...), the same dataclasses, and the
+``paths.yaml`` loader (:class:`DotDict`, :func:`load_paths`).  ``yaml`` is
+imported only inside the functions that read a yaml file, so the GPU path
+needs no PyYAML: a dataset adapter handed its ``paths`` reads no yaml.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import os
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+
+class DotDict(dict):
+    """A dict with recursive attribute access."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            v = self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+        return DotDict(v) if isinstance(v, dict) and not isinstance(v, DotDict) else v
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        cur: Any = self
+        for part in dotted.split("."):
+            if not isinstance(cur, dict) or part not in cur:
+                return default
+            cur = cur[part]
+        return cur
+
+
+def load_paths(path: Optional[str] = None) -> DotDict:
+    """The user's ``paths.yaml`` (``path``, else ``$DAE_PATHS_YAML``,
+    ``./paths.yaml``, ``~/paths.yaml``, the first that exists); an empty
+    :class:`DotDict` when there is none (synthetic data needs none)."""
+    candidates = [path] if path else [
+        os.environ.get("DAE_PATHS_YAML", ""), "paths.yaml", os.path.expanduser("~/paths.yaml")]
+    for cand in candidates:
+        if cand and os.path.exists(cand):
+            import yaml
+
+            with open(cand, "r") as f:
+                return DotDict(yaml.safe_load(f) or {})
+    return DotDict()
 
 
 def load_yaml(path: str) -> Dict[str, Any]:

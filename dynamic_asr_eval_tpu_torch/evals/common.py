@@ -1,8 +1,11 @@
 """Shared driver toolkit: model/tokenizer loading, engine construction,
 decoding, WER over records, and the result-pickle schema.
 
-Counterpart of the JAX package's ``evals/common.py`` (NSTI with greedy
-decode; checkpoints, AWMC, LM decode and the device mesh are not ported yet).
+Counterpart of the JAX package's ``evals/common.py``: checkpoints (DAE1 and
+reference torch pickles, :func:`..models.checkpoint.load_any_checkpoint`),
+the NSTI and AWMC engines, greedy decode, and the repeat loop the drivers
+share (:func:`evaluate_repeats`).  LM decode and the device mesh are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -12,13 +15,17 @@ import pickle
 import time
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dynamic_asr_eval_tpu_torch.config import TTAConfig, load_yaml
 from dynamic_asr_eval_tpu_torch.device import resolve_device
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig, init_conformer, params_from_jax
-from dynamic_asr_eval_tpu_torch.text import load_tokenizer, word_error_rate_detail
-from dynamic_asr_eval_tpu_torch.tta import DynamicEvalEngine
+from dynamic_asr_eval_tpu_torch.models.checkpoint import load_any_checkpoint
+from dynamic_asr_eval_tpu_torch.text import load_tokenizer, normalize, word_error_rate_detail
+from dynamic_asr_eval_tpu_torch.tta import AWMCEngine, DynamicEvalEngine
+
+ENGINES = {"dynamic_eval": DynamicEvalEngine, "awmc": AWMCEngine}
 
 # keys of lcasr-style model yamls that have no ConformerConfig field
 _YAML_EXTRAS = ("dropout_ff", "dropout_attn", "dropout_conv", "flash_attn",
@@ -35,16 +42,19 @@ def load_model_and_tokenizer(
     """Build ``(model, params, tokenizer, config)``; ``params`` is the
     model's state dict (the pristine weights each recording starts from).
 
-    The configuration is ``config`` when given, else ``--config`` (a model
-    yaml), else a small default model.  Weights come from ``jax_params`` (the
-    JAX package's flax params, via :func:`params_from_jax`) when given, else
-    random from ``--seed``."""
-    if getattr(args, "checkpoint", ""):
-        raise NotImplementedError(
-            "--checkpoint loading is not ported yet (ROADMAP queue 1 item 9)")
+    ``--checkpoint`` (a DAE1 file or a reference torch pickle) brings its own
+    configuration and weights.  Otherwise the configuration is ``config``
+    when given, else ``--config`` (a model yaml), else a small default model,
+    and the weights come from ``jax_params`` (the JAX package's flax params,
+    via :func:`params_from_jax`) when given, else random from ``--seed``."""
     device = resolve_device(device if device is not None else getattr(args, "device", None))
     tokenizer = load_tokenizer(getattr(args, "tokenizer", None) or None)
     vocab = tokenizer.vocab_size()
+    if getattr(args, "checkpoint", ""):
+        if config is not None or jax_params is not None:
+            raise ValueError("--checkpoint carries its own configuration and weights")
+        model, _, cfg = load_any_checkpoint(args.checkpoint)
+        return _placed(model, device) + (tokenizer, cfg)
     if config is not None:
         cfg = config
     elif getattr(args, "config", ""):
@@ -64,22 +74,31 @@ def load_model_and_tokenizer(
     model = init_conformer(cfg, seed=seed)
     if jax_params is not None:
         model.load_state_dict(params_from_jax(jax_params), strict=True)
+    return _placed(model, device) + (tokenizer, cfg)
+
+
+def _placed(model, device):
     model = model.to(device)
-    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    return model, params, tokenizer, cfg
+    return model, {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def build_engine(args, model, cfg: ConformerConfig, device=None) -> DynamicEvalEngine:
+def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_eval",
+                 device=None) -> DynamicEvalEngine:
+    """The ``engine_kind`` engine (``"dynamic_eval"``: NSTI; ``"awmc"``)."""
     tta = TTAConfig.from_args(args)
     if getattr(args, "dp", False) or getattr(args, "dp_records", False):
-        raise NotImplementedError("--dp / --dp_records are not ported yet (ROADMAP queue 1)")
+        raise NotImplementedError(
+            "--dp / --dp_records are not ported yet (ROADMAP queue 1 item 19)")
+    if getattr(args, "language_model", ""):
+        raise NotImplementedError("-lm (LM beam decode and LM pseudo-labels) is not ported "
+                                  "yet (ROADMAP queue 1 item 12)")
     transfer = torch.float32
     if cfg.compute_dtype == torch.bfloat16 and not bool(vars(args).get("f32_transfer", False)):
         # the model casts its input to bf16 anyway; the window copy is half
         transfer = torch.bfloat16
     device = device if device is not None else getattr(args, "device", None)
-    return DynamicEvalEngine(model, cfg.blank_id, cfg.subsampling_factor, tta,
-                             transfer_dtype=transfer, device=device)
+    return ENGINES[engine_kind](model, cfg.blank_id, cfg.subsampling_factor, tta,
+                                transfer_dtype=transfer, device=device)
 
 
 def decode_output(out, tokenizer) -> str:
@@ -124,6 +143,39 @@ def evaluate_records(
         "elapsed_times": elapsed_times,
     }
     return wer, detail
+
+
+def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
+                     log_line: Callable[[float], str]) -> float:
+    """The drivers' loop: ``-r`` repeats, each with its own seed (``seed ·
+    1000 + repeat``) and a distinct augmentation stream per recording;
+    greedy decode, normalizer, corpus WER, a log line, the result pickle.
+    Returns the mean WER."""
+    wers = []
+    repeats = getattr(args, "repeats", 1)
+    seed = getattr(args, "seed", None)
+    base_seed = 0 if seed is None else int(seed)
+    for repeat in range(repeats):
+        repeat_seed = base_seed * 1000 + repeat
+        repeat_shuffle = np.random.default_rng(repeat_seed)
+        rec_counter = iter(range(len(records)))
+
+        def run_one(rec):
+            spec, gold = rec["process_fn"](rec)
+            rec_seed = repeat_seed * 1_000_003 + next(rec_counter)
+            out = engine(params, spec, args.seq_len, args.overlap,
+                         rng=rec_seed, shuffle_rng=repeat_shuffle)
+            return normalize(decode_output(out, tokenizer)), gold
+
+        wer, detail = evaluate_records(records, run_one, verbose=not getattr(args, "quiet", False))
+        print(f"WER: {wer}")
+        append_log(getattr(args, "log", ""), log_line(wer))
+        if getattr(args, "save_path", ""):
+            save_result_pickle(args.save_path, detail, args, repeat, repeats)
+        wers.append(wer)
+    mean_wer = sum(wers) / len(wers)
+    print(f"Average WER: {mean_wer}")
+    return mean_wer
 
 
 def save_result_pickle(save_path: str, detail: Dict, args, repeat: int, repeats: int) -> str:

@@ -1,0 +1,83 @@
+"""Per-recording dynamic evaluation with engine dispatch: NSTI, or AWMC with
+``--awmc``.
+
+Counterpart of the JAX package's ``evals/run_dynamic_eval_full.py``: the
+loop of :mod:`.run` (per-repeat and per-record seeds, greedy decode, WER,
+``--save_path`` pickles) with the log line ``"{engine}\\t{dataset}\\tWER:
+..."``.  Not ported yet (raise ``NotImplementedError``): ``--consistency``,
+``-lm``, ``--decode_batch`` above 1 and ``--dp_records``.  Runs on ``cuda``
+unless ``--device cpu`` is given.
+
+CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run_dynamic_eval_full -d
+synthetic --awmc -c model.dae -kwargs epochs=1``
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Mapping, Optional
+
+from dynamic_asr_eval_tpu_torch.config import apply_args
+from dynamic_asr_eval_tpu_torch.data import get_dataset
+from dynamic_asr_eval_tpu_torch.evals.common import (
+    ENGINES,
+    build_engine,
+    evaluate_repeats,
+    load_model_and_tokenizer,
+)
+from dynamic_asr_eval_tpu_torch.models import ConformerConfig
+
+_NOT_PORTED = {
+    "consistency": "--consistency (the consistency engine, ROADMAP queue 1 item 13)",
+    "language_model": "-lm (LM beam decode, ROADMAP queue 1 item 12)",
+    "dp_records": "--dp_records (records-level data parallelism, ROADMAP queue 1 item 19)",
+}
+
+
+def main(args, model_config: Optional[ConformerConfig] = None,
+         jax_params: Optional[Mapping] = None) -> float:
+    """Returns the mean corpus WER over the repeats (``model_config`` and
+    ``jax_params`` as in :func:`.run.main`)."""
+    engine_kind = "awmc" if getattr(args, "awmc", False) else "dynamic_eval"
+    if getattr(args, "dp_records", False) and (engine_kind != "dynamic_eval"
+                                               or getattr(args, "consistency", False)):
+        raise ValueError("--dp_records supports only the NSTI engine (drop --awmc/--consistency)")
+    for key, what in _NOT_PORTED.items():
+        if getattr(args, key, False):
+            raise NotImplementedError(f"{what} is not ported yet")
+    if int(getattr(args, "decode_batch", 1) or 1) > 1:
+        raise NotImplementedError(
+            "--decode_batch above 1 (batched LM beam decodes) is not ported yet "
+            "(ROADMAP queue 1 item 12)")
+    model, params, tokenizer, cfg = load_model_and_tokenizer(
+        args, config=model_config, jax_params=jax_params)
+    engine = build_engine(args, model, cfg, engine_kind)
+    records = get_dataset(args.dataset, args.split)
+    name = ENGINES[engine_kind].__name__
+    return evaluate_repeats(args, engine, params, tokenizer, records,
+                            lambda wer: f"{name}\t{args.dataset}\tWER: {wer}")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("-d", "--dataset", type=str, default="synthetic")
+    parser.add_argument("-r", "--repeats", type=int, default=1)
+    parser.add_argument("-s", "--save_path", type=str, default="")
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    parser.add_argument("--awmc", action="store_true", help="use the AWMC engine")
+    parser.add_argument("--consistency", action="store_true", help="not ported yet")
+    parser.add_argument("--dp_records", action="store_true", help="not ported yet")
+    parser.add_argument("--decode_batch", type=int, default=1,
+                        help="not ported yet above 1 (batched LM beam decodes)")
+    parser.add_argument("--tokenizer", type=str, default="")
+    parser.add_argument("--quiet", action="store_true")
+    return apply_args(parser, argv)
+
+
+def cli(argv=None, model_config: Optional[ConformerConfig] = None,
+        jax_params: Optional[Mapping] = None) -> float:
+    return main(parse_args(argv), model_config=model_config, jax_params=jax_params)
+
+
+if __name__ == "__main__":
+    cli()

@@ -6,6 +6,8 @@ paths.  This module keeps its own copy of that table, in both directions:
 
 - :func:`params_from_jax` — flax ``params`` (nested dict of numpy arrays) →
   the port's ``state_dict``; raises on any key it cannot place.
+- :func:`params_to_jax` — the inverse: the port's ``state_dict`` → the flax
+  ``params`` tree of numpy arrays in the JAX package's layouts.
 - :func:`jax_path` — the flax path of an lcasr name (used by the freeze
   policies, which the JAX package states on flax paths).
 
@@ -29,6 +31,14 @@ _FROM_FLAX: Dict[str, Callable[[np.ndarray], np.ndarray]] = {
     "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
     "conv1d": lambda w: np.transpose(w, (2, 1, 0)),
     "conv1d_pw": lambda w: w.T[:, :, None],
+    "identity": lambda w: w,
+}
+
+_TO_FLAX: Dict[str, Callable[[np.ndarray], np.ndarray]] = {
+    "dense": lambda w: w.T,
+    "conv2d": lambda w: np.transpose(w, (2, 3, 1, 0)),
+    "conv1d": lambda w: np.transpose(w, (2, 1, 0)),
+    "conv1d_pw": lambda w: w[:, :, 0].T,
     "identity": lambda w: w,
 }
 
@@ -121,3 +131,27 @@ def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     if unmatched:
         raise KeyError(f"flax params with no port counterpart: {unmatched}")
     return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``state_dict`` → the JAX package's flax ``params`` tree
+    (nested dicts of C-contiguous f32 numpy arrays).  Raises on any name the
+    table does not place."""
+    tree: Dict = {}
+    unmatched = []
+    for name, value in state.items():
+        for t_re, _, _, j, kind in _COMPILED:
+            m = t_re.fullmatch(name)
+            if m:
+                arr = value.detach().to("cpu", torch.float32).numpy()
+                *parents, leaf = j.format(**m.groupdict()).split("/")
+                node = tree
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = np.ascontiguousarray(_TO_FLAX[kind](arr))
+                break
+        else:
+            unmatched.append(name)
+    if unmatched:
+        raise KeyError(f"port parameters with no flax counterpart: {unmatched}")
+    return tree

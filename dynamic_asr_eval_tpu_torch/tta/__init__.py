@@ -1,3 +1,4 @@
+from dynamic_asr_eval_tpu_torch.tta.awmc import AWMCEngine
 from dynamic_asr_eval_tpu_torch.tta.runner import DynamicEvalEngine, EngineOutput, chunked_inference
 
-__all__ = ["DynamicEvalEngine", "EngineOutput", "chunked_inference"]
+__all__ = ["AWMCEngine", "DynamicEvalEngine", "EngineOutput", "chunked_inference"]

@@ -150,6 +150,11 @@ class DynamicEvalEngine:
         for name, p in self._work.named_parameters():
             p.requires_grad_(self._trainable_names[name])
 
+    def _generator(self, rng: Union[int, torch.Generator, None]) -> torch.Generator:
+        if isinstance(rng, torch.Generator):
+            return rng
+        return torch.Generator(device=self.device).manual_seed(int(rng or 0))
+
     # -- host-side plan -----------------------------------------------------
     def _plan(self, spec: np.ndarray, seq_len: int, overlap: int):
         cfg = self.config
@@ -189,19 +194,21 @@ class DynamicEvalEngine:
         return spec_padded, spec_n, W, N, n_real, starts_np, lengths_np, total_ds
 
     # -- one adaptation step ------------------------------------------------
+    def _augment(self, batch: torch.Tensor, gen: torch.Generator, w_len: int) -> torch.Tensor:
+        """``augment_fn`` when given, else the configured pipeline."""
+        if self.augment_fn is not None:
+            return self.augment_fn(batch, gen, w_len)
+        c = self.config
+        return apply_augmentation_pipeline(
+            batch, gen, c.spec_augment, c.frame_shuffle, c.cutout, c.random_noise,
+            actual_len=w_len)
+
     def _adapt_step(self, opt, spec_dev, start: int, w_len: int, W: int,
                     max_tokens: int, gen: torch.Generator):
         """Returns the detached clean log-probs [T_ds, V] and ds_len."""
         nn = self.num_negatives
         window = spec_dev[:, start : start + W].float()
-        aug = window[None].repeat(nn, 1, 1)
-        if self.augment_fn is not None:
-            aug = self.augment_fn(aug, gen, w_len)
-        else:
-            c = self.config
-            aug = apply_augmentation_pipeline(
-                aug, gen, c.spec_augment, c.frame_shuffle, c.cutout, c.random_noise,
-                actual_len=w_len)
+        aug = self._augment(window[None].repeat(nn, 1, 1), gen, w_len)
         batch = torch.cat([aug, window[None]], dim=0)  # [nn + 1, F, W]
         lengths = torch.full((nn + 1,), w_len, dtype=torch.int64, device=self.device)
         ds_len = self.out_len_fn(w_len)
@@ -268,10 +275,7 @@ class DynamicEvalEngine:
         cfg = self.config
         spec_padded, spec_n, W, N, n_real, starts_np, lengths_np, total_ds = self._plan(
             spec, seq_len, overlap)
-        if isinstance(rng, torch.Generator):
-            gen = rng
-        else:
-            gen = torch.Generator(device=self.device).manual_seed(int(rng or 0))
+        gen = self._generator(rng)
         shuffle_rng = shuffle_rng or np.random.default_rng(0)
 
         t0 = time.time()

@@ -71,6 +71,14 @@ def test_kernel_matches_plain_version(cuda, dtype, D, T, lengths):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("length", [2048, 1792])
+def test_batch_one_flagship_shapes(cuda, length):
+    """AWMC's shapes: one window at a time, q/k/v [1, 2048, 6, 128] bf16,
+    a full window and the ragged last one (1792 valid frames)."""
+    _check(*_inputs(cuda, 2048, 6, 128, [length], torch.bfloat16))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["random", "empty_row", "window"])
 def test_tensor_core_kernels_with_masks_that_defeat_tile_skipping(cuda, kind):
     """A random 0/1 mask puts both segment ids in almost every tile (nothing

@@ -1,6 +1,8 @@
 """Helpers of chip_smoke.py that read text or CPU tensors only: phase 2's
 report of nvcc's ``-Xptxas -v`` output, phase 3's checks that the bf16
-kernels round where the plain version rounds, and phase 4's kernel names."""
+kernels round where the plain version rounds, phase 4's kernel names,
+phase 9's checkpoint round trip (at a small width) and phase 10's launch
+checks on the AWMC path."""
 
 import pytest
 import torch
@@ -105,3 +107,35 @@ def test_check_subsample_rounding_holds_the_rounding_points(monkeypatch, plain_r
 ])
 def test_kernel_name_drops_namespace_and_parameters(key, name):
     assert chip_smoke.kernel_name(key) == name
+
+
+def _awmc_counts(n_layers, n_windows):
+    return {"attention": (4 * n_layers * n_windows, n_layers * n_windows),
+            "subsample": (4 * n_windows, n_windows)}
+
+
+def test_check_awmc_run_holds_the_per_window_counts(monkeypatch):
+    """24 attention forwards and 6 backwards, 4 subsampling forwards and 1
+    backward per window at the flagship's 6 layers, all on the bf16 route."""
+    monkeypatch.setattr(chip_smoke, "check_driver_output", lambda *args: "output checked")
+    cfg, n = chip_smoke.flagship_config(), chip_smoke.N_WINDOWS
+    good = _awmc_counts(cfg.n_layers, n)
+    assert good["attention"] == (24 * n, 6 * n)
+    routes = {k: {"tensor_core": v, "cuda_core": (0, 0)} for k, v in good.items()}
+    assert chip_smoke.check_awmc_run(cfg, good, routes, 1.0, {}, None) == "output checked"
+    nsti_like = dict(good, attention=(6 * n, 6 * n))
+    with pytest.raises(AssertionError, match="expected"):
+        chip_smoke.check_awmc_run(cfg, nsti_like, routes, 1.0, {}, None)
+    f32_launch = dict(routes, subsample={"tensor_core": (4 * n - 1, n), "cuda_core": (1, 0)})
+    with pytest.raises(AssertionError, match="route"):
+        chip_smoke.check_awmc_run(cfg, good, f32_launch, 1.0, {}, None)
+
+
+def test_check_checkpoints_round_trips_at_a_small_width(monkeypatch, tmp_path):
+    flagship = chip_smoke.flagship_config
+    small = dict(n_layers=2, d_model=64, n_heads=2, head_dim=32, vocab_size=30,
+                 subsampling_conv_channels=16, conv_kernel_size=5)
+    monkeypatch.setattr(chip_smoke, "flagship_config", lambda **kw: flagship(**{**small, **kw}))
+    path = chip_smoke.check_checkpoints(str(tmp_path))
+    with open(path, "rb") as f:
+        assert f.read(4) == b"DAE1"

@@ -1,5 +1,6 @@
-"""The port's NSTI driver (``evals/run.py``) against the JAX package's, on
-``-d synthetic`` with the JAX driver's weights handed across.
+"""The port's drivers (``evals/run.py``, ``evals/run_dynamic_eval_full.py``)
+against the JAX package's, on ``-d synthetic`` with the JAX driver's weights
+handed across (or read by both from one reference ``.pt`` checkpoint).
 
 Both drivers run the same CLI (one online epoch, seq 256 / overlap 128,
 greedy decode, normalizer, corpus WER, result pickle) on a tiny fp32
@@ -7,7 +8,11 @@ conformer with ``attention_impl="pallas_flash"``; the JAX driver's model is
 injected through its ``load_model_and_tokenizer`` (nothing in the JAX
 package is edited), and the port receives the same flax params through
 ``params_from_jax``.  Transcripts and WER must be identical (the pattern of
-tests/test_driver_golden.py).
+tests/test_driver_golden.py).  The same holds for
+``run_dynamic_eval_full.py`` with and without ``--awmc`` (its log lines
+too), and for ``run.py --awmc --checkpoint ref.pt``, where each package
+loads the reference pickle itself.  The options not ported yet raise
+``NotImplementedError``; the invalid combinations raise what JAX raises.
 
 The JAX driver runs with ``lax.scan``'s ``unroll`` dropped, as in
 tests/test_torch_engine.py: XLA:CPU takes ~40 s to compile the JAX CTC
@@ -29,6 +34,7 @@ import jax.numpy as jnp
 
 import dynamic_asr_eval_tpu.config as jax_config
 import dynamic_asr_eval_tpu.evals.run as jax_run
+import dynamic_asr_eval_tpu.evals.run_dynamic_eval_full as jax_full
 import dynamic_asr_eval_tpu.ops.ctc as jax_ctc
 from dynamic_asr_eval_tpu.config import TTAConfig as JaxTTAConfig
 from dynamic_asr_eval_tpu.models import ConformerConfig as JaxConfig
@@ -36,8 +42,9 @@ from dynamic_asr_eval_tpu.models import init_conformer as jax_init
 from dynamic_asr_eval_tpu.text import CharTokenizer as JaxCharTokenizer
 from dynamic_asr_eval_tpu_torch.config import TTAConfig, parse_kwarg_value
 from dynamic_asr_eval_tpu_torch.evals.common import load_model_and_tokenizer
+from dynamic_asr_eval_tpu_torch.evals import run_dynamic_eval_full as full
 from dynamic_asr_eval_tpu_torch.evals.run import cli, parse_args
-from dynamic_asr_eval_tpu_torch.models import ConformerConfig
+from dynamic_asr_eval_tpu_torch.models import ConformerConfig, init_conformer
 
 torch.set_num_threads(1)
 
@@ -139,3 +146,122 @@ def test_model_config_from_a_yaml_file(tmp_path):
         parse_args(["--config", str(path), "--device", "cpu"]))
     assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (1, 32, tok.vocab_size())
     assert cfg.compute_dtype == torch.float32 and set(params) == set(model.state_dict())
+
+
+# ---------------------------------------------------------------------------
+# run_dynamic_eval_full.py, with and without --awmc
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["nsti", "awmc"])
+def full_runs(request, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp(f"full_{request.param}")
+    flags = ["--awmc"] if request.param == "awmc" else []
+    jcfg = JaxConfig(compute_dtype=jnp.float32, **TINY)
+    model, variables = jax_init(jcfg, jax.random.PRNGKey(11), example_T=256)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_full, "load_model_and_tokenizer",
+               lambda args: (model, variables, JaxCharTokenizer(), jcfg))
+    try:
+        with rolled_scans():
+            jax_wer = jax_full.cli(["-d", "synthetic", "--quiet", "-s", str(tmp / "jax" / "r.pkl"),
+                                    "-log", str(tmp / "jax.log")] + flags + KWARGS)
+    finally:
+        mp.undo()
+    port_wer = full.cli(["-d", "synthetic", "--quiet", "--device", "cpu", "-s",
+                         str(tmp / "port" / "r.pkl"), "-log", str(tmp / "port.log")]
+                        + flags + KWARGS,
+                        model_config=ConformerConfig(compute_dtype="float32", **TINY),
+                        jax_params=jax.tree.map(np.asarray, variables["params"]))
+    logs = [(tmp / f"{side}.log").read_text().splitlines() for side in ("jax", "port")]
+    return ((jax_wer, _load_pickle(tmp / "jax")), (port_wer, _load_pickle(tmp / "port")),
+            logs, request.param)
+
+
+def test_full_driver_transcripts_and_wer_identical(full_runs):
+    (jw, j), (pw, p), _, _ = full_runs
+    assert p["model_output"] == j["model_output"] and any(p["model_output"])
+    assert p["gold"] == j["gold"]
+    assert pw == jw
+    for key in ("wer", "words", "ins_rate", "del_rate", "sub_rate"):
+        assert p[key] == j[key], key
+
+
+def test_full_driver_pickle_schema_and_log_line(full_runs):
+    (_, j), (_, p), (jax_log, port_log), kind = full_runs
+    assert set(p) == set(j) and p["repeat"] == "1/1"
+    assert port_log == jax_log
+    assert port_log[-1].startswith({"nsti": "DynamicEvalEngine", "awmc": "AWMCEngine"}[kind])
+
+
+# ---------------------------------------------------------------------------
+# run.py --awmc --checkpoint: a reference torch pickle read by each package
+# ---------------------------------------------------------------------------
+
+REF_DIMS = {k: v for k, v in TINY.items() if k != "attention_impl"}
+
+
+@pytest.fixture(scope="module")
+def checkpoint_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ckpt")
+    state = init_conformer(ConformerConfig(compute_dtype="float32", **REF_DIMS), seed=5).state_dict()
+    path = str(tmp / "ref.pt")
+    torch.save({"model": state, "config": {"model": dict(REF_DIMS, compute_dtype="float32")}},
+               path)
+    argv = ["-d", "synthetic", "--quiet", "--awmc", "--checkpoint", path]
+    with rolled_scans():
+        jax_wer = jax_run.cli(argv + ["-s", str(tmp / "jax" / "r.pkl")] + KWARGS)
+    port_wer = cli(argv + ["--device", "cpu", "-s", str(tmp / "port" / "r.pkl")] + KWARGS)
+    return (jax_wer, _load_pickle(tmp / "jax")), (port_wer, _load_pickle(tmp / "port"))
+
+
+def test_awmc_from_a_reference_checkpoint_transcripts_identical(checkpoint_runs):
+    (_, j), (_, p) = checkpoint_runs
+    assert p["model_output"] == j["model_output"] and any(p["model_output"])
+    assert set(p) == set(j)
+
+
+def test_awmc_from_a_reference_checkpoint_wer_identical(checkpoint_runs):
+    (jw, j), (pw, p) = checkpoint_runs
+    assert pw == jw
+    for key in ("wer", "words", "ins_rate", "del_rate", "sub_rate"):
+        assert p[key] == j[key], key
+
+
+# ---------------------------------------------------------------------------
+# what is not ported, and what JAX refuses
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("flags", [["--consistency"], ["-lm", "lm.arpa"], ["--decode_batch", "2"],
+                                   ["--dp_records"]],
+                         ids=["consistency", "lm", "decode_batch", "dp_records"])
+def test_full_driver_rejects_what_is_not_ported(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        full.cli(["-d", "synthetic", "--quiet", "--device", "cpu"] + flags)
+
+
+def test_awmc_with_dp_records_is_refused_as_in_jax():
+    argv = ["-d", "synthetic", "--quiet", "--awmc", "--dp_records"]
+    with pytest.raises(ValueError, match="only the NSTI engine"):
+        jax_full.cli(argv)
+    with pytest.raises(ValueError, match="only the NSTI engine"):
+        full.cli(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="AWMC engine"):
+        jax_run.cli(argv)
+    with pytest.raises(SystemExit, match="AWMC engine"):
+        cli(argv + ["--device", "cpu"])
+
+
+def test_run_rejects_a_language_model():
+    with pytest.raises(NotImplementedError, match="-lm"):
+        cli(["-d", "synthetic", "--quiet", "--device", "cpu", "-lm", "lm.arpa"])
+
+
+def test_a_checkpoint_brings_its_own_config(tmp_path):
+    cfg = ConformerConfig(compute_dtype="float32", **TINY)
+    path = str(tmp_path / "ref.pt")
+    torch.save({"model": init_conformer(cfg).state_dict()}, path)
+    with pytest.raises(ValueError, match="own configuration"):
+        load_model_and_tokenizer(parse_args(["--checkpoint", path, "--device", "cpu"]),
+                                 config=cfg)

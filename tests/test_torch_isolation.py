@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package (nor PyYAML on import), and its entry points run on ``cuda`` unless
+package (nor msgpack or PyYAML on import), and its entry points run on ``cuda`` unless
 asked for ``cpu`` — without a GPU they raise instead of falling back."""
 
 import argparse
@@ -33,13 +33,16 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "yaml", "dynamic_asr_eval_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
+                                    "dynamic_asr_eval_tpu"))
 print(len(names))
 print(",".join(bad))
 """
 
 
 def test_importing_every_module_pulls_in_no_jax_and_no_yaml():
+    """Nor flax's serializer: the port reads and writes DAE1 checkpoints
+    with its own MessagePack codec."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -88,10 +91,11 @@ def test_driver_without_device_raises_without_cuda(no_cuda):
         run.cli(["-d", "synthetic", "--quiet"])
 
 
-@pytest.mark.parametrize("flag", ["--awmc", "--dp", "--dp_records"])
-def test_driver_rejects_what_is_not_ported(flag):
+@pytest.mark.parametrize("flags", [["--profile", "DIR"], ["--dp"], ["--dp_records"]],
+                         ids=["--profile", "--dp", "--dp_records"])
+def test_driver_rejects_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError):
-        run.cli(["-d", "synthetic", "--quiet", "--device", "cpu", flag])
+        run.cli(["-d", "synthetic", "--quiet", "--device", "cpu"] + flags)
 
 
 _RUN_SMOKE = """

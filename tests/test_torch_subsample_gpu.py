@@ -73,7 +73,8 @@ def _hold_rounding(x, ws, gout, act, got):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,F,C", [(2, 16384, 80, 256), (3, 1001, 80, 256), (2, 37, 16, 40)])
+@pytest.mark.parametrize("B,T,F,C", [(2, 16384, 80, 256), (1, 16384, 80, 256),
+                                     (3, 1001, 80, 256), (2, 37, 16, 40)])
 def test_kernels_match_plain_version(cuda, dtype, B, T, F, C):
     x, ws, gout = _inputs(cuda, B, T, F, C, dtype)
     out = S.fused_subsample_fwd(x, ws, "silu")
