@@ -95,11 +95,32 @@ Phases (each raises on failure; the script then exits non-zero):
    subsampling: stitched log-probs within 1e-3 of max |log-prob|, equal
    greedy ids; its f32-route launches are ``awmc_parity_launches``;
 11. where AWMC's time goes: phase 7's profile of the driver's warm AWMC
-   engine (a ``{"profile": ...}`` line with ``"path": "awmc"``).
+   engine (a ``{"profile": ...}`` line with ``"path": "awmc"``);
+12. the native host libraries: ``native/levenshtein.cc`` and
+   ``native/arpa_reader.cc`` built with ``g++`` (build seconds printed; a
+   failed build, zlib's header missing included, fails the phase), and the
+   native WER against the pure-Python DP on one 10k-word pair: equal counts,
+   both timed;
+13. the ``-lm`` path: ``evals/run.py`` ``main`` on phase 5b's recording and
+   configuration with ``--tokenizer`` a 4095-piece vocabulary and ``-lm`` a
+   token-level 4-gram ARPA file over it (both written from a seed: every
+   unigram, ~2e5 / 5e5 / 5e5 higher-order n-grams, each extending a
+   lower-order one), ``--beams 20`` and ``lm_tta_beams=3``: LM-fused
+   pseudo-labels in every window and the final beam decode on the card.  The
+   launch counters are zeroed just before and read just after: 6 / 6
+   attention and 1 / 1 subsampling launches per window, all on the bf16
+   route.  Checks: the n-gram tables on ``cuda``, read by the native reader;
+   the transcript non-empty; the beam on the card gives the CPU's tokens on
+   the first 512 collapsed frames of the record's stitched output (same
+   function, same tables).  Prints ARPA load seconds and table bytes, the
+   frames the collapse kept, the pseudo-label beam's ms per window, the
+   final decode's seconds, the record's wall and the adaptation's ms per
+   window beside phase 5b's (a ``{"lm_path": ...}`` line).
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
-``launches`` on the NSTI path and ``awmc_launches`` on the AWMC path), and
-last ``{"ok": true, "device": {...}}``.  TF32 stays off throughout.
+``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path and
+``lm_launches`` on the ``-lm`` path), and last ``{"ok": true, "device":
+{...}}``.  TF32 stays off throughout.
 """
 
 from __future__ import annotations
@@ -142,6 +163,13 @@ SDTW_CASES = ((SDTW_BENCH, 0), ((2, 1500, 700), 100), ((1, 2048, 2048), 0))
 AWMC_PARITY = (3000, 2048, 1024)  # frames, seq, overlap: windows of 2048 and 1976
 RUN_KWARGS = ["-kwargs", "epochs=1", "online=true", "shuffle=false", "optim_lr=9e-5",
               "spec_augment_n_freq_masks=6", "spec_augment_freq_mask_param=34", "seed=0"]
+WER_WORDS = 10_000  # phase 12's long pair, timed on the native path
+WER_COUNTS = (442, 371, 1136)  # its (ins, del, sub) by the Python DP (text/wer.py::_edit_ops)
+WER_DP_WORDS = 2_000  # phase 12's pair on both paths
+LM_VOCAB = 4095  # the flagship's vocabulary (+ blank)
+LM_COUNTS = (200_000, 500_000, 500_000)  # drawn bigrams, trigrams, 4-grams (before dedup)
+LM_BEAMS, LM_TTA_BEAMS = 20, 3
+LM_CHECK_FRAMES = 512  # phase 13's card-against-CPU decode
 # the flagship's fields in a reference checkpoint's config (no kernel named)
 REFERENCE_FIELDS = ("feat_in", "n_layers", "d_model", "n_heads", "head_dim", "vocab_size",
                     "subsampling_factor", "subsampling_conv_channels", "conv_kernel_size",
@@ -571,11 +599,12 @@ class EngineRecorder:
         return out
 
 
-def main_path(cfg, kernel_modules, driver=None, flags=()):
+def main_path(cfg, kernel_modules, driver=None, flags=(), kwargs=()):
     """A driver (default ``evals.run``) on the flagship recording, its
     ``main`` given ``cfg`` (None: the configuration comes from ``flags``,
-    e.g. ``--checkpoint``); returns (wer, wall, {module: (fwd, bwd)
-    launches}, {module: {route: (fwd, bwd)}}, result detail, recorder)."""
+    e.g. ``--checkpoint``) and ``kwargs`` added to ``RUN_KWARGS``; returns
+    (wer, wall, {module: (fwd, bwd) launches}, {module: {route: (fwd, bwd)}},
+    result detail, recorder)."""
     import pickle
 
     if driver is None:
@@ -587,7 +616,7 @@ def main_path(cfg, kernel_modules, driver=None, flags=()):
     with tempfile.TemporaryDirectory() as tmp:
         args = driver.parse_args([
             "-d", "synthetic_spec", "--quiet", "-s", os.path.join(tmp, "r.pkl"),
-            "-seq", str(SEQ), "-o", str(OVERLAP), *flags, *RUN_KWARGS])
+            "-seq", str(SEQ), "-o", str(OVERLAP), *flags, *RUN_KWARGS, *kwargs])
         driver.build_engine = recorder.wrap(build_engine)
         try:
             for mod in kernel_modules.values():
@@ -824,6 +853,247 @@ def check_awmc_parity(params, A, S):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the native host libraries and the -lm path
+# ---------------------------------------------------------------------------
+
+
+class Timed:
+    """Stands in for ``fn``: synchronizes the card before and after each call
+    and keeps each call's seconds."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds = []
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.time() - t0)
+        return out
+
+
+def wer_pair(n_words, seed=0):
+    """A reference of ``n_words`` words from a 5000-word vocabulary and a
+    hypothesis with ~10 % substitutions, 5 % deletions and 5 % insertions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ref = [f"w{i}" for i in rng.integers(0, 5000, n_words)]
+    hyp = []
+    for word, u in zip(ref, rng.random(n_words)):
+        if u < 0.10:
+            hyp.append(f"w{rng.integers(0, 5000)}")
+        elif u < 0.15:
+            continue
+        else:
+            hyp.append(word)
+            if u > 0.95:
+                hyp.append(f"w{rng.integers(0, 5000)}")
+    return " ".join(hyp), " ".join(ref)
+
+
+def check_native_libraries(card):
+    """Phase 12: both native libraries built (g++ seconds of this process);
+    the native WER on a long pair against the Python DP's stored counts, and
+    against the Python DP itself, both timed, on a shorter pair."""
+    from dynamic_asr_eval_tpu_torch.lm import arpa_native
+    from dynamic_asr_eval_tpu_torch.text import wer
+
+    builds = {}
+    for lib in (wer.LIBRARY, arpa_native.LIBRARY):
+        lib.load()
+        builds[lib.source.name] = lib.build_seconds
+        log(f"  {lib.source.name}: " + ("built before this phase" if lib.build_seconds is None
+                                        else f"g++ {lib.build_seconds:.2f} s"))
+    hyp, ref = wer_pair(WER_WORDS)
+    t0 = time.time()
+    native = tuple(int(x) for x in wer.wer_counts(hyp, ref)[:3])
+    native_s = time.time() - t0
+    if native != WER_COUNTS:
+        raise AssertionError(f"native WER counts {native} != the Python DP's {WER_COUNTS}")
+    hyp, ref = wer_pair(WER_DP_WORDS)
+    t0 = time.time()
+    short = tuple(int(x) for x in wer.wer_counts(hyp, ref)[:3])
+    t1 = time.time()
+    plain = wer._edit_ops(hyp.split(), ref.split())
+    t2 = time.time()
+    if short != plain:
+        raise AssertionError(f"native WER counts {short} != the Python DP's {plain}")
+    result = {"card": card, "g++_seconds": builds, "words": WER_WORDS, "ins_del_sub": native,
+              "native_s": native_s, "dp_words": WER_DP_WORDS, "dp_ins_del_sub": short,
+              "dp_native_s": t1 - t0, "python_dp_s": t2 - t1}
+    log(f"  {WER_WORDS}-word pair, native (ins, del, sub) {native}, as the Python DP gives: "
+        f"{native_s:.4f} s; {WER_DP_WORDS}-word pair, {short} on both paths: native "
+        f"{t1 - t0:.4f} s, Python DP {t2 - t1:.2f} s ({card})")
+    print(json.dumps({"native_wer": result}))
+
+
+def synthetic_pieces(n):
+    """``n`` distinct word-start pieces: "▁" and a bijective base-26 letter
+    string (a, b, ..., z, aa, ab, ...)."""
+    pieces = []
+    for i in range(n):
+        word, j = "", i
+        while j >= 0:
+            word = chr(ord("a") + j % 26) + word
+            j = j // 26 - 1
+        pieces.append("\u2581" + word)
+    return pieces
+
+
+def write_synthetic_lm(directory, seed=0, vocab=LM_VOCAB, counts=LM_COUNTS):
+    """A vocabulary file of ``vocab`` pieces and a token-level ARPA file
+    over them: every unigram, and per higher order ``counts[k]`` draws of a
+    lower-order n-gram extended by a random piece (duplicates dropped), with
+    random log10 probabilities and backoffs.  Returns (vocab path, ARPA path,
+    n-grams per order)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pieces = np.array(synthetic_pieces(vocab), dtype=object)
+    vocab_path = os.path.join(directory, "synthetic.vocab")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(pieces) + "\n")
+    grams = [np.arange(vocab)[:, None]]
+    for n in counts:
+        prev = grams[-1]
+        rows = np.concatenate([prev[rng.integers(0, len(prev), n)],
+                               rng.integers(0, vocab, (n, 1))], axis=1)
+        grams.append(np.unique(rows, axis=0))
+    arpa_path = os.path.join(directory, "synthetic.arpa")
+    with open(arpa_path, "w", encoding="utf-8") as f:
+        f.write("\\data\\\n" + "".join(f"ngram {k + 1}={len(g)}\n" for k, g in enumerate(grams)))
+        for k, g in enumerate(grams):
+            logp = rng.uniform(-4.0, -0.5, len(g))
+            words = [" ".join(row) for row in pieces[g]]
+            if k + 1 < len(grams):
+                backoff = rng.uniform(-1.0, 0.0, len(g))
+                body = [f"{a:.4f}\t{w}\t{b:.4f}" for a, w, b in zip(logp, words, backoff)]
+            else:
+                body = [f"{a:.4f}\t{w}" for a, w in zip(logp, words)]
+            f.write(f"\n\\{k + 1}-grams:\n" + "\n".join(body) + "\n")
+        f.write("\n\\end\\\n")
+    return vocab_path, arpa_path, [len(g) for g in grams]
+
+
+def check_live_beams(what, got, want, rel=1e-5):
+    """Two searches' live beams (score above -1e29): same order, tokens and
+    lengths, scores within ``rel``; returns the largest relative difference."""
+    (gt, gl, gs), (wt, wl, ws) = ([x.cpu() for x in r] for r in (got, want))
+    live = ws > -1e29
+    if not (torch.equal(gs > -1e29, live) and torch.equal(gl[live], wl[live])
+            and all(torch.equal(gt[b, : gl[b]], wt[b, : wl[b]]) for b in torch.nonzero(live)[:, 0])):
+        raise AssertionError(f"{what}: the live beams differ in tokens, lengths or order")
+    diff = ((gs[live] - ws[live]).abs() / ws[live].abs().clamp_min(1e-30)).max().item()
+    if not diff <= rel:
+        raise AssertionError(f"{what}: beam scores differ by {diff:.3e} relative (> {rel})")
+    return diff
+
+
+def lm_path(tmp, card, kernel_modules, pallas_profile, expect):
+    """Phase 13: ``evals.run.main -lm`` at flagship width; returns the
+    kernels' launches ({module: (fwd, bwd)}) and, for the modules with
+    routes, the launches by route."""
+    import argparse
+
+    import dynamic_asr_eval_tpu_torch.evals.common as common
+    import dynamic_asr_eval_tpu_torch.tta.runner as runner
+    from dynamic_asr_eval_tpu_torch.lm.loader import load_lm_adapter
+    from dynamic_asr_eval_tpu_torch.ops.beam_search import (
+        beam_search_device,
+        collapse_blank_frames_device,
+    )
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+    from dynamic_asr_eval_tpu_torch.text import load_tokenizer
+
+    t0 = time.time()
+    vocab_path, arpa_path, counts = write_synthetic_lm(tmp)
+    arpa_mb = os.path.getsize(arpa_path) / 1e6
+    log(f"  synthetic LM: {LM_VOCAB} pieces; n-grams by order {counts}; {arpa_mb:.1f} MB of ARPA "
+        f"written in {time.time() - t0:.2f} s")
+    cfg = flagship_config(subsampling_impl="pallas")
+    timers = {"load": Timed(common.load_lm_adapter), "beam": Timed(runner.beam_search_device),
+              "decode": Timed(common.decode_output)}
+    originals = common.load_lm_adapter, runner.beam_search_device, common.decode_output
+    common.load_lm_adapter, runner.beam_search_device, common.decode_output = (
+        timers["load"], timers["beam"], timers["decode"])
+    try:
+        wer, wall, launches, routes, detail, recorder = main_path(
+            cfg, kernel_modules,
+            flags=("--tokenizer", vocab_path, "-lm", arpa_path, "--beams", str(LM_BEAMS)),
+            kwargs=(f"lm_tta_beams={LM_TTA_BEAMS}",))
+    finally:
+        common.load_lm_adapter, runner.beam_search_device, common.decode_output = originals
+    check_launches(launches, expect)
+    for name, by_route in routes.items():
+        if by_route != {"tensor_core": launches[name], "cuda_core": (0, 0)}:
+            raise AssertionError(f"-lm path: {name} launches by route {by_route}: not all on the "
+                                 f"bf16 tensor-core kernels")
+    check_driver_output(cfg, wer, detail, recorder)
+    engine, (out,) = recorder.engine, recorder.outputs
+    adapter = engine.lm_adapter
+    if adapter is None or engine.config.lm_tta_beams != LM_TTA_BEAMS:
+        raise AssertionError("the NSTI engine runs without LM-fused pseudo-labels")
+    devices = {t.device.type for t in adapter.lm.keys.values()}
+    if adapter.lm.reader != "native" or devices != {"cuda"}:
+        raise AssertionError(f"n-gram tables read by the {adapter.lm.reader} parser, on "
+                             f"{devices}, the engine on {engine.device}")
+    if len(timers["beam"].seconds) != N_WINDOWS or len(timers["decode"].seconds) != 1:
+        raise AssertionError(f"{len(timers['beam'].seconds)} pseudo-label beams and "
+                             f"{len(timers['decode'].seconds)} final decodes, expected "
+                             f"{N_WINDOWS} and 1")
+    hyp = detail["model_output"][0]
+    if not hyp.strip():
+        raise AssertionError("the -lm decode gave an empty transcript")
+    log(f"  WER {wer}; launches {launches}; by route {routes}; evals.run wall {wall:.3f} s; "
+        f"transcript of {len(hyp.split())} words; n-gram tables on {engine.device}, read by the "
+        f"native reader")
+
+    log(f"  the card's beam against the CPU's on the first {LM_CHECK_FRAMES} collapsed frames")
+    kw = dict(common.lm_kwargs(argparse.Namespace()), beam_width=LM_BEAMS)
+    n_valid = (out.counts > 0).sum()
+    lp_c, n_kept = collapse_blank_frames_device(out.logits, threshold=0.99, valid_frames=n_valid)
+    lp = lp_c[: min(int(n_kept), LM_CHECK_FRAMES)]
+    gpu_timer = Timed(beam_search_device)
+    got = gpu_timer(lp, adapter, **kw)
+    cpu_adapter = load_lm_adapter(arpa_path, load_tokenizer(vocab_path), device="cpu")
+    t0 = time.time()
+    want = beam_search_device(lp.cpu(), cpu_adapter, **kw)
+    cpu_s = time.time() - t0
+    diff = check_live_beams("-lm decode, card against CPU", got, want)
+    log(f"  equal live beams ({int((want[2] > -1e29).sum())}, best of "
+        f"{int(want[1][0])} tokens); scores within {diff:.2e} relative; card "
+        f"{gpu_timer.seconds[0]:.3f} s, CPU {cpu_s:.3f} s")
+
+    _, lengths = chunk_starts_and_lengths(N_FRAMES, SEQ, OVERLAP)
+    label_frames = sum(-(-int(n) // cfg.subsampling_factor) for n in lengths)
+    beam_s = sum(timers["beam"].seconds)
+    result = {
+        "card": card, "arpa_ngrams_by_order": counts, "arpa_mb": arpa_mb,
+        "arpa_load_s": timers["load"].seconds[0], "table_bytes": adapter.lm.table_bytes(),
+        "frames_stitched": int(n_valid), "frames_kept_by_collapse": int(n_kept),
+        "pseudo_label_beam_ms_per_window": beam_s / N_WINDOWS * 1e3,
+        "pseudo_label_beam_ms_by_window": [t * 1e3 for t in timers["beam"].seconds],
+        "pseudo_label_beam_ms_per_frame": beam_s / label_frames * 1e3,
+        "final_decode_s": timers["decode"].seconds[0],
+        "final_decode_ms_per_kept_frame": timers["decode"].seconds[0] / int(n_kept) * 1e3,
+        "record_wall_s": detail["elapsed_times"][0],
+        "adapt_ms_per_window": out.elapsed / N_WINDOWS * 1e3,
+        "adapt_ms_per_window_without_beam": (out.elapsed - beam_s) / N_WINDOWS * 1e3,
+        "phase_5b_ms_per_window": pallas_profile["ms_per_window"],
+        "check_frames": int(lp.shape[0]), "check_card_s": gpu_timer.seconds[0],
+        "check_cpu_s": cpu_s, "check_max_rel_score_diff": diff, "wer": wer,
+    }
+    for key, val in result.items():
+        if key != "pseudo_label_beam_ms_by_window":
+            log(f"  {key}: {val}")
+    print(json.dumps({"lm_path": result}))
+    return launches, routes
+
+
 def ptxas_report(build_log: str):
     """(mangled kernel name, registers, spill-store bytes) for each entry in
     nvcc's ``-Xptxas -v`` output."""
@@ -909,6 +1179,7 @@ def profile_engine(recorder, card, path):
     for name, ms in result.get("top_kernels_ms", []):
         log(f"  {ms:9.3f} ms  {name}")
     print(json.dumps({"profile": result}))
+    return result
 
 
 def drive(label, cfg, kernel_modules, expect, card, check_model):
@@ -926,8 +1197,8 @@ def drive(label, cfg, kernel_modules, expect, card, check_model):
     params = check_driver_output(cfg, wer, detail, recorder)
     model_launches = check_model(params)
     log(f"[7{label}] where the time goes: the driver's engine, warm, on {card}")
-    profile_engine(recorder, card, f"subsampling_{cfg.subsampling_impl}")
-    return launches, routes, model_launches
+    profile = profile_engine(recorder, card, f"subsampling_{cfg.subsampling_impl}")
+    return launches, routes, model_launches, profile
 
 
 def main() -> int:
@@ -997,13 +1268,13 @@ def main() -> int:
     subsample_breakdown(S, card)
 
     attn_per_window = (flagship_config().n_layers, flagship_config().n_layers)
-    _, routes, parity_launches = drive("", flagship_config(), {"attention": A},
-                                       {"attention": attn_per_window}, card,
-                                       lambda params: check_attention_model(params, A))
-    _, pallas_routes, sub_parity_launches = drive("b", flagship_config(subsampling_impl="pallas"),
-                                  {"attention": A, "subsample": S},
-                                  {"attention": attn_per_window, "subsample": (1, 1)}, card,
-                                  lambda params: check_subsample_model(params, S))
+    _, routes, parity_launches, _ = drive("", flagship_config(), {"attention": A},
+                                          {"attention": attn_per_window}, card,
+                                          lambda params: check_attention_model(params, A))
+    _, pallas_routes, sub_parity_launches, pallas_profile = drive(
+        "b", flagship_config(subsampling_impl="pallas"), {"attention": A, "subsample": S},
+        {"attention": attn_per_window, "subsample": (1, 1)}, card,
+        lambda params: check_subsample_model(params, S))
 
     log("[8] soft-DTW's own path: kernels.softdtw.benchmark(use_pallas=True)")
     D.reset_counters()
@@ -1037,6 +1308,16 @@ def main() -> int:
         log(f"[11] where AWMC's time goes: the driver's engine, warm, on {card}")
         profile_engine(recorder, card, "awmc")
 
+    log("[12] native host libraries: g++ builds, and the native WER against the Python DP")
+    check_native_libraries(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[13] the -lm path: evals.run.main, NSTI with lm_tta_beams={LM_TTA_BEAMS} and a "
+            f"{LM_BEAMS}-beam final decode, on the {N_FRAMES}-frame recording, flagship, bf16, "
+            f"subsampling_impl='pallas', on {card}")
+        lm_counts, lm_routes = lm_path(tmp, card, {"attention": A, "subsample": S, "softdtw": D},
+                                       pallas_profile,
+                                       {"attention": attn_per_window, "subsample": (1, 1)})
+
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
                "fused_subsample": "fused_subsample_bf16.cu",
@@ -1054,8 +1335,9 @@ def main() -> int:
         ("softdtw", "bwd"): "dynamic_asr_eval_tpu/kernels/softdtw.py:92",
     }
     # launches on the NSTI path (by route: attention in the "conv" run,
-    # subsampling in the "pallas" run; soft-DTW: its own path) and on the AWMC
-    # path (phase 10); the f32 routes are the parity routes and run 0 times
+    # subsampling in the "pallas" run; soft-DTW: its own path), on the AWMC
+    # path (phase 10) and on the -lm path (phase 13); the
+    # f32 routes are the parity routes and run 0 times
     # there, their counts in the f32 runs of phases 6 and 6b go under
     # "parity_launches", of phase 10b under "awmc_parity_launches"
     nsti_launches = {"flash_attention": routes["attention"]["tensor_core"],
@@ -1069,6 +1351,11 @@ def main() -> int:
                      "fused_subsample": awmc_routes["subsample"]["tensor_core"],
                      "fused_subsample_f32": awmc_routes["subsample"]["cuda_core"],
                      "softdtw": launches["softdtw"]}
+    lm_launches = {"flash_attention": lm_routes["attention"]["tensor_core"],
+                   "flash_attention_f32": lm_routes["attention"]["cuda_core"],
+                   "fused_subsample": lm_routes["subsample"]["tensor_core"],
+                   "fused_subsample_f32": lm_routes["subsample"]["cuda_core"],
+                   "softdtw": lm_counts["softdtw"]}
     awmc_parity = {"flash_attention_f32": awmc_parity_routes["attention"],
                    "fused_subsample_f32": awmc_parity_routes["subsample"]}
     err_keys = {
@@ -1098,6 +1385,7 @@ def main() -> int:
                 "replaces": replaces[(name, kind)],
                 "launches": nsti_launches[name][i],
                 "awmc_launches": awmc_launches[name][i],
+                "lm_launches": lm_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

@@ -3,9 +3,10 @@ decoding, WER over records, and the result-pickle schema.
 
 Counterpart of the JAX package's ``evals/common.py``: checkpoints (DAE1 and
 reference torch pickles, :func:`..models.checkpoint.load_any_checkpoint`),
-the NSTI and AWMC engines, greedy decode, and the repeat loop the drivers
-share (:func:`evaluate_repeats`).  LM decode and the device mesh are not
-ported yet.
+the NSTI and AWMC engines, the ARPA n-gram LM (final beam decode, after
+groups of ``--decode_batch`` records, and LM-fused NSTI pseudo-labels),
+greedy decode, and the repeat loop the drivers share
+(:func:`evaluate_repeats`).  The device mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from dynamic_asr_eval_tpu_torch.config import TTAConfig, load_yaml
 from dynamic_asr_eval_tpu_torch.device import resolve_device
+from dynamic_asr_eval_tpu_torch.lm.loader import load_beamsearch, load_lm_adapter
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig, init_conformer, params_from_jax
 from dynamic_asr_eval_tpu_torch.models.checkpoint import load_any_checkpoint
 from dynamic_asr_eval_tpu_torch.text import load_tokenizer, normalize, word_error_rate_detail
@@ -82,28 +84,54 @@ def _placed(model, device):
     return model, {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+def lm_kwargs(args) -> Dict[str, float]:
+    """The beam's fusion settings from ``-kwargs`` (lm_alpha, lm_beta,
+    lm_prune_less_than_val, lm_top_am_threshold)."""
+    return {"alpha": vars(args).get("lm_alpha", 0.45),
+            "beta": vars(args).get("lm_beta", 1.53),
+            "prune_less_than_val": vars(args).get("lm_prune_less_than_val", 3.17),
+            "top_am_threshold": vars(args).get("lm_top_am_threshold", -6.0)}
+
+
+def load_language_model(args, tokenizer):
+    """``-lm``: ``(lm_adapter, beam_search_fn)``, both ``None`` without it.
+    One adapter serves the final decode and the pseudo-labels."""
+    if not getattr(args, "language_model", ""):
+        return None, None
+    adapter = load_lm_adapter(args.language_model, tokenizer, device=getattr(args, "device", None))
+    beam_search_fn = load_beamsearch(args.language_model, tokenizer, adapter=adapter,
+                                     **lm_kwargs(args))
+    return adapter, beam_search_fn
+
+
 def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_eval",
-                 device=None) -> DynamicEvalEngine:
-    """The ``engine_kind`` engine (``"dynamic_eval"``: NSTI; ``"awmc"``)."""
+                 device=None, lm_adapter=None) -> DynamicEvalEngine:
+    """The ``engine_kind`` engine (``"dynamic_eval"``: NSTI; ``"awmc"``).
+    ``lm_adapter`` gives the NSTI engine LM-fused pseudo-labels when
+    ``lm_tta_beams > 0``; AWMC keeps greedy teachers, as in the JAX package."""
     tta = TTAConfig.from_args(args)
     if getattr(args, "dp", False) or getattr(args, "dp_records", False):
         raise NotImplementedError(
             "--dp / --dp_records are not ported yet (ROADMAP queue 1 item 19)")
-    if getattr(args, "language_model", ""):
-        raise NotImplementedError("-lm (LM beam decode and LM pseudo-labels) is not ported "
-                                  "yet (ROADMAP queue 1 item 12)")
+    kwargs = {}
+    if lm_adapter is not None and engine_kind == "dynamic_eval" and tta.lm_tta_beams > 0:
+        kwargs = {"lm_adapter": lm_adapter, "lm_beam_kwargs": lm_kwargs(args)}
     transfer = torch.float32
     if cfg.compute_dtype == torch.bfloat16 and not bool(vars(args).get("f32_transfer", False)):
         # the model casts its input to bf16 anyway; the window copy is half
         transfer = torch.bfloat16
     device = device if device is not None else getattr(args, "device", None)
     return ENGINES[engine_kind](model, cfg.blank_id, cfg.subsampling_factor, tta,
-                                transfer_dtype=transfer, device=device)
+                                transfer_dtype=transfer, device=device, **kwargs)
 
 
-def decode_output(out, tokenizer) -> str:
-    """Greedy decode of a stitched engine output (ids decoded on the device,
-    only the ids move to the host)."""
+def decode_output(out, tokenizer, beam_search_fn: Optional[Callable] = None,
+                  beams: int = 1) -> str:
+    """Final decode of a stitched engine output: the LM beam search on the
+    device when ``beam_search_fn`` is given and ``beams > 1``, else greedy
+    (decoded on the device; only the ids move to the host)."""
+    if beam_search_fn is not None and beams > 1:
+        return beam_search_fn.from_engine_output(out, beam_width=beams)
     return tokenizer.decode([int(i) for i in out.greedy_ids()])
 
 
@@ -129,6 +157,41 @@ def evaluate_records(
         )
         all_texts.append(hyp)
         all_golds.append(gold)
+    return _wer_detail(all_texts, all_golds, elapsed_times, log_path)
+
+
+def evaluate_records_grouped(
+    records: List[Dict],
+    run_group: Callable[[List[Dict]], List[Tuple[str, str]]],
+    group_size: int,
+    log_path: str = "",
+    verbose: bool = True,
+) -> Tuple[float, Dict]:
+    """:func:`evaluate_records` over groups of records (``--decode_batch``):
+    ``run_group(records[i:i + group_size]) -> [(hyp, gold), ...]``; each
+    record's elapsed time is the group's wall over its size."""
+    all_texts, all_golds, elapsed_times = [], [], []
+    for g0 in range(0, len(records), group_size):
+        group = records[g0 : g0 + group_size]
+        t0 = time.time()
+        pairs = run_group(group)
+        per_rec = (time.time() - t0) / len(group)
+        for i, (rec, (hyp, gold)) in enumerate(zip(group, pairs)):
+            elapsed_times.append(per_rec)
+            if verbose:
+                print(gold, "\n", hyp, "\n\n")
+            append_log(
+                log_path,
+                f"record {g0 + i + 1}/{len(records)} "
+                f"({rec.get('id', rec.get('audio', '?'))}): "
+                f"elapsed {per_rec:.2f}s (group of {len(group)})",
+            )
+            all_texts.append(hyp)
+            all_golds.append(gold)
+    return _wer_detail(all_texts, all_golds, elapsed_times, log_path)
+
+
+def _wer_detail(all_texts, all_golds, elapsed_times, log_path):
     wer, words, ins_rate, del_rate, sub_rate = word_error_rate_detail(
         hypotheses=all_texts, references=all_golds)
     append_log(log_path, f"corpus WER: {wer} over {words} words")
@@ -146,28 +209,47 @@ def evaluate_records(
 
 
 def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
-                     log_line: Callable[[float], str]) -> float:
+                     log_line: Callable[[float], str], beam_search_fn=None) -> float:
     """The drivers' loop: ``-r`` repeats, each with its own seed (``seed ·
-    1000 + repeat``) and a distinct augmentation stream per recording;
-    greedy decode, normalizer, corpus WER, a log line, the result pickle.
-    Returns the mean WER."""
+    1000 + repeat``) and a distinct augmentation stream per recording; final
+    decode (greedy, or the LM beam with ``--beams`` above 1; with
+    ``--decode_batch`` N above 1 too, N records are adapted before their
+    decodes, as the JAX package groups them), normalizer, corpus WER, a log
+    line, the result pickle.  Returns the mean WER."""
     wers = []
     repeats = getattr(args, "repeats", 1)
     seed = getattr(args, "seed", None)
     base_seed = 0 if seed is None else int(seed)
+    beams = getattr(args, "beams", 1)
+    decode_batch = int(getattr(args, "decode_batch", 1) or 1)
+    verbose = not getattr(args, "quiet", False)
     for repeat in range(repeats):
         repeat_seed = base_seed * 1000 + repeat
         repeat_shuffle = np.random.default_rng(repeat_seed)
         rec_counter = iter(range(len(records)))
 
-        def run_one(rec):
+        def adapt_one(rec):
             spec, gold = rec["process_fn"](rec)
             rec_seed = repeat_seed * 1_000_003 + next(rec_counter)
             out = engine(params, spec, args.seq_len, args.overlap,
                          rng=rec_seed, shuffle_rng=repeat_shuffle)
-            return normalize(decode_output(out, tokenizer)), gold
+            return out, gold
 
-        wer, detail = evaluate_records(records, run_one, verbose=not getattr(args, "quiet", False))
+        def run_one(rec):
+            out, gold = adapt_one(rec)
+            return normalize(decode_output(out, tokenizer, beam_search_fn, beams)), gold
+
+        def run_group(group):
+            # adapt one record after another, then decode each on the device
+            outs = [adapt_one(rec) for rec in group]
+            return [(normalize(decode_output(out, tokenizer, beam_search_fn, beams)), gold)
+                    for out, gold in outs]
+
+        if beam_search_fn is not None and beams > 1 and decode_batch > 1:
+            wer, detail = evaluate_records_grouped(records, run_group, decode_batch,
+                                                   verbose=verbose)
+        else:
+            wer, detail = evaluate_records(records, run_one, verbose=verbose)
         print(f"WER: {wer}")
         append_log(getattr(args, "log", ""), log_line(wer))
         if getattr(args, "save_path", ""):

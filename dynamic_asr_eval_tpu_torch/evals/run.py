@@ -2,9 +2,13 @@
 
 Counterpart of the JAX package's ``evals/run.py``: adapt on each recording
 from the pristine weights (``--checkpoint``: a DAE1 file or a reference
-torch pickle), greedy-decode the stitched posteriors, normalize, corpus WER,
-log and result pickle, repeated ``-r`` times with a distinct seed per repeat.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+torch pickle), decode the stitched posteriors (greedy; with ``-lm
+<file>.arpa --beams N`` the LM-fused beam search, which with ``lm_tta_beams
+> 0``, the default, also gives the NSTI pseudo-labels; ``--decode_batch N``
+adapts N records before their decodes), normalize, corpus WER, log and result
+pickle, repeated ``-r`` times with a distinct seed per repeat.  ``--tp`` is
+accepted and means something only with ``--dp``, not ported yet.  Runs on
+``cuda`` unless ``--device cpu`` is given.
 
 CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run -d synthetic -kwargs
 optim_lr=9e-5 epochs=1 online=true``
@@ -20,12 +24,12 @@ from dynamic_asr_eval_tpu_torch.data import get_dataset
 from dynamic_asr_eval_tpu_torch.evals.common import (
     build_engine,
     evaluate_repeats,
+    load_language_model,
     load_model_and_tokenizer,
 )
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
 
 _NOT_PORTED = {
-    "language_model": "-lm (LM beam decode and LM pseudo-labels, ROADMAP queue 1 item 12)",
     "dp": "--dp (data-parallel windowed inference, ROADMAP queue 1 item 19)",
     "dp_records": "--dp_records (records-level data parallelism, ROADMAP queue 1 item 19)",
     "profile": "--profile",
@@ -48,11 +52,13 @@ def main(args, model_config: Optional[ConformerConfig] = None,
     model, params, tokenizer, cfg = load_model_and_tokenizer(
         args, config=model_config, jax_params=jax_params)
     records = get_dataset(args.dataset, args.split)
-    engine = build_engine(args, model, cfg, engine_kind)
+    lm_adapter, beam_search_fn = load_language_model(args, tokenizer)
+    engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter)
     return evaluate_repeats(
         args, engine, params, tokenizer, records,
         lambda wer: (f"{getattr(args, 'checkpoint', '')}\t overlap: {args.overlap}\t "
-                     f"seq_len: {args.seq_len}\t WER: {wer}"))
+                     f"seq_len: {args.seq_len}\t WER: {wer}"),
+        beam_search_fn=beam_search_fn)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -65,6 +71,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--awmc", action="store_true", help="use the AWMC engine")
     parser.add_argument("--dp", action="store_true", help="not ported yet")
     parser.add_argument("--dp_records", action="store_true", help="not ported yet")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree of the device mesh (with --dp)")
+    parser.add_argument("--decode_batch", type=int, default=1,
+                        help="with -lm, adapt this many records before decoding them")
     parser.add_argument("--tokenizer", type=str, default="")
     parser.add_argument("--profile", type=str, default="", help="not ported yet")
     parser.add_argument("--quiet", action="store_true")

@@ -2,11 +2,12 @@
 ``--awmc``.
 
 Counterpart of the JAX package's ``evals/run_dynamic_eval_full.py``: the
-loop of :mod:`.run` (per-repeat and per-record seeds, greedy decode, WER,
-``--save_path`` pickles) with the log line ``"{engine}\\t{dataset}\\tWER:
-..."``.  Not ported yet (raise ``NotImplementedError``): ``--consistency``,
-``-lm``, ``--decode_batch`` above 1 and ``--dp_records``.  Runs on ``cuda``
-unless ``--device cpu`` is given.
+loop of :mod:`.run` (per-repeat and per-record seeds, greedy or ``-lm`` beam
+decode, ``--decode_batch``, WER, ``--save_path`` pickles) with the log line
+``"{engine}\\t{dataset}\\tWER: ..."``; LM-fused pseudo-labels are NSTI's
+only (AWMC keeps greedy teachers).  Not ported yet (raise
+``NotImplementedError``): ``--consistency`` and ``--dp_records``.  Runs on
+``cuda`` unless ``--device cpu`` is given.
 
 CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run_dynamic_eval_full -d
 synthetic --awmc -c model.dae -kwargs epochs=1``
@@ -23,13 +24,13 @@ from dynamic_asr_eval_tpu_torch.evals.common import (
     ENGINES,
     build_engine,
     evaluate_repeats,
+    load_language_model,
     load_model_and_tokenizer,
 )
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
 
 _NOT_PORTED = {
     "consistency": "--consistency (the consistency engine, ROADMAP queue 1 item 13)",
-    "language_model": "-lm (LM beam decode, ROADMAP queue 1 item 12)",
     "dp_records": "--dp_records (records-level data parallelism, ROADMAP queue 1 item 19)",
 }
 
@@ -45,17 +46,15 @@ def main(args, model_config: Optional[ConformerConfig] = None,
     for key, what in _NOT_PORTED.items():
         if getattr(args, key, False):
             raise NotImplementedError(f"{what} is not ported yet")
-    if int(getattr(args, "decode_batch", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--decode_batch above 1 (batched LM beam decodes) is not ported yet "
-            "(ROADMAP queue 1 item 12)")
     model, params, tokenizer, cfg = load_model_and_tokenizer(
         args, config=model_config, jax_params=jax_params)
-    engine = build_engine(args, model, cfg, engine_kind)
+    lm_adapter, beam_search_fn = load_language_model(args, tokenizer)
+    engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter)
     records = get_dataset(args.dataset, args.split)
     name = ENGINES[engine_kind].__name__
     return evaluate_repeats(args, engine, params, tokenizer, records,
-                            lambda wer: f"{name}\t{args.dataset}\tWER: {wer}")
+                            lambda wer: f"{name}\t{args.dataset}\tWER: {wer}",
+                            beam_search_fn=beam_search_fn)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -67,8 +66,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--awmc", action="store_true", help="use the AWMC engine")
     parser.add_argument("--consistency", action="store_true", help="not ported yet")
     parser.add_argument("--dp_records", action="store_true", help="not ported yet")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree of the mesh (with --dp_records)")
     parser.add_argument("--decode_batch", type=int, default=1,
-                        help="not ported yet above 1 (batched LM beam decodes)")
+                        help="with -lm, adapt this many records before decoding them")
     parser.add_argument("--tokenizer", type=str, default="")
     parser.add_argument("--quiet", action="store_true")
     return apply_args(parser, argv)

@@ -6,7 +6,7 @@ from dynamic_asr_eval_tpu_torch.text.tokenizer import (
     load_tokenizer,
     parse_sentencepiece_model,
 )
-from dynamic_asr_eval_tpu_torch.text.wer import cer, word_error_rate_detail
+from dynamic_asr_eval_tpu_torch.text.wer import cer, wer_counts, word_error_rate_detail
 
 __all__ = [
     "EnglishTextNormalizer",
@@ -17,5 +17,6 @@ __all__ = [
     "parse_sentencepiece_model",
     "load_tokenizer",
     "word_error_rate_detail",
+    "wer_counts",
     "cer",
 ]

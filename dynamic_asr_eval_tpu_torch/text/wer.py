@@ -1,18 +1,40 @@
 """Word / character error rate with insertion/deletion/substitution detail.
 
-Counterpart of the JAX package's ``text/wer.py`` (pure-Python path only):
-corpus-wide edit counts over the total number of reference words; ties prefer
-substitution, then deletion, then insertion.
+Counterpart of the JAX package's ``text/wer.py``: corpus-wide edit counts
+over the total number of reference words; ties prefer substitution, then
+deletion, then insertion.  The alignment runs in C (``native/levenshtein.cc``,
+built by :mod:`..nativelib`, tokens interned to int32 ids here); a failed
+build raises.  :func:`_edit_ops` is the pure-Python DP the native path is
+held against.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from dynamic_asr_eval_tpu_torch.nativelib import NATIVE_DIR, NativeLibrary
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.lev_edit_ops.restype = ctypes.c_int64
+    lib.lev_edit_ops.argtypes = [_I32P, ctypes.c_int64, _I32P, ctypes.c_int64, _I64P]
+    lib.lev_edit_ops_batch.restype = None
+    lib.lev_edit_ops_batch.argtypes = [_I32P, _I64P, _I32P, _I64P, ctypes.c_int64, _I64P]
+
+
+LIBRARY = NativeLibrary(NATIVE_DIR / "levenshtein.cc", _bind)
 
 
 def _edit_ops(hyp: Sequence, ref: Sequence) -> Tuple[int, int, int]:
     """(insertions, deletions, substitutions) of the minimal-cost alignment
-    transforming ``ref`` into ``hyp``."""
+    transforming ``ref`` into ``hyp``: the plain reference of the native
+    path."""
     H, R = len(hyp), len(ref)
     if R == 0:
         return H, 0, 0
@@ -42,6 +64,27 @@ def _edit_ops(hyp: Sequence, ref: Sequence) -> Tuple[int, int, int]:
     return ins, dels, subs
 
 
+def _intern(seqs: List[Sequence], table: dict) -> Tuple[np.ndarray, np.ndarray]:
+    """Token sequences → packed int32 ids and per-sequence lengths."""
+    lens = np.array([len(s) for s in seqs], np.int64)
+    flat = np.fromiter((table.setdefault(tok, len(table)) for s in seqs for tok in s),
+                       np.int32, count=int(lens.sum()))
+    return flat, lens
+
+
+def _native_counts(hyp_seqs: List[Sequence], ref_seqs: List[Sequence]) -> np.ndarray:
+    """``(ins, del, sub, ref_tokens)`` summed over the pairs, in C."""
+    table: dict = {}
+    hflat, hlens = _intern(hyp_seqs, table)
+    rflat, rlens = _intern(ref_seqs, table)
+    out = np.zeros(4, np.int64)
+    LIBRARY.load().lev_edit_ops_batch(
+        hflat.ctypes.data_as(_I32P), hlens.ctypes.data_as(_I64P),
+        rflat.ctypes.data_as(_I32P), rlens.ctypes.data_as(_I64P),
+        len(hyp_seqs), out.ctypes.data_as(_I64P))
+    return out
+
+
 def word_error_rate_detail(
     hypotheses: List[str],
     references: List[str],
@@ -53,21 +96,27 @@ def word_error_rate_detail(
             f"hypotheses ({len(hypotheses)}) and references ({len(references)}) "
             "must have the same length"
         )
-    total_words = total_ins = total_del = total_sub = 0
-    for h, r in zip(hypotheses, references):
-        hs = list(h) if use_cer else h.split()
-        rs = list(r) if use_cer else r.split()
-        total_words += len(rs)
-        i, d, s = _edit_ops(hs, rs)
-        total_ins += i
-        total_del += d
-        total_sub += s
+    split = list if use_cer else str.split
+    total_ins, total_del, total_sub, total_words = (int(v) for v in _native_counts(
+        [split(h) for h in hypotheses], [split(r) for r in references]))
     if total_words == 0:
         wer = float("inf") if (total_ins + total_del + total_sub) else 0.0
         return wer, 0, float("nan"), float("nan"), float("nan")
     denom = float(total_words)
     wer = (total_ins + total_del + total_sub) / denom
     return wer, total_words, total_ins / denom, total_del / denom, total_sub / denom
+
+
+def wer_counts(hypothesis: str, reference: str) -> np.ndarray:
+    """Per-pair ``(ins, del, sub, ref_words)``: summed over records they give
+    :func:`word_error_rate_detail`'s counts."""
+    h, r = hypothesis.split(), reference.split()
+    table: dict = {}
+    (hflat, _), (rflat, _) = _intern([h], table), _intern([r], table)
+    ops = np.zeros(3, np.int64)
+    LIBRARY.load().lev_edit_ops(hflat.ctypes.data_as(_I32P), len(h),
+                                rflat.ctypes.data_as(_I32P), len(r), ops.ctypes.data_as(_I64P))
+    return np.array([*ops, len(r)], np.int64)
 
 
 def cer(hypotheses: List[str], references: List[str]) -> float:

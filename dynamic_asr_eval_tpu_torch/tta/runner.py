@@ -18,9 +18,13 @@ Counterpart of the JAX package's ``tta/runner.py`` (``DynamicEvalEngine``,
 - the caller's weights are never modified: each call loads them into the
   engine's own working copy of the model.
 
-Not ported yet (raise ``NotImplementedError``): LM pseudo-labels,
-``pseudo_label_retokenize``, entropy augmentation, the per-chunk debug
-print, a device mesh and the records-batched ``batched()``.
+With an LM adapter and ``lm_tta_beams > 0`` the pseudo-labels are the top
+beam of the LM-fused beam search over the clean window
+(:func:`..ops.beam_search.beam_search_device`) instead of greedy.
+
+Not ported yet (raise ``NotImplementedError``): ``pseudo_label_retokenize``,
+entropy augmentation, the per-chunk debug print, a device mesh and the
+records-batched ``batched()``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from dynamic_asr_eval_tpu_torch.augment import apply_augmentation_pipeline
 from dynamic_asr_eval_tpu_torch.config import TTAConfig
 from dynamic_asr_eval_tpu_torch.device import resolve_device
+from dynamic_asr_eval_tpu_torch.ops.beam_search import beam_search_device
 from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths, pad_num_chunks
 from dynamic_asr_eval_tpu_torch.ops.ctc import ctc_loss, greedy_labels
 from dynamic_asr_eval_tpu_torch.optim.madgrad import MADGRAD
@@ -81,7 +86,9 @@ class DynamicEvalEngine:
     -> {'final_posteriors', 'length'}``.  ``augment_fn(batch [B, F, W],
     generator, actual_len) -> [B, F, W]`` replaces the spectrogram
     augmentation pipeline (tests inject the same masks on both sides with
-    it).  ``device`` defaults to ``cuda``."""
+    it).  ``lm_adapter`` and ``lm_beam_kwargs`` (alpha, beta,
+    prune_less_than_val, top_am_threshold) give LM-fused pseudo-labels when
+    ``config.lm_tta_beams > 0``.  ``device`` defaults to ``cuda``."""
 
     def __init__(
         self,
@@ -97,11 +104,10 @@ class DynamicEvalEngine:
         out_len_fn: Optional[Callable[[int], int]] = None,
         n_classes: Optional[int] = None,
         lm_adapter=None,
+        lm_beam_kwargs: Optional[Dict] = None,
         mesh=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if lm_adapter is not None and int(getattr(config, "lm_tta_beams", 0) or 0) > 0:
-            raise NotImplementedError("LM pseudo-labels are not ported yet (ROADMAP queue 1)")
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1)")
         if config.pseudo_label_retokenize:
@@ -121,6 +127,8 @@ class DynamicEvalEngine:
         self.augment_fn = augment_fn
         self.out_len_fn = out_len_fn or (lambda W: -(-W // subsampling_factor))
         self.n_classes = n_classes if n_classes is not None else blank_id + 1
+        self.lm_adapter = lm_adapter
+        self.lm_beam_kwargs = dict(lm_beam_kwargs or {})
         opt_args = dict(config.optim_args)
         self.lr = opt_args.pop("lr", 9e-5)
         self.opt_args = opt_args
@@ -203,6 +211,18 @@ class DynamicEvalEngine:
             batch, gen, c.spec_augment, c.frame_shuffle, c.cutout, c.random_noise,
             actual_len=w_len)
 
+    def _pseudo_labels(self, clean_lp, ds_len: int, max_tokens: int):
+        """``(labels [max_tokens], length)`` of the clean window: greedy, or
+        the top beam of the LM-fused beam search when ``lm_tta_beams`` is
+        on."""
+        beams = int(getattr(self.config, "lm_tta_beams", 0) or 0)
+        if self.lm_adapter is None or beams <= 0:
+            return greedy_labels(clean_lp, ds_len, self.blank_id, max_tokens)
+        toks, lens, _ = beam_search_device(
+            clean_lp, self.lm_adapter, beam_width=beams, blank_id=self.blank_id,
+            valid_frames=ds_len, max_tokens=max_tokens, **self.lm_beam_kwargs)
+        return toks[0], torch.clamp(lens[0], max=max_tokens)
+
     def _adapt_step(self, opt, spec_dev, start: int, w_len: int, W: int,
                     max_tokens: int, gen: torch.Generator):
         """Returns the detached clean log-probs [T_ds, V] and ds_len."""
@@ -216,7 +236,7 @@ class DynamicEvalEngine:
         out = self._work(batch, lengths)
         lp = out["final_posteriors"]
         clean_lp = lp[-1].detach()
-        labels, lab_len = greedy_labels(clean_lp, ds_len, self.blank_id, max_tokens)
+        labels, lab_len = self._pseudo_labels(clean_lp, ds_len, max_tokens)
         loss = ctc_loss(
             lp[:nn],
             torch.full((nn,), ds_len, dtype=torch.int64, device=self.device),

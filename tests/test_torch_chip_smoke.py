@@ -139,3 +139,75 @@ def test_check_checkpoints_round_trips_at_a_small_width(monkeypatch, tmp_path):
     path = chip_smoke.check_checkpoints(str(tmp_path))
     with open(path, "rb") as f:
         assert f.read(4) == b"DAE1"
+
+
+def test_synthetic_pieces_are_distinct_word_starts():
+    pieces = chip_smoke.synthetic_pieces(chip_smoke.LM_VOCAB)
+    assert len(set(pieces)) == chip_smoke.LM_VOCAB
+    assert pieces[:3] == ["▁a", "▁b", "▁c"] and pieces[26] == "▁aa"
+    assert all(p[0] == "▁" and p[1:].isalpha() for p in pieces)
+
+
+def test_synthetic_lm_loads_with_every_ngram_kept(tmp_path):
+    """Phase 13's files at a small size: the vocabulary file is the
+    tokenizer, every n-gram maps onto it, and each higher-order n-gram
+    extends a lower-order one (so contexts are found, not only backed off)."""
+    from dynamic_asr_eval_tpu_torch.lm.loader import load_lm_adapter
+    from dynamic_asr_eval_tpu_torch.lm.ngram import _hash_ctx
+    from dynamic_asr_eval_tpu_torch.text import load_tokenizer
+
+    vocab, arpa, counts = chip_smoke.write_synthetic_lm(str(tmp_path), vocab=50,
+                                                        counts=(300, 400, 400))
+    tok = load_tokenizer(vocab)
+    assert tok.vocab_size() == 50 and counts[0] == 50 and all(c > 250 for c in counts[1:])
+    lm = load_lm_adapter(arpa, tok, device="cpu").lm
+    assert [lm.keys[k].numel() for k in range(1, 5)] == counts
+    from dynamic_asr_eval_tpu_torch.lm import arpa_native
+
+    vocab_list, raw = arpa_native.parse_arpa(arpa)
+    ids = {p: tok.pieces.index(p) for p in vocab_list}
+    tri = raw[3][0][:20]
+    contexts = {_hash_ctx([ids[vocab_list[i]] for i in row[:2]]) for row in tri}
+    bigrams = set(lm.keys[2].numpy().view("uint64").tolist())
+    assert contexts <= bigrams
+
+
+def test_wer_pair_has_every_kind_of_edit():
+    from dynamic_asr_eval_tpu_torch.text import wer
+
+    hyp, ref = chip_smoke.wer_pair(400)
+    assert len(ref.split()) == 400
+    counts = wer.wer_counts(hyp, ref)
+    assert all(c > 0 for c in counts[:3])
+    assert tuple(counts[:3]) == wer._edit_ops(hyp.split(), ref.split())
+
+
+def test_stored_wer_counts_are_those_of_the_long_pair():
+    """Phase 12 holds the native counts of its long pair against stored
+    counts (the Python DP's); the pair comes from a seed, so they must agree."""
+    from dynamic_asr_eval_tpu_torch.text import wer
+
+    hyp, ref = chip_smoke.wer_pair(chip_smoke.WER_WORDS)
+    assert tuple(int(x) for x in wer.wer_counts(hyp, ref)[:3]) == chip_smoke.WER_COUNTS
+
+
+def test_check_native_libraries_prints_both_pairs(monkeypatch, capsys):
+    import json
+
+    monkeypatch.setattr(chip_smoke, "WER_DP_WORDS", 300)
+    chip_smoke.check_native_libraries("card")
+    line = [json.loads(x) for x in capsys.readouterr().out.splitlines() if "native_wer" in x]
+    (res,) = [x["native_wer"] for x in line]
+    assert res["ins_del_sub"] == list(chip_smoke.WER_COUNTS) and res["dp_words"] == 300
+    assert res["python_dp_s"] >= 0 and res["dp_native_s"] >= 0
+
+
+def test_check_live_beams_holds_tokens_order_and_scores():
+    toks = torch.tensor([[3, 4, 0], [3, 0, 0], [0, 0, 0]])
+    lens, scores = torch.tensor([2, 1, 0]), torch.tensor([-1.0, -2.0, -1e30])
+    want = (toks, lens, scores)
+    assert chip_smoke.check_live_beams("case", want, want) == 0.0
+    with pytest.raises(AssertionError, match="tokens"):
+        chip_smoke.check_live_beams("case", (toks.flip(0), lens.flip(0), scores), want)
+    with pytest.raises(AssertionError, match="relative"):
+        chip_smoke.check_live_beams("case", (toks, lens, scores * 1.001), want)

@@ -233,9 +233,8 @@ def test_awmc_from_a_reference_checkpoint_wer_identical(checkpoint_runs):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flags", [["--consistency"], ["-lm", "lm.arpa"], ["--decode_batch", "2"],
-                                   ["--dp_records"]],
-                         ids=["consistency", "lm", "decode_batch", "dp_records"])
+@pytest.mark.parametrize("flags", [["--consistency"], ["--dp_records"]],
+                         ids=["consistency", "dp_records"])
 def test_full_driver_rejects_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         full.cli(["-d", "synthetic", "--quiet", "--device", "cpu"] + flags)
@@ -253,9 +252,13 @@ def test_awmc_with_dp_records_is_refused_as_in_jax():
         cli(argv + ["--device", "cpu"])
 
 
-def test_run_rejects_a_language_model():
-    with pytest.raises(NotImplementedError, match="-lm"):
-        cli(["-d", "synthetic", "--quiet", "--device", "cpu", "-lm", "lm.arpa"])
+@pytest.mark.parametrize("driver", ["run", "full"])
+def test_a_transformer_lm_raises_naming_its_roadmap_item(driver, tmp_path):
+    path = tmp_path / "lm.dlm"
+    path.write_bytes(b"DLM1")
+    run_cli = {"run": cli, "full": full.cli}[driver]
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        run_cli(["-d", "synthetic", "--quiet", "--device", "cpu", "-lm", str(path)])
 
 
 def test_a_checkpoint_brings_its_own_config(tmp_path):
@@ -265,3 +268,80 @@ def test_a_checkpoint_brings_its_own_config(tmp_path):
     with pytest.raises(ValueError, match="own configuration"):
         load_model_and_tokenizer(parse_args(["--checkpoint", path, "--device", "cpu"]),
                                  config=cfg)
+
+
+# ---------------------------------------------------------------------------
+# -lm <file>.arpa, --beams, --decode_batch and --tp
+# ---------------------------------------------------------------------------
+
+LM_CASES = {
+    # driver, flags; "LM" stands for the ARPA file; lm_tta_beams is 0 unless set
+    "run_lm": ("run", ["-lm", "LM", "--beams", "4", "-kwargs", "lm_tta_beams=3"]),
+    "run_lm_batch_tp": ("run", ["-lm", "LM", "--beams", "4", "--decode_batch", "2", "--tp", "2"]),
+    "full_lm": ("full", ["-lm", "LM", "--beams", "4", "-kwargs", "lm_tta_beams=3"]),
+    "full_lm_batch": ("full", ["-lm", "LM", "--beams", "4", "--decode_batch", "2"]),
+    "full_batch_without_lm": ("full", ["--decode_batch", "2"]),
+}
+
+
+@pytest.fixture(scope="module")
+def char_lm(tmp_path_factory):
+    from test_torch_ngram import random_arpa
+
+    path = tmp_path_factory.mktemp("lm") / "chars.arpa"
+    random_arpa(path, [chr(c) for c in range(ord("a"), ord("z") + 1)], order=3,
+                counts=(0, 150, 150), seed=4)
+    return str(path)
+
+
+@pytest.fixture(scope="module", params=list(LM_CASES))
+def lm_runs(request, tmp_path_factory, char_lm):
+    """The JAX driver and the port's on the same weights and flags (KWARGS
+    first: a later ``-kwargs`` adds to it)."""
+    driver, flags = LM_CASES[request.param]
+    flags = [char_lm if f == "LM" else f for f in flags]
+    kwargs = KWARGS + (flags[flags.index("-kwargs") + 1:] if "-kwargs" in flags else [])
+    flags = flags[: flags.index("-kwargs")] if "-kwargs" in flags else flags
+    tmp = tmp_path_factory.mktemp(request.param)
+    jax_mod, port_cli = {"run": (jax_run, cli), "full": (jax_full, full.cli)}[driver]
+    jcfg = JaxConfig(compute_dtype=jnp.float32, **TINY)
+    model, variables = jax_init(jcfg, jax.random.PRNGKey(13), example_T=256)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_mod, "load_model_and_tokenizer",
+               lambda args: (model, variables, JaxCharTokenizer(), jcfg))
+    try:
+        with rolled_scans():
+            jax_wer = jax_mod.cli(["-d", "synthetic", "--quiet", "-s", str(tmp / "jax" / "r.pkl")]
+                                  + flags + kwargs)
+    finally:
+        mp.undo()
+    port_wer = port_cli(["-d", "synthetic", "--quiet", "--device", "cpu",
+                         "-s", str(tmp / "port" / "r.pkl")] + flags + kwargs,
+                        model_config=ConformerConfig(compute_dtype="float32", **TINY),
+                        jax_params=jax.tree.map(np.asarray, variables["params"]))
+    return (jax_wer, _load_pickle(tmp / "jax")), (port_wer, _load_pickle(tmp / "port"))
+
+
+def test_lm_transcripts_identical(lm_runs):
+    (_, j), (_, p) = lm_runs
+    assert p["model_output"] == j["model_output"] and any(p["model_output"])
+    assert p["gold"] == j["gold"] and len(p["elapsed_times"]) == len(j["elapsed_times"]) == 3
+
+
+def test_lm_wer_identical(lm_runs):
+    (jw, j), (pw, p) = lm_runs
+    assert pw == jw
+    for key in ("wer", "words", "ins_rate", "del_rate", "sub_rate"):
+        assert p[key] == j[key], key
+
+
+def test_the_lm_changes_the_transcripts(char_lm, tmp_path):
+    """``-lm`` with ``--beams`` above 1 decodes otherwise than greedy (on the
+    same weights), and ``--beams 1`` keeps the greedy decode."""
+    outputs = {}
+    for name, flags in (("greedy", []), ("beams1", ["-lm", char_lm, "--beams", "1"]),
+                        ("beam", ["-lm", char_lm, "--beams", "4"])):
+        cli(["-d", "synthetic", "--quiet", "--device", "cpu", "-s", str(tmp_path / name / "r.pkl")]
+            + flags + KWARGS, model_config=ConformerConfig(compute_dtype="float32", **TINY))
+        outputs[name] = _load_pickle(tmp_path / name)["model_output"]
+    assert outputs["beams1"] == outputs["greedy"] != outputs["beam"]

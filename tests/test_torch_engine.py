@@ -10,6 +10,9 @@ with ``"pallas"`` (the JAX side runs its fused Pallas kernel in interpret
 mode; the last, 188-frame window exercises its unmasked ragged edge on both
 sides).  Bars: stitched log-probs within 1e-4; adapted parameters, through
 ``convert_lcasr_checkpoint``, within 2e-5 (they move by ~2e-2 over the run).
+With ``lm_tta_beams=3`` and the same n-gram tables on both sides, the
+pseudo-labels of every window are equal too (the LM-fused beam search,
+online, "conv").
 
 The JAX CTC recursion is ``lax.scan(..., unroll=16)``; XLA:CPU takes ~40 s
 to compile its gradient unrolled and under a second rolled.  The JAX engines
@@ -161,3 +164,103 @@ def test_epochs_zero_is_plain_chunked_inference(shared):
                              infer_batch=1, device="cpu")
     np.testing.assert_allclose(eng1(runs["state"], runs["spec"]).numpy_logits(), a,
                                rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# lm_tta_beams: LM-fused pseudo-labels from an n-gram LM
+# ---------------------------------------------------------------------------
+
+LM_BEAM_KWARGS = {"alpha": 0.45, "beta": 1.53, "prune_less_than_val": 3.17,
+                  "top_am_threshold": -6.0}
+
+
+def _lm_tables(vocab, seed=3):
+    from dynamic_asr_eval_tpu_torch.lm.ngram import _hash_ctx
+
+    rng = np.random.default_rng(seed)
+    tables = {1: (np.array([_hash_ctx([v]) for v in range(vocab)], np.uint64),
+                  rng.uniform(-4, -1, vocab).astype(np.float32),
+                  rng.uniform(-1, 0, vocab).astype(np.float32))}
+    for k in (2, 3):
+        grams = sorted({tuple(rng.integers(0, vocab, k).tolist()) for _ in range(150)})
+        tables[k] = (np.array([_hash_ctx(g) for g in grams], np.uint64),
+                     rng.uniform(-2, 0, len(grams)).astype(np.float32),
+                     (rng.uniform(-1, 0, len(grams)) if k == 2
+                      else np.zeros(len(grams))).astype(np.float32))
+    return tables
+
+
+def _recording(engine, record):
+    """Wrap the engine's ``_pseudo_labels`` so that each window's labels
+    reach ``record``: JAX's through an ordered debug callback, the port's
+    beside its greedy labels of the same window."""
+    from dynamic_asr_eval_tpu_torch.ops.ctc import greedy_labels
+
+    inner = engine._pseudo_labels
+    if isinstance(engine, JaxEngine):
+        def wrapped(clean_lp, ds_len, max_tokens):
+            labels, lab_len = inner(clean_lp, ds_len, max_tokens)
+            jax.debug.callback(lambda l, n: record.append(np.asarray(l)[: int(n)].tolist()),
+                               labels, lab_len, ordered=True)
+            return labels, lab_len
+    else:
+        def wrapped(clean_lp, ds_len, max_tokens):
+            labels, lab_len = inner(clean_lp, ds_len, max_tokens)
+            greedy, n = greedy_labels(clean_lp, ds_len, engine.blank_id, max_tokens)
+            record.append((labels[: int(lab_len)].tolist(), greedy[: int(n)].tolist()))
+            return labels, lab_len
+    engine._pseudo_labels = wrapped
+
+
+@pytest.fixture(scope="module")
+def lm_runs():
+    from dynamic_asr_eval_tpu.lm.ngram import NGramLM as JaxNGramLM
+    from dynamic_asr_eval_tpu.ops.beam_search import NGramAdapter as JaxNGramAdapter
+    from dynamic_asr_eval_tpu_torch.lm.ngram import NGramLM
+    from dynamic_asr_eval_tpu_torch.ops.beam_search import NGramAdapter
+
+    shared = _setup("conv")
+    jcfg, model, variables = shared["jax"]
+    tables = _lm_tables(TINY["vocab_size"])
+    tta = dict(_tta(True), lm_tta_beams=3)
+    jax_labels, port_labels = [], []
+    j_engine = JaxEngine(model, jcfg.blank_id, 8, JaxTTAConfig(**tta),
+                         lm_adapter=JaxNGramAdapter(JaxNGramLM(3, tables, TINY["vocab_size"]),
+                                                    bos_id=0),
+                         lm_beam_kwargs=LM_BEAM_KWARGS)
+    _recording(j_engine, jax_labels)
+    with rolled_scans():
+        j = j_engine(variables, shared["spec"], return_params=True)
+        jax.effects_barrier()
+    p_engine = DynamicEvalEngine(
+        shared["port_model"], jcfg.blank_id, 8, TTAConfig(**tta),
+        lm_adapter=NGramAdapter(NGramLM(3, tables, TINY["vocab_size"], device="cpu"), bos_id=0),
+        lm_beam_kwargs=LM_BEAM_KWARGS, device="cpu")
+    _recording(p_engine, port_labels)
+    p = p_engine(shared["state"], shared["spec"], return_params=True)
+    return j, p, jax_labels, port_labels, variables["params"]
+
+
+def test_lm_pseudo_labels_equal_jax_in_every_window(lm_runs):
+    _, _, jax_labels, port_labels, _ = lm_runs
+    assert len(port_labels) == EPOCHS * 5
+    assert [beam for beam, _ in port_labels] == jax_labels
+    # the LM mattered: in some window the beam's labels are not the greedy ones
+    assert any(beam != greedy for beam, greedy in port_labels)
+
+
+def test_lm_pseudo_labels_stitched_log_probs_match(lm_runs):
+    j, p, *_ = lm_runs
+    np.testing.assert_allclose(p.numpy_logits(), j.numpy_logits(), rtol=0, atol=1e-4)
+
+
+def test_lm_pseudo_labels_adapted_parameters_match(lm_runs):
+    j, p, _, _, initial = lm_runs
+    back, _ = convert_lcasr_checkpoint({k: v.numpy() for k, v in p.params.items()})
+    ref = dict(jax.tree_util.tree_leaves_with_path(j.params))
+    init = dict(jax.tree_util.tree_leaves_with_path(initial))
+    moved = 0.0
+    for path, leaf in jax.tree_util.tree_leaves_with_path(back["params"]):
+        np.testing.assert_allclose(np.asarray(leaf), np.asarray(ref[path]), rtol=0, atol=2e-5)
+        moved = max(moved, float(np.abs(np.asarray(ref[path]) - np.asarray(init[path])).max()))
+    assert moved > 1e-3

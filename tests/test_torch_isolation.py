@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package (nor msgpack or PyYAML on import), and its entry points run on ``cuda`` unless
-asked for ``cpu`` — without a GPU they raise instead of falling back."""
+package (nor msgpack or PyYAML on import), it builds nothing on import and
+its native libraries only under ``build/``, and its entry points run on
+``cuda`` unless asked for ``cpu`` — without a GPU they raise instead of
+falling back."""
 
 import argparse
 import os
@@ -51,6 +53,43 @@ def test_importing_every_module_pulls_in_no_jax_and_no_yaml():
     assert bad == "", f"the port pulled in {bad}"
 
 
+_IMPORT_BUILDS_NOTHING = """
+import importlib, pkgutil, subprocess
+calls = []
+run = subprocess.run
+subprocess.run = lambda *a, **k: calls.append(a) or run(*a, **k)
+import dynamic_asr_eval_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from dynamic_asr_eval_tpu_torch.lm import arpa_native
+from dynamic_asr_eval_tpu_torch.text import wer
+print(len(calls), arpa_native.LIBRARY._lib is None and wer.LIBRARY._lib is None)
+"""
+
+
+def test_importing_every_module_builds_nothing():
+    """The native libraries (``g++``) and the CUDA kernels (``nvcc``) are
+    built at first use, never on import."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_BUILDS_NOTHING], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["0", "True"]
+
+
+def test_native_libraries_build_from_native_sources_into_build():
+    """The port reads ``native/*.cc`` as they are and writes its libraries
+    under the gitignored ``build/native/``, never into ``native/``."""
+    from dynamic_asr_eval_tpu_torch import nativelib
+    from dynamic_asr_eval_tpu_torch.lm import arpa_native
+    from dynamic_asr_eval_tpu_torch.text import wer
+
+    assert nativelib.BUILD_DIR == REPO / "build" / "native"
+    for lib in (arpa_native.LIBRARY, wer.LIBRARY):
+        assert lib.source.parent == REPO / "native" and lib.source.exists()
+        assert lib.build_dir == nativelib.BUILD_DIR
+    assert arpa_native.LIBRARY.libs == ("z",)
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dynamic_asr_eval_tpu)(\.|\s|$)", re.M)
 
@@ -89,6 +128,17 @@ def test_engine_without_device_raises_without_cuda(no_cuda):
 def test_driver_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.cli(["-d", "synthetic", "--quiet"])
+
+
+def test_lm_without_device_raises_without_cuda(no_cuda, tmp_path):
+    from dynamic_asr_eval_tpu_torch.lm.loader import load_lm_adapter
+    from dynamic_asr_eval_tpu_torch.text import CharTokenizer
+
+    path = tmp_path / "lm.arpa"
+    path.write_text("\\data\\\nngram 1=1\n\n\\1-grams:\n-1.0\ta\n\n\\end\\\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_lm_adapter(str(path), CharTokenizer())
+    assert load_lm_adapter(str(path), CharTokenizer(), device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("flags", [["--profile", "DIR"], ["--dp"], ["--dp_records"]],
