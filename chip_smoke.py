@@ -115,12 +115,38 @@ Phases (each raises on failure; the script then exits non-zero):
    function, same tables).  Prints ARPA load seconds and table bytes, the
    frames the collapse kept, the pseudo-label beam's ms per window, the
    final decode's seconds, the record's wall and the adaptation's ms per
-   window beside phase 5b's (a ``{"lm_path": ...}`` line).
+   window beside phase 5b's (a ``{"lm_path": ...}`` line);
+14. the transformer-LM ``-lm`` path: a seeded LM at the published lming
+   shape (6 x 512, 8 heads, expansion 4, cache 128) over phase 13's
+   vocabulary, written as a DLM1 file and as a lming torch pickle, both read
+   back bit for bit; ``evals/run.py`` ``main -lm <DLM1> --beams 20 -kwargs
+   lm_tta_beams=3`` on a 3-window recording (18432 frames: the recording is
+   cut, not the widths), flagship, ``"pallas"`` subsampling.  Launches
+   exactly 6 / 6 attention and 1 / 1 subsampling per window, all bf16; the
+   LM on ``cuda`` in f32 (the drivers pass no compute dtype); a non-empty
+   transcript; the card's beam equal to the CPU's (the pickle's LM) on the
+   first 512 collapsed frames, scores within 1e-4 relative.  A ``{"tlm_path":
+   ...}`` line: load seconds, LM parameters and cache bytes, pseudo-label
+   beam ms per window and per frame, final decode ms per kept frame, record
+   wall;
+15. the consistency path: ``evals/run_dynamic_eval_full.py`` ``main
+   --consistency --checkpoint`` phase 9's DAE1 file, offline, 1 epoch, on
+   phase 5's recording: per chunk exactly 12 attention forwards and 6
+   backwards, 2 subsampling forwards and 1 backward (the adaptation's batch
+   and the re-inference), all bf16; every chunk's weights moved, finite
+   WER, peak device memory printed.  15b: its profile (a ``{"profile":
+   ...}`` line with ``"path": "consistency"``).  15c (parity): a 2-layer f32
+   consistency engine at flagship widths, offline, 2 epochs, on phase 10b's
+   2-window recording, through the f32 kernels against the plain path
+   (stitched log-probs within 1e-3 of max |log-prob|, equal greedy ids); its
+   f32-route launches are ``consistency_parity_launches``.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
-``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path and
-``lm_launches`` on the ``-lm`` path), and last ``{"ok": true, "device":
-{...}}``.  TF32 stays off throughout.
+``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
+``lm_launches`` on the ``-lm`` path, ``tlm_launches`` on the transformer-LM
+path and ``consistency_launches`` on the consistency path, each read from
+its own run), and last ``{"ok": true, "device": {...}}``.  TF32 stays off
+throughout.
 """
 
 from __future__ import annotations
@@ -169,7 +195,11 @@ WER_DP_WORDS = 2_000  # phase 12's pair on both paths
 LM_VOCAB = 4095  # the flagship's vocabulary (+ blank)
 LM_COUNTS = (200_000, 500_000, 500_000)  # drawn bigrams, trigrams, 4-grams (before dedup)
 LM_BEAMS, LM_TTA_BEAMS = 20, 3
-LM_CHECK_FRAMES = 512  # phase 13's card-against-CPU decode
+LM_CHECK_FRAMES = 512  # phases 13 and 14: card-against-CPU decode
+TLM_FRAMES, TLM_WINDOWS = 18432, 3  # phase 14's recording: 16384, 16384, 14336 frames
+TLM_HEADS = 8  # the published lming shape: 6 x 512, 8 heads, expansion 4, cache 128
+TLM_RTOL = 1e-4  # phase 14's card-against-CPU beam scores
+CONSISTENCY_PARITY_LAYERS = 2  # phase 15's f32 engine: flagship widths, depth cut
 # the flagship's fields in a reference checkpoint's config (no kernel named)
 REFERENCE_FIELDS = ("feat_in", "n_layers", "d_model", "n_heads", "head_dim", "vocab_size",
                     "subsampling_factor", "subsampling_conv_channels", "conv_kernel_size",
@@ -599,18 +629,19 @@ class EngineRecorder:
         return out
 
 
-def main_path(cfg, kernel_modules, driver=None, flags=(), kwargs=()):
-    """A driver (default ``evals.run``) on the flagship recording, its
-    ``main`` given ``cfg`` (None: the configuration comes from ``flags``,
-    e.g. ``--checkpoint``) and ``kwargs`` added to ``RUN_KWARGS``; returns
-    (wer, wall, {module: (fwd, bwd) launches}, {module: {route: (fwd, bwd)}},
-    result detail, recorder)."""
+def main_path(cfg, kernel_modules, driver=None, flags=(), kwargs=(), frames=N_FRAMES):
+    """A driver (default ``evals.run``) on a ``frames``-frame recording (the
+    flagship one by default), its ``main`` given ``cfg`` (None: the
+    configuration comes from ``flags``, e.g. ``--checkpoint``) and
+    ``kwargs`` added to ``RUN_KWARGS``; returns (wer, wall, {module: (fwd,
+    bwd) launches}, {module: {route: (fwd, bwd)}}, result detail,
+    recorder)."""
     import pickle
 
     if driver is None:
         from dynamic_asr_eval_tpu_torch.evals import run as driver
 
-    os.environ["DAE_SYNTH_SPEC_FRAMES"] = str(N_FRAMES)
+    os.environ["DAE_SYNTH_SPEC_FRAMES"] = str(frames)
     recorder = EngineRecorder()
     build_engine = driver.build_engine
     with tempfile.TemporaryDirectory() as tmp:
@@ -635,31 +666,49 @@ def main_path(cfg, kernel_modules, driver=None, flags=(), kwargs=()):
     return wer, wall, launches, routes, detail, recorder
 
 
-def check_launches(launches, expect):
-    """expect: {module: per-window (fwd, bwd)}; forward >= and backward ==
-    that count times the windows."""
+def check_launches(launches, expect, windows=N_WINDOWS, exact=False):
+    """expect: {module: per-window (fwd, bwd)}; forward >= (``exact``: ==)
+    and backward == that count times the windows."""
     for name, (fwd_per, bwd_per) in expect.items():
         fwd, bwd = launches[name]
-        if not (fwd >= fwd_per * N_WINDOWS and bwd == bwd_per * N_WINDOWS):
-            raise AssertionError(f"{name} launches fwd {fwd}, bwd {bwd}; expected >= "
-                                 f"{fwd_per * N_WINDOWS} and == {bwd_per * N_WINDOWS}")
+        if not ((fwd == fwd_per * windows if exact else fwd >= fwd_per * windows)
+                and bwd == bwd_per * windows):
+            raise AssertionError(f"{name} launches fwd {fwd}, bwd {bwd}; expected "
+                                 f"{'==' if exact else '>='} {fwd_per * windows} and == "
+                                 f"{bwd_per * windows}")
 
 
-def check_driver_output(cfg, wer, detail, recorder):
+def check_routes(what, launches, routes):
+    """Every launch of each routed module on the bf16 tensor-core kernels."""
+    for name, by_route in routes.items():
+        if by_route != {"tensor_core": launches[name], "cuda_core": (0, 0)}:
+            raise AssertionError(f"{what}: {name} launches by route {by_route}: not all on the "
+                                 f"bf16 tensor-core kernels")
+
+
+def weight_change(adapted, params):
+    """Largest change of any weight; ``adapted`` is a state dict or, from
+    the consistency engine, one per chunk (the smallest chunk's largest)."""
+    if isinstance(adapted, list):
+        return min(weight_change(chunk, params) for chunk in adapted)
+    return max((adapted[k].float() - params[k].float()).abs().max().item() for k in params)
+
+
+def check_driver_output(cfg, wer, detail, recorder, frames=N_FRAMES):
     """The driver's own run: stitched log-probs finite with the expected
-    shape, weights that moved."""
+    shape, weights that moved (every chunk's, for the consistency engine)."""
     if len(detail["model_output"]) != 1 or not math.isfinite(wer):
         raise AssertionError(f"driver result malformed: wer {wer}, {detail.get('model_output')}")
     if len(recorder.outputs) != 1:
         raise AssertionError(f"the driver made {len(recorder.outputs)} engine calls, not 1")
     (out,), ((params, _),) = recorder.outputs, recorder.calls
     lp = out.numpy_logits()
-    expect = (-(-N_FRAMES // cfg.subsampling_factor), cfg.n_classes)
+    expect = (-(-frames // cfg.subsampling_factor), cfg.n_classes)
     if lp.shape != expect:
         raise AssertionError(f"stitched log-probs {lp.shape} != {expect}")
     if not torch.isfinite(torch.from_numpy(lp)).all():
         raise AssertionError("non-finite stitched log-probs")
-    moved = max((out.params[k].float() - params[k].float()).abs().max().item() for k in params)
+    moved = weight_change(out.params, params)
     if not moved > 0:
         raise AssertionError("adaptation did not move the weights")
     log(f"  driver's engine run: stitched {lp.shape}, finite; max weight change {moved:.3e}")
@@ -676,7 +725,7 @@ def valid_frame_err(a, b):
 def f32_model(params, **overrides):
     from dynamic_asr_eval_tpu_torch.models import SCConformer
 
-    model = SCConformer(flagship_config(compute_dtype=torch.float32, **overrides)).cuda()
+    model = SCConformer(flagship_config(**{**overrides, "compute_dtype": torch.float32})).cuda()
     model.load_state_dict({k: v.float() for k, v in params.items()})
     return model
 
@@ -853,6 +902,72 @@ def check_awmc_parity(params, A, S):
     return launches
 
 
+def check_consistency_run(cfg, launches, routes, wer, detail, recorder):
+    """Phase 15's checks: per chunk, one forward (augmented and clean in one
+    batch) and one backward each epoch, then the offline re-inference's
+    forward; all on the bf16 route; the driver's own output, every chunk's
+    weights moved."""
+    epochs = max(recorder.engine.config.epochs, 1)
+    per_chunk = {"attention": ((epochs + 1) * cfg.n_layers, epochs * cfg.n_layers),
+                 "subsample": (epochs + 1, epochs)}
+    for name, (fwd, bwd) in per_chunk.items():
+        expect = (fwd * N_WINDOWS, bwd * N_WINDOWS)
+        if launches[name] != expect:
+            raise AssertionError(f"consistency {name} launches {launches[name]}, expected "
+                                 f"{expect} (per chunk and epoch one forward and one backward, "
+                                 f"then the re-inference)")
+    check_routes("consistency path", launches, routes)
+    if len(recorder.outputs[0].params) != N_WINDOWS:
+        raise AssertionError(f"{len(recorder.outputs[0].params)} chunks' weights returned, "
+                             f"not {N_WINDOWS}")
+    return check_driver_output(cfg, wer, detail, recorder)
+
+
+def check_consistency_parity(A, S):
+    """Phase 15, parity: a CONSISTENCY_PARITY_LAYERS-layer f32 consistency
+    engine at flagship widths (seeded weights), offline, 2 epochs, through
+    the f32 kernels against the same engine on the plain path; returns the
+    f32 route's launches {module: (fwd, bwd)}."""
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.config import TTAConfig
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+    from dynamic_asr_eval_tpu_torch.tta import ConsistencyEngine
+
+    frames, seq, overlap = AWMC_PARITY
+    spec = np.random.default_rng(7).standard_normal((80, frames)).astype(np.float32)
+    tta = TTAConfig(seq_len=seq, overlap=overlap, epochs=2, online=False, shuffle=False,
+                    lm_tta_beams=0, optim_args={"lr": 9e-5})
+    state = init_conformer(flagship_config(n_layers=CONSISTENCY_PARITY_LAYERS), seed=6).state_dict()
+
+    def run(**overrides):
+        model = f32_model(state, n_layers=CONSISTENCY_PARITY_LAYERS, **overrides)
+        out = ConsistencyEngine(model, model.config.blank_id, 8, tta, device="cuda")(
+            None, spec, seq, overlap, rng=0)
+        torch.cuda.synchronize()
+        return out
+
+    A.reset_counters()
+    S.reset_counters()
+    a = run(subsampling_impl="pallas")
+    launches = {"attention": tuple(A.route_launches["cuda_core"]),
+                "subsample": tuple(S.route_launches["cuda_core"])}
+    if A.route_launches["tensor_core"] != [0, 0] or S.route_launches["tensor_core"] != [0, 0]:
+        raise AssertionError("the f32 consistency engine launched a bf16 kernel")
+    b = run(attention_impl="xla")
+    lp_a, lp_b = a.numpy_logits(), b.numpy_logits()
+    err, scale = float(np.abs(lp_a - lp_b).max()), float(np.abs(lp_b).max())
+    same_ids = np.array_equal(a.greedy_ids(), b.greedy_ids())
+    if not (lp_a.shape == lp_b.shape and err <= 1e-3 * scale and same_ids
+            and min(min(v) for v in launches.values()) > 0):
+        raise AssertionError(f"f32 consistency, kernels vs plain path: {err:.3e} (max |log-prob| "
+                             f"{scale:.3e}), greedy ids equal {same_ids}, f32 launches {launches}")
+    log(f"  {CONSISTENCY_PARITY_LAYERS}-layer f32 consistency engine at flagship widths, kernels "
+        f"vs plain path on {lp_a.shape[0]} frames: {err:.2e} (max |log-prob| {scale:.3e}); greedy "
+        f"ids equal; f32 (cuda_core) launches {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # the native host libraries and the -lm path
 # ---------------------------------------------------------------------------
@@ -944,6 +1059,15 @@ def synthetic_pieces(n):
     return pieces
 
 
+def write_vocab(directory, vocab=LM_VOCAB):
+    """The vocabulary file of ``vocab`` synthetic pieces (the tokenizer of
+    phases 13 and 14); returns its path."""
+    path = os.path.join(directory, "synthetic.vocab")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(synthetic_pieces(vocab)) + "\n")
+    return path
+
+
 def write_synthetic_lm(directory, seed=0, vocab=LM_VOCAB, counts=LM_COUNTS):
     """A vocabulary file of ``vocab`` pieces and a token-level ARPA file
     over them: every unigram, and per higher order ``counts[k]`` draws of a
@@ -954,9 +1078,7 @@ def write_synthetic_lm(directory, seed=0, vocab=LM_VOCAB, counts=LM_COUNTS):
 
     rng = np.random.default_rng(seed)
     pieces = np.array(synthetic_pieces(vocab), dtype=object)
-    vocab_path = os.path.join(directory, "synthetic.vocab")
-    with open(vocab_path, "w", encoding="utf-8") as f:
-        f.write("\n".join(pieces) + "\n")
+    vocab_path = write_vocab(directory, vocab)
     grams = [np.arange(vocab)[:, None]]
     for n in counts:
         prev = grams[-1]
@@ -1028,10 +1150,7 @@ def lm_path(tmp, card, kernel_modules, pallas_profile, expect):
     finally:
         common.load_lm_adapter, runner.beam_search_device, common.decode_output = originals
     check_launches(launches, expect)
-    for name, by_route in routes.items():
-        if by_route != {"tensor_core": launches[name], "cuda_core": (0, 0)}:
-            raise AssertionError(f"-lm path: {name} launches by route {by_route}: not all on the "
-                                 f"bf16 tensor-core kernels")
+    check_routes("-lm path", launches, routes)
     check_driver_output(cfg, wer, detail, recorder)
     engine, (out,) = recorder.engine, recorder.outputs
     adapter = engine.lm_adapter
@@ -1091,6 +1210,148 @@ def lm_path(tmp, card, kernel_modules, pallas_profile, expect):
         if key != "pseudo_label_beam_ms_by_window":
             log(f"  {key}: {val}")
     print(json.dumps({"lm_path": result}))
+    return launches, routes
+
+
+def write_transformer_lm(directory, vocab, seed=0):
+    """Phase 14's LM: seeded weights at the published lming shape over
+    ``vocab`` pieces, written as a DLM1 file and as a lming torch pickle
+    (DDP prefixes, its config naming the head count); both files are read
+    back and must give the weights bit for bit.  Returns (DLM1 path, pickle
+    path, config, parameter count, seconds to write and read both)."""
+    from dynamic_asr_eval_tpu_torch.lm.loader import (
+        load_lm_checkpoint,
+        load_lm_torch_checkpoint,
+        save_lm_checkpoint,
+    )
+    from dynamic_asr_eval_tpu_torch.lm.transformer_lm import TransformerLMConfig, init_lm
+
+    t0 = time.time()
+    cfg = TransformerLMConfig(vocab_size=vocab, n_heads=TLM_HEADS)
+    state = init_lm(cfg, seed=seed).state_dict()
+    dlm, pt = os.path.join(directory, "tlm.dlm"), os.path.join(directory, "tlm.pt")
+    save_lm_checkpoint(dlm, state, cfg)
+    torch.save({"model": {f"module.{k}": v for k, v in state.items()},
+                "config": {"model": {"n_heads": TLM_HEADS}}}, pt)
+    (from_dlm, dlm_cfg), (from_pt, pt_cfg) = (
+        load_lm_checkpoint(dlm), load_lm_torch_checkpoint(pt, verbose=False))
+    for what, model in (("DLM1", from_dlm), ("torch pickle", from_pt)):
+        loaded = model.state_dict()
+        if loaded.keys() != state.keys() or not all(torch.equal(loaded[k], v)
+                                                    for k, v in state.items()):
+            raise AssertionError(f"transformer LM {what}: the reloaded weights differ")
+    if dlm_cfg != cfg or pt_cfg != cfg:
+        raise AssertionError(f"transformer LM configs {dlm_cfg}, {pt_cfg} != {cfg}")
+    return dlm, pt, cfg, sum(v.numel() for v in state.values()), time.time() - t0
+
+
+def tlm_path(tmp, card, kernel_modules, expect):
+    """Phase 14: ``evals.run.main -lm <DLM1>`` at flagship width on a
+    TLM_WINDOWS-window recording; returns the kernels' launches ({module:
+    (fwd, bwd)}) and, for the modules with routes, the launches by route."""
+    import argparse
+
+    import dynamic_asr_eval_tpu_torch.evals.common as common
+    import dynamic_asr_eval_tpu_torch.tta.runner as runner
+    from dynamic_asr_eval_tpu_torch.lm.loader import load_lm_adapter
+    from dynamic_asr_eval_tpu_torch.ops.beam_search import (
+        TransformerLMAdapter,
+        beam_search_device,
+        collapse_blank_frames_device,
+    )
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+    from dynamic_asr_eval_tpu_torch.text import load_tokenizer
+
+    vocab_path = write_vocab(tmp)
+    tokenizer = load_tokenizer(vocab_path)
+    dlm, pt, lm_cfg, n_params, files_s = write_transformer_lm(tmp, tokenizer.vocab_size())
+    log(f"  transformer LM {lm_cfg.n_layers} x {lm_cfg.d_model}, {lm_cfg.n_heads} heads, cache "
+        f"{lm_cfg.max_cache_length}, vocabulary {lm_cfg.vocab_size}: {n_params} parameters; "
+        f"DLM1 {os.path.getsize(dlm) / 1e6:.1f} MB and torch pickle written and read back bit for "
+        f"bit in {files_s:.2f} s")
+    cfg = flagship_config(subsampling_impl="pallas")
+    timers = {"load": Timed(common.load_lm_adapter), "beam": Timed(runner.beam_search_device),
+              "decode": Timed(common.decode_output)}
+    originals = common.load_lm_adapter, runner.beam_search_device, common.decode_output
+    common.load_lm_adapter, runner.beam_search_device, common.decode_output = (
+        timers["load"], timers["beam"], timers["decode"])
+    try:
+        wer, wall, launches, routes, detail, recorder = main_path(
+            cfg, kernel_modules,
+            flags=("--tokenizer", vocab_path, "-lm", dlm, "--beams", str(LM_BEAMS)),
+            kwargs=(f"lm_tta_beams={LM_TTA_BEAMS}",), frames=TLM_FRAMES)
+    finally:
+        common.load_lm_adapter, runner.beam_search_device, common.decode_output = originals
+    check_launches(launches, expect, windows=TLM_WINDOWS, exact=True)
+    check_routes("transformer-LM path", launches, routes)
+    check_driver_output(cfg, wer, detail, recorder, frames=TLM_FRAMES)
+    engine, (out,) = recorder.engine, recorder.outputs
+    adapter = engine.lm_adapter
+    if not isinstance(adapter, TransformerLMAdapter) or engine.config.lm_tta_beams != LM_TTA_BEAMS:
+        raise AssertionError(f"the NSTI engine runs with {type(adapter).__name__} and "
+                             f"lm_tta_beams={engine.config.lm_tta_beams}, not the transformer LM")
+    if adapter.device.type != "cuda" or adapter.config.compute_dtype != torch.float32:
+        raise AssertionError(f"the LM on {adapter.device} in {adapter.config.compute_dtype}")
+    if len(timers["beam"].seconds) != TLM_WINDOWS or len(timers["decode"].seconds) != 1:
+        raise AssertionError(f"{len(timers['beam'].seconds)} pseudo-label beams and "
+                             f"{len(timers['decode'].seconds)} final decodes, expected "
+                             f"{TLM_WINDOWS} and 1")
+    hyp = detail["model_output"][0]
+    if not hyp.strip():
+        raise AssertionError("the transformer-LM decode gave an empty transcript")
+    log(f"  WER {wer}; launches {launches}; by route {routes}; evals.run wall {wall:.3f} s; "
+        f"transcript of {len(hyp.split())} words; the LM on {adapter.device}, f32")
+
+    log(f"  the card's beam against the CPU's on the first {LM_CHECK_FRAMES} collapsed frames")
+    kw = dict(common.lm_kwargs(argparse.Namespace()), beam_width=LM_BEAMS)
+    n_valid = (out.counts > 0).sum()
+    lp_c, n_kept = collapse_blank_frames_device(out.logits, threshold=0.99, valid_frames=n_valid)
+    lp = lp_c[: min(int(n_kept), LM_CHECK_FRAMES)]
+    gpu_timer = Timed(beam_search_device)
+    advances = []  # frames on which the LM advanced in the card's search
+    adapter.advance = lambda *a, advance=adapter.advance: advances.append(1) or advance(*a)
+    try:
+        got = gpu_timer(lp, adapter, **kw)
+    finally:
+        del adapter.advance
+    cpu_adapter = load_lm_adapter(pt, tokenizer, device="cpu")  # the pickle of the same weights
+    t0 = time.time()
+    want = beam_search_device(lp.cpu(), cpu_adapter, **kw)
+    cpu_s = time.time() - t0
+    diff = check_live_beams("transformer-LM decode, card against CPU", got, want, rel=TLM_RTOL)
+    if not advances:
+        raise AssertionError("the LM never advanced in the compared searches")
+    log(f"  equal live beams ({int((want[2] > -1e29).sum())}, best of {int(want[1][0])} tokens); "
+        f"scores within {diff:.2e} relative; the LM advanced on {len(advances)} of "
+        f"{lp.shape[0]} frames; card {gpu_timer.seconds[0]:.3f} s, CPU {cpu_s:.3f} s")
+
+    _, lengths = chunk_starts_and_lengths(TLM_FRAMES, SEQ, OVERLAP)
+    label_frames = sum(-(-int(n) // cfg.subsampling_factor) for n in lengths)
+    beam_s = sum(timers["beam"].seconds)
+    L, H, N, D = lm_cfg.n_layers, lm_cfg.n_heads, lm_cfg.max_cache_length, lm_cfg.head_dim
+    result = {
+        "card": card, "lm_shape": [L, lm_cfg.d_model, H, N, lm_cfg.vocab_size],
+        "lm_params": n_params, "lm_param_bytes": n_params * 4,
+        "cache_bytes_per_beam": 2 * L * H * N * D * 4,
+        "cache_bytes_b20": 2 * L * LM_BEAMS * H * N * D * 4,
+        "lm_load_s": timers["load"].seconds[0], "lm_files_s": files_s,
+        "windows": TLM_WINDOWS, "frames_stitched": int(n_valid),
+        "frames_kept_by_collapse": int(n_kept),
+        "pseudo_label_beam_ms_per_window": beam_s / TLM_WINDOWS * 1e3,
+        "pseudo_label_beam_ms_by_window": [t * 1e3 for t in timers["beam"].seconds],
+        "pseudo_label_beam_ms_per_frame": beam_s / label_frames * 1e3,
+        "final_decode_s": timers["decode"].seconds[0],
+        "final_decode_ms_per_kept_frame": timers["decode"].seconds[0] / int(n_kept) * 1e3,
+        "record_wall_s": detail["elapsed_times"][0],
+        "adapt_ms_per_window_without_beam": (out.elapsed - beam_s) / TLM_WINDOWS * 1e3,
+        "check_frames": int(lp.shape[0]), "check_card_s": gpu_timer.seconds[0],
+        "check_cpu_s": cpu_s, "check_max_rel_score_diff": diff,
+        "check_lm_advances": len(advances), "transcript_words": len(hyp.split()), "wer": wer,
+    }
+    for key, val in result.items():
+        if key != "pseudo_label_beam_ms_by_window":
+            log(f"  {key}: {val}")
+    print(json.dumps({"tlm_path": result}))
     return launches, routes
 
 
@@ -1187,10 +1448,7 @@ def drive(label, cfg, kernel_modules, expect, card, check_model):
         f"bf16, subsampling_impl={cfg.subsampling_impl!r}")
     wer, wall, launches, routes, detail, recorder = main_path(cfg, kernel_modules)
     check_launches(launches, expect)
-    for name, by_route in routes.items():
-        if by_route != {"tensor_core": launches[name], "cuda_core": (0, 0)}:
-            raise AssertionError(f"{name} launches by route {by_route}: not all on the bf16 "
-                                 f"tensor-core kernels")
+    check_routes("NSTI", launches, routes)
     log(f"  WER {wer}; launches {launches}; by route {routes}; evals.run wall {wall:.3f} s "
         f"(record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up)")
     log(f"[6{label}] output checks")
@@ -1307,16 +1565,41 @@ def main() -> int:
         awmc_parity_routes = check_awmc_parity(params, A, S)
         log(f"[11] where AWMC's time goes: the driver's engine, warm, on {card}")
         profile_engine(recorder, card, "awmc")
+        del recorder
 
-    log("[12] native host libraries: g++ builds, and the native WER against the Python DP")
-    check_native_libraries(card)
-    with tempfile.TemporaryDirectory() as tmp:
+        log("[12] native host libraries: g++ builds, and the native WER against the Python DP")
+        check_native_libraries(card)
         log(f"[13] the -lm path: evals.run.main, NSTI with lm_tta_beams={LM_TTA_BEAMS} and a "
             f"{LM_BEAMS}-beam final decode, on the {N_FRAMES}-frame recording, flagship, bf16, "
             f"subsampling_impl='pallas', on {card}")
         lm_counts, lm_routes = lm_path(tmp, card, {"attention": A, "subsample": S, "softdtw": D},
                                        pallas_profile,
                                        {"attention": attn_per_window, "subsample": (1, 1)})
+        log(f"[14] the transformer-LM path: evals.run.main -lm <DLM1>, NSTI with lm_tta_beams="
+            f"{LM_TTA_BEAMS} and a {LM_BEAMS}-beam final decode, on a {TLM_FRAMES}-frame "
+            f"recording ({TLM_WINDOWS} windows), flagship, bf16, subsampling_impl='pallas', "
+            f"on {card}")
+        tlm_counts, tlm_routes = tlm_path(tmp, card, {"attention": A, "subsample": S, "softdtw": D},
+                                          {"attention": attn_per_window, "subsample": (1, 1)})
+        log(f"[15] the consistency path: evals.run_dynamic_eval_full.main --consistency "
+            f"--checkpoint (DAE1), offline, {N_FRAMES}-frame recording, flagship, bf16")
+        torch.cuda.reset_peak_memory_stats()
+        wer, wall, cons_counts, cons_routes, detail, recorder = main_path(
+            None, awmc_modules, run_dynamic_eval_full, ("--consistency", "--checkpoint", dae),
+            kwargs=("online=false",))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg = recorder.engine.model.config
+        log(f"  WER {wer}; launches {cons_counts}; by route {cons_routes}; driver wall {wall:.3f} "
+            f"s (record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up); peak "
+            f"device memory {peak_gb:.2f} GB")
+        check_consistency_run(cfg, cons_counts, cons_routes, wer, detail, recorder)
+        log(f"  every chunk's weights moved; {N_WINDOWS} chunks' weights returned")
+        log(f"[15b] where the consistency engine's time goes: the driver's engine, warm, on {card}")
+        profile_engine(recorder, card, "consistency")
+        del recorder
+        log("[15c] consistency parity: f32 engine at flagship widths, kernels against the plain "
+            "path")
+        cons_parity_routes = check_consistency_parity(A, S)
 
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
@@ -1336,10 +1619,11 @@ def main() -> int:
     }
     # launches on the NSTI path (by route: attention in the "conv" run,
     # subsampling in the "pallas" run; soft-DTW: its own path), on the AWMC
-    # path (phase 10) and on the -lm path (phase 13); the
-    # f32 routes are the parity routes and run 0 times
-    # there, their counts in the f32 runs of phases 6 and 6b go under
-    # "parity_launches", of phase 10b under "awmc_parity_launches"
+    # path (phase 10), the -lm path (phase 13), the transformer-LM path
+    # (phase 14) and the consistency path (phase 15); the f32 routes are the
+    # parity routes and run 0 times there, their counts in the f32 runs of
+    # phases 6 and 6b go under "parity_launches", of phase 10b under
+    # "awmc_parity_launches", of phase 15c under "consistency_parity_launches"
     nsti_launches = {"flash_attention": routes["attention"]["tensor_core"],
                      "flash_attention_f32": routes["attention"]["cuda_core"],
                      "fused_subsample": pallas_routes["subsample"]["tensor_core"],
@@ -1351,13 +1635,21 @@ def main() -> int:
                      "fused_subsample": awmc_routes["subsample"]["tensor_core"],
                      "fused_subsample_f32": awmc_routes["subsample"]["cuda_core"],
                      "softdtw": launches["softdtw"]}
-    lm_launches = {"flash_attention": lm_routes["attention"]["tensor_core"],
-                   "flash_attention_f32": lm_routes["attention"]["cuda_core"],
-                   "fused_subsample": lm_routes["subsample"]["tensor_core"],
-                   "fused_subsample_f32": lm_routes["subsample"]["cuda_core"],
-                   "softdtw": lm_counts["softdtw"]}
+
+    def by_kernel(routes_, counts_):
+        return {"flash_attention": routes_["attention"]["tensor_core"],
+                "flash_attention_f32": routes_["attention"]["cuda_core"],
+                "fused_subsample": routes_["subsample"]["tensor_core"],
+                "fused_subsample_f32": routes_["subsample"]["cuda_core"],
+                "softdtw": counts_["softdtw"]}
+
+    lm_launches = by_kernel(lm_routes, lm_counts)
+    tlm_launches = by_kernel(tlm_routes, tlm_counts)
+    consistency_launches = by_kernel(cons_routes, cons_counts)
     awmc_parity = {"flash_attention_f32": awmc_parity_routes["attention"],
                    "fused_subsample_f32": awmc_parity_routes["subsample"]}
+    consistency_parity = {"flash_attention_f32": cons_parity_routes["attention"],
+                          "fused_subsample_f32": cons_parity_routes["subsample"]}
     err_keys = {
         ("flash_attention", "fwd"): (errs[("attn", torch.bfloat16)], ("out",)),
         ("flash_attention", "bwd"): (errs[("attn", torch.bfloat16)], ("dq", "dk", "dv")),
@@ -1377,7 +1669,9 @@ def main() -> int:
         for i, kind in enumerate(("fwd", "bwd")):
             e, keys = err_keys[(name, kind)]
             extra = ({"parity_launches": parity[name][i],
-                      "awmc_parity_launches": awmc_parity[name][i]} if name in parity else {})
+                      "awmc_parity_launches": awmc_parity[name][i],
+                      "consistency_parity_launches": consistency_parity[name][i]}
+                     if name in parity else {})
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",
@@ -1386,6 +1680,8 @@ def main() -> int:
                 "launches": nsti_launches[name][i],
                 "awmc_launches": awmc_launches[name][i],
                 "lm_launches": lm_launches[name][i],
+                "tlm_launches": tlm_launches[name][i],
+                "consistency_launches": consistency_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

@@ -3,8 +3,10 @@ decoding, WER over records, and the result-pickle schema.
 
 Counterpart of the JAX package's ``evals/common.py``: checkpoints (DAE1 and
 reference torch pickles, :func:`..models.checkpoint.load_any_checkpoint`),
-the NSTI and AWMC engines, the ARPA n-gram LM (final beam decode, after
-groups of ``--decode_batch`` records, and LM-fused NSTI pseudo-labels),
+the NSTI, AWMC and consistency engines, the LM of ``-lm`` (an ARPA n-gram,
+or the transformer LM from a DLM1 file or a lming torch pickle) for the
+final beam decode, after groups of ``--decode_batch`` records, and for
+LM-fused NSTI pseudo-labels,
 greedy decode, and the repeat loop the drivers share
 (:func:`evaluate_repeats`).  The device mesh is not ported yet.
 """
@@ -25,9 +27,10 @@ from dynamic_asr_eval_tpu_torch.lm.loader import load_beamsearch, load_lm_adapte
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig, init_conformer, params_from_jax
 from dynamic_asr_eval_tpu_torch.models.checkpoint import load_any_checkpoint
 from dynamic_asr_eval_tpu_torch.text import load_tokenizer, normalize, word_error_rate_detail
-from dynamic_asr_eval_tpu_torch.tta import AWMCEngine, DynamicEvalEngine
+from dynamic_asr_eval_tpu_torch.tta import AWMCEngine, ConsistencyEngine, DynamicEvalEngine
 
-ENGINES = {"dynamic_eval": DynamicEvalEngine, "awmc": AWMCEngine}
+ENGINES = {"dynamic_eval": DynamicEvalEngine, "awmc": AWMCEngine,
+           "consistency": ConsistencyEngine}
 
 # keys of lcasr-style model yamls that have no ConformerConfig field
 _YAML_EXTRAS = ("dropout_ff", "dropout_attn", "dropout_conv", "flash_attn",
@@ -95,7 +98,9 @@ def lm_kwargs(args) -> Dict[str, float]:
 
 def load_language_model(args, tokenizer):
     """``-lm``: ``(lm_adapter, beam_search_fn)``, both ``None`` without it.
-    One adapter serves the final decode and the pseudo-labels."""
+    One adapter serves the final decode and the pseudo-labels.  No compute
+    dtype is passed, as in the JAX drivers: a transformer LM runs in its
+    checkpoint's dtype (f32 unless its DLM1 header says otherwise)."""
     if not getattr(args, "language_model", ""):
         return None, None
     adapter = load_lm_adapter(args.language_model, tokenizer, device=getattr(args, "device", None))
@@ -106,9 +111,10 @@ def load_language_model(args, tokenizer):
 
 def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_eval",
                  device=None, lm_adapter=None) -> DynamicEvalEngine:
-    """The ``engine_kind`` engine (``"dynamic_eval"``: NSTI; ``"awmc"``).
-    ``lm_adapter`` gives the NSTI engine LM-fused pseudo-labels when
-    ``lm_tta_beams > 0``; AWMC keeps greedy teachers, as in the JAX package."""
+    """The ``engine_kind`` engine (``"dynamic_eval"``: NSTI; ``"awmc"``;
+    ``"consistency"``).  ``lm_adapter`` gives the NSTI engine LM-fused
+    pseudo-labels when ``lm_tta_beams > 0``; AWMC and consistency keep
+    greedy teachers, as in the JAX package."""
     tta = TTAConfig.from_args(args)
     if getattr(args, "dp", False) or getattr(args, "dp_records", False):
         raise NotImplementedError(

@@ -1,13 +1,14 @@
-"""Per-recording dynamic evaluation with engine dispatch: NSTI, or AWMC with
-``--awmc``.
+"""Per-recording dynamic evaluation with engine dispatch: NSTI, the
+consistency engine with ``--consistency`` (it wins over ``--awmc``, as in
+JAX), or AWMC with ``--awmc``.
 
 Counterpart of the JAX package's ``evals/run_dynamic_eval_full.py``: the
 loop of :mod:`.run` (per-repeat and per-record seeds, greedy or ``-lm`` beam
 decode, ``--decode_batch``, WER, ``--save_path`` pickles) with the log line
 ``"{engine}\\t{dataset}\\tWER: ..."``; LM-fused pseudo-labels are NSTI's
-only (AWMC keeps greedy teachers).  Not ported yet (raise
-``NotImplementedError``): ``--consistency`` and ``--dp_records``.  Runs on
-``cuda`` unless ``--device cpu`` is given.
+only (AWMC and consistency keep greedy teachers; ``-lm`` serves their final
+decode).  Not ported yet (raises ``NotImplementedError``): ``--dp_records``.
+Runs on ``cuda`` unless ``--device cpu`` is given.
 
 CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run_dynamic_eval_full -d
 synthetic --awmc -c model.dae -kwargs epochs=1``
@@ -30,7 +31,6 @@ from dynamic_asr_eval_tpu_torch.evals.common import (
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
 
 _NOT_PORTED = {
-    "consistency": "--consistency (the consistency engine, ROADMAP queue 1 item 13)",
     "dp_records": "--dp_records (records-level data parallelism, ROADMAP queue 1 item 19)",
 }
 
@@ -39,9 +39,9 @@ def main(args, model_config: Optional[ConformerConfig] = None,
          jax_params: Optional[Mapping] = None) -> float:
     """Returns the mean corpus WER over the repeats (``model_config`` and
     ``jax_params`` as in :func:`.run.main`)."""
-    engine_kind = "awmc" if getattr(args, "awmc", False) else "dynamic_eval"
-    if getattr(args, "dp_records", False) and (engine_kind != "dynamic_eval"
-                                               or getattr(args, "consistency", False)):
+    engine_kind = ("consistency" if getattr(args, "consistency", False)
+                   else "awmc" if getattr(args, "awmc", False) else "dynamic_eval")
+    if getattr(args, "dp_records", False) and engine_kind != "dynamic_eval":
         raise ValueError("--dp_records supports only the NSTI engine (drop --awmc/--consistency)")
     for key, what in _NOT_PORTED.items():
         if getattr(args, key, False):
@@ -64,7 +64,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("-s", "--save_path", type=str, default="")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     parser.add_argument("--awmc", action="store_true", help="use the AWMC engine")
-    parser.add_argument("--consistency", action="store_true", help="not ported yet")
+    parser.add_argument("--consistency", action="store_true",
+                        help="use the consistency engine (per-chunk parameters, Adafactor)")
     parser.add_argument("--dp_records", action="store_true", help="not ported yet")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree of the mesh (with --dp_records)")

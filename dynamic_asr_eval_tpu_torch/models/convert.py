@@ -9,7 +9,10 @@ paths.  This module keeps its own copy of that table, in both directions:
 - :func:`params_to_jax` — the inverse: the port's ``state_dict`` → the flax
   ``params`` tree of numpy arrays in the JAX package's layouts.
 - :func:`jax_path` — the flax path of an lcasr name (used by the freeze
-  policies, which the JAX package states on flax paths).
+  policies, which the JAX package states on flax paths);
+- :func:`lm_params_from_jax` / :func:`lm_params_to_jax` — the same two
+  directions for the transformer LM (lming torch names, the JAX package's
+  ``lm/loader.py`` ``_LM_TORCH_RULES``).
 
 Layouts: flax Dense kernels are [in, out] (torch Linear [out, in]); flax
 conv kernels are [kh, kw, in/groups, out] (torch [out, in/groups, kh, kw]);
@@ -79,6 +82,26 @@ _TABLE: List[Tuple[str, str, str]] = [
     ("self_condition_reembed.weight", "self_condition_reembed/kernel", "dense"),
 ]
 
+# the transformer LM (lm/transformer_lm.py): the lming torch names that the
+# JAX package's ``_LM_TORCH_RULES`` (lm/loader.py) map
+_LM_TABLE: List[Tuple[str, str, str]] = [
+    ("embed.weight", "embed/embedding", "identity"),
+    ("layers.{n}.ln1.weight", "layer_{n}/ln1/scale", "identity"),
+    ("layers.{n}.ln1.bias", "layer_{n}/ln1/bias", "identity"),
+    ("layers.{n}.ln2.weight", "layer_{n}/ln2/scale", "identity"),
+    ("layers.{n}.ln2.bias", "layer_{n}/ln2/bias", "identity"),
+    ("layers.{n}.qkv.weight", "layer_{n}/qkv/kernel", "dense"),
+    ("layers.{n}.out.weight", "layer_{n}/out/kernel", "dense"),
+    ("layers.{n}.ff_in.weight", "layer_{n}/ff_in/kernel", "dense"),
+    ("layers.{n}.ff_in.bias", "layer_{n}/ff_in/bias", "identity"),
+    ("layers.{n}.ff_out.weight", "layer_{n}/ff_out/kernel", "dense"),
+    ("layers.{n}.ff_out.bias", "layer_{n}/ff_out/bias", "identity"),
+    ("ln_f.weight", "ln_f/scale", "identity"),
+    ("ln_f.bias", "ln_f/bias", "identity"),
+    ("head.weight", "head/kernel", "dense"),
+    ("head.bias", "head/bias", "identity"),
+]
+
 _GROUPS = {"n": r"(?P<n>\d+)", "m": r"(?P<m>ff1|ff2|attn|conv)"}
 
 
@@ -89,7 +112,12 @@ def _regex(template: str) -> "re.Pattern":
     return re.compile(out)
 
 
-_COMPILED = [(_regex(t), _regex(j), t, j, kind) for t, j, kind in _TABLE]
+def _compile(table):
+    return [(_regex(t), _regex(j), t, j, kind) for t, j, kind in table]
+
+
+_COMPILED = _compile(_TABLE)
+_LM_COMPILED = _compile(_LM_TABLE)
 
 
 def jax_path(name: str) -> str:
@@ -112,15 +140,12 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's flax ``params`` tree (numpy leaves; a ``{'params':
-    ...}`` variables dict is accepted too) → the port's ``state_dict`` (f32
-    tensors on the CPU).  Raises on any flax path the table does not place."""
+def _from_jax(params_np: Mapping, compiled) -> Dict[str, torch.Tensor]:
     if set(params_np) == {"params"}:
         params_np = params_np["params"]
     state, unmatched = {}, []
     for path, value in _flatten(params_np).items():
-        for _, j_re, t, _, kind in _COMPILED:
+        for _, j_re, t, _, kind in compiled:
             m = j_re.fullmatch(path)
             if m:
                 arr = _FROM_FLAX[kind](np.asarray(value, np.float32))
@@ -133,14 +158,11 @@ def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's ``state_dict`` → the JAX package's flax ``params`` tree
-    (nested dicts of C-contiguous f32 numpy arrays).  Raises on any name the
-    table does not place."""
+def _to_jax(state: Mapping[str, torch.Tensor], compiled) -> Dict:
     tree: Dict = {}
     unmatched = []
     for name, value in state.items():
-        for t_re, _, _, j, kind in _COMPILED:
+        for t_re, _, _, j, kind in compiled:
             m = t_re.fullmatch(name)
             if m:
                 arr = value.detach().to("cpu", torch.float32).numpy()
@@ -155,3 +177,29 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
     if unmatched:
         raise KeyError(f"port parameters with no flax counterpart: {unmatched}")
     return tree
+
+
+def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``params`` tree (numpy leaves; a ``{'params':
+    ...}`` variables dict is accepted too) → the port's ``state_dict`` (f32
+    tensors on the CPU).  Raises on any flax path the table does not place."""
+    return _from_jax(params_np, _COMPILED)
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``state_dict`` → the JAX package's flax ``params`` tree
+    (nested dicts of C-contiguous f32 numpy arrays).  Raises on any name the
+    table does not place."""
+    return _to_jax(state, _COMPILED)
+
+
+def lm_params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """:func:`params_from_jax` for the transformer LM (the JAX package's
+    ``convert_lm_torch_state`` inverted: kernels transposed, the rest as
+    they are)."""
+    return _from_jax(params_np, _LM_COMPILED)
+
+
+def lm_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """:func:`params_to_jax` for the transformer LM."""
+    return _to_jax(state, _LM_COMPILED)

@@ -31,6 +31,9 @@ advance.  Tokens are rebuilt once per call from those backpointers.
 LM adapters: ``init_state(batch) -> (state, lps [batch, V])``,
 ``advance(state, tokens [batch], mask [batch]) -> (state, lps)``,
 ``gather(state, idx)``, and the ``device`` their state lives on.
+``advance`` may write into the state it is given (the transformer LM's ring
+cache does), so both searches pass it the output of ``gather``, never a
+state that a beam still holds.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import torch
 from dynamic_asr_eval_tpu_torch.device import resolve_device
 from dynamic_asr_eval_tpu_torch.lm.arpa_native import HASH_INC
 from dynamic_asr_eval_tpu_torch.lm.ngram import roll_hash
+from dynamic_asr_eval_tpu_torch.lm.transformer_lm import empty_cache, model_device
 
 NEG = -1e30
 
@@ -100,6 +104,35 @@ class NGramAdapter:
     def gather(self, state, idx):
         toks, lens = state
         return toks[idx], lens[idx]
+
+
+class TransformerLMAdapter:
+    """Neural-LM fusion over :class:`..lm.transformer_lm.TransformerLM` with
+    its fixed-size ring-buffer cache.  ``advance`` writes the emitting rows'
+    ring slots into the state it is given; rows whose ``mask`` is false
+    keep their cache and length."""
+
+    def __init__(self, model, config, bos_id: int = 0):
+        self.model = model.eval()
+        self.config = config
+        self.bos_id = bos_id
+        self.device = model_device(model)
+
+    @torch.no_grad()
+    def init_state(self, batch: int):
+        cache = empty_cache(self.config, batch, self.device)
+        toks = torch.full((batch,), self.bos_id, dtype=torch.int64, device=self.device)
+        lps, cache = self.model(toks, cache)
+        return cache, lps
+
+    @torch.no_grad()
+    def advance(self, state, tokens, mask):
+        lps, cache = self.model(tokens, state, write_mask=mask)
+        return cache, lps
+
+    def gather(self, state, idx):
+        return {"k": state["k"][:, idx], "v": state["v"][:, idx],
+                "lengths": state["lengths"][idx]}
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +267,9 @@ class BeamSearchHost:
             for (prefix, ends_blank), (s, parent, is_new, tok) in merged:
                 if is_new and t < T - 1:
                     dev = self.lm.device
-                    st, lp = self.lm.advance(parent.lm_state, torch.tensor([tok], device=dev),
+                    own = self.lm.gather(parent.lm_state, torch.zeros((1,), dtype=torch.int64,
+                                                                      device=dev))
+                    st, lp = self.lm.advance(own, torch.tensor([tok], device=dev),
                                              torch.ones((1,), dtype=torch.bool, device=dev))
                     new_beams.append(_HostBeam(prefix, ends_blank, s, st, lp[0].cpu().numpy()))
                 else:

@@ -1,4 +1,6 @@
 from dynamic_asr_eval_tpu_torch.tta.awmc import AWMCEngine
+from dynamic_asr_eval_tpu_torch.tta.consistency import ConsistencyEngine
 from dynamic_asr_eval_tpu_torch.tta.runner import DynamicEvalEngine, EngineOutput, chunked_inference
 
-__all__ = ["AWMCEngine", "DynamicEvalEngine", "EngineOutput", "chunked_inference"]
+__all__ = ["AWMCEngine", "ConsistencyEngine", "DynamicEvalEngine", "EngineOutput",
+           "chunked_inference"]

@@ -211,3 +211,73 @@ def test_check_live_beams_holds_tokens_order_and_scores():
         chip_smoke.check_live_beams("case", (toks.flip(0), lens.flip(0), scores), want)
     with pytest.raises(AssertionError, match="relative"):
         chip_smoke.check_live_beams("case", (toks, lens, scores * 1.001), want)
+
+
+def test_check_launches_exact_holds_forwards_too():
+    """Phases 14 and 15 hold the forwards exactly (online NSTI runs no
+    re-inference); the default holds them as a lower bound."""
+    expect = {"attention": (6, 6)}
+    chip_smoke.check_launches({"attention": (18, 18)}, expect, windows=3, exact=True)
+    chip_smoke.check_launches({"attention": (19, 18)}, expect, windows=3)
+    with pytest.raises(AssertionError, match="=="):
+        chip_smoke.check_launches({"attention": (19, 18)}, expect, windows=3, exact=True)
+
+
+def test_check_routes_refuses_an_f32_launch():
+    launches = {"attention": (6, 6)}
+    chip_smoke.check_routes("case", launches,
+                            {"attention": {"tensor_core": (6, 6), "cuda_core": (0, 0)}})
+    with pytest.raises(AssertionError, match="not all on the bf16"):
+        chip_smoke.check_routes("case", launches,
+                                {"attention": {"tensor_core": (5, 6), "cuda_core": (1, 0)}})
+
+
+def test_weight_change_of_the_consistency_engine_is_its_least_moved_chunk():
+    params = {"w": torch.zeros(3)}
+    chunks = [{"w": torch.tensor([0.0, 0.5, 0.0])}, {"w": torch.tensor([0.0, 0.0, -0.25])}]
+    assert chip_smoke.weight_change(chunks, params) == 0.25
+    assert chip_smoke.weight_change(chunks[0], params) == 0.5
+    assert chip_smoke.weight_change(chunks + [params], params) == 0.0
+
+
+class _Recorder:
+    def __init__(self, epochs, n_chunks):
+        class Engine:
+            config = type("C", (), {"epochs": epochs})
+
+        self.engine = Engine()
+        self.outputs = [type("O", (), {"params": [{}] * n_chunks})]
+
+
+@pytest.mark.parametrize("epochs", [0, 1, 2])
+def test_check_consistency_run_holds_the_per_chunk_counts(monkeypatch, epochs):
+    """Per chunk and epoch 6 attention forwards and backwards and one
+    subsampling forward and backward, then the re-inference's forwards; all
+    bf16; one set of weights per chunk."""
+    monkeypatch.setattr(chip_smoke, "check_driver_output", lambda *args: "output checked")
+    cfg, n = chip_smoke.flagship_config(), chip_smoke.N_WINDOWS
+    e = max(epochs, 1)
+    good = {"attention": ((e + 1) * 6 * n, e * 6 * n), "subsample": ((e + 1) * n, e * n)}
+    routes = {k: {"tensor_core": v, "cuda_core": (0, 0)} for k, v in good.items()}
+    rec = _Recorder(epochs, n)
+    assert chip_smoke.check_consistency_run(cfg, good, routes, 1.0, {}, rec) == "output checked"
+    online_like = dict(good, attention=(e * 6 * n, e * 6 * n))
+    with pytest.raises(AssertionError, match="re-inference"):
+        chip_smoke.check_consistency_run(cfg, online_like, routes, 1.0, {}, rec)
+    with pytest.raises(AssertionError, match="chunks' weights"):
+        chip_smoke.check_consistency_run(cfg, good, routes, 1.0, {}, _Recorder(epochs, n - 1))
+
+
+def test_write_transformer_lm_round_trips_both_files(tmp_path):
+    """Phase 14's LM at the published shape over a 50-piece vocabulary: the
+    DLM1 file and the lming pickle read back to the same weights."""
+    from dynamic_asr_eval_tpu_torch.lm.loader import load_lm_adapter
+    from dynamic_asr_eval_tpu_torch.text import load_tokenizer
+
+    dlm, pt, cfg, n_params, _ = chip_smoke.write_transformer_lm(str(tmp_path), vocab=50)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.max_cache_length) == (6, 512, 8, 128)
+    assert n_params == sum(p.numel() for p in
+                           load_lm_adapter(pt, load_tokenizer(chip_smoke.write_vocab(
+                               str(tmp_path), 50)), device="cpu").model.parameters())
+    with open(dlm, "rb") as f:
+        assert f.read(4) == b"DLM1"

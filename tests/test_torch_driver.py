@@ -9,8 +9,9 @@ injected through its ``load_model_and_tokenizer`` (nothing in the JAX
 package is edited), and the port receives the same flax params through
 ``params_from_jax``.  Transcripts and WER must be identical (the pattern of
 tests/test_driver_golden.py).  The same holds for
-``run_dynamic_eval_full.py`` with and without ``--awmc`` (its log lines
-too), and for ``run.py --awmc --checkpoint ref.pt``, where each package
+``run_dynamic_eval_full.py`` with and without ``--awmc`` and with
+``--consistency`` (its log lines too; with ``-lm`` the consistency engine
+keeps greedy teachers and the LM serves the final decode), and for ``run.py --awmc --checkpoint ref.pt``, where each package
 loads the reference pickle itself.  The options not ported yet raise
 ``NotImplementedError``; the invalid combinations raise what JAX raises.
 
@@ -153,10 +154,10 @@ def test_model_config_from_a_yaml_file(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=["nsti", "awmc"])
+@pytest.fixture(scope="module", params=["nsti", "awmc", "consistency"])
 def full_runs(request, tmp_path_factory):
     tmp = tmp_path_factory.mktemp(f"full_{request.param}")
-    flags = ["--awmc"] if request.param == "awmc" else []
+    flags = {"nsti": [], "awmc": ["--awmc"], "consistency": ["--consistency"]}[request.param]
     jcfg = JaxConfig(compute_dtype=jnp.float32, **TINY)
     model, variables = jax_init(jcfg, jax.random.PRNGKey(11), example_T=256)
     mp = pytest.MonkeyPatch()
@@ -191,7 +192,8 @@ def test_full_driver_pickle_schema_and_log_line(full_runs):
     (_, j), (_, p), (jax_log, port_log), kind = full_runs
     assert set(p) == set(j) and p["repeat"] == "1/1"
     assert port_log == jax_log
-    assert port_log[-1].startswith({"nsti": "DynamicEvalEngine", "awmc": "AWMCEngine"}[kind])
+    assert port_log[-1].startswith({"nsti": "DynamicEvalEngine", "awmc": "AWMCEngine",
+                                    "consistency": "ConsistencyEngine"}[kind])
 
 
 # ---------------------------------------------------------------------------
@@ -233,11 +235,18 @@ def test_awmc_from_a_reference_checkpoint_wer_identical(checkpoint_runs):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flags", [["--consistency"], ["--dp_records"]],
+@pytest.mark.parametrize("flags,error", [(["--consistency", "--dp_records"], ValueError),
+                                         (["--dp_records"], NotImplementedError)],
                          ids=["consistency", "dp_records"])
-def test_full_driver_rejects_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+def test_full_driver_rejects_what_is_not_ported(flags, error):
+    """``--dp_records`` is not ported (it names its ROADMAP item);
+    ``--consistency`` is, and with ``--dp_records`` it is refused as JAX
+    refuses it."""
+    with pytest.raises(error, match="ROADMAP queue 1 item|only the NSTI engine"):
         full.cli(["-d", "synthetic", "--quiet", "--device", "cpu"] + flags)
+    if error is ValueError:
+        with pytest.raises(ValueError, match="only the NSTI engine"):
+            jax_full.cli(["-d", "synthetic", "--quiet"] + flags)
 
 
 def test_awmc_with_dp_records_is_refused_as_in_jax():
@@ -253,12 +262,19 @@ def test_awmc_with_dp_records_is_refused_as_in_jax():
 
 
 @pytest.mark.parametrize("driver", ["run", "full"])
-def test_a_transformer_lm_raises_naming_its_roadmap_item(driver, tmp_path):
+def test_a_transformer_lm_raises_naming_its_roadmap_item(driver, tmp_path, char_tlm):
+    """The item it named (12b) is done: ``-lm`` with a DLM1 file runs in both
+    drivers (their transcripts against JAX's: ``test_lm_*``), and a file that
+    carries the DLM1 magic and nothing else raises."""
+    run_cli = {"run": cli, "full": full.cli}[driver]
+    argv = ["-d", "synthetic", "--quiet", "--device", "cpu", "--beams", "2"]
+    wer = run_cli(argv + ["-lm", char_tlm["TLM"]] + KWARGS + ["epochs=0"],
+                  model_config=ConformerConfig(compute_dtype="float32", **TINY))
+    assert np.isfinite(wer)
     path = tmp_path / "lm.dlm"
     path.write_bytes(b"DLM1")
-    run_cli = {"run": cli, "full": full.cli}[driver]
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        run_cli(["-d", "synthetic", "--quiet", "--device", "cpu", "-lm", str(path)])
+    with pytest.raises(Exception):
+        run_cli(argv + ["-lm", str(path)])
 
 
 def test_a_checkpoint_brings_its_own_config(tmp_path):
@@ -275,8 +291,16 @@ def test_a_checkpoint_brings_its_own_config(tmp_path):
 # ---------------------------------------------------------------------------
 
 LM_CASES = {
-    # driver, flags; "LM" stands for the ARPA file; lm_tta_beams is 0 unless set
+    # driver, flags; "LM" stands for the ARPA file, "TLM" for a transformer
+    # LM's DLM1 file and "TLM_PT" for the same LM as a lming torch pickle;
+    # lm_tta_beams is 0 unless set
     "run_lm": ("run", ["-lm", "LM", "--beams", "4", "-kwargs", "lm_tta_beams=3"]),
+    "run_tlm": ("run", ["-lm", "TLM", "--beams", "4", "-kwargs", "lm_tta_beams=3"]),
+    "run_tlm_pt": ("run", ["-lm", "TLM_PT", "--beams", "4"]),
+    "full_tlm": ("full", ["-lm", "TLM", "--beams", "4", "-kwargs", "lm_tta_beams=3"]),
+    "full_tlm_pt": ("full", ["-lm", "TLM_PT", "--beams", "4", "-kwargs", "lm_tta_beams=3"]),
+    "full_consistency_tlm": ("full", ["--consistency", "-lm", "TLM", "--beams", "4", "-kwargs",
+                                      "lm_tta_beams=3"]),
     "run_lm_batch_tp": ("run", ["-lm", "LM", "--beams", "4", "--decode_batch", "2", "--tp", "2"]),
     "full_lm": ("full", ["-lm", "LM", "--beams", "4", "-kwargs", "lm_tta_beams=3"]),
     "full_lm_batch": ("full", ["-lm", "LM", "--beams", "4", "--decode_batch", "2"]),
@@ -294,12 +318,33 @@ def char_lm(tmp_path_factory):
     return str(path)
 
 
+@pytest.fixture(scope="module")
+def char_tlm(tmp_path_factory):
+    """A tiny transformer LM over the char tokenizer (28 pieces), written by
+    the JAX package as a DLM1 file and, with the same weights, as a lming
+    torch pickle (the names of tests/torch_oracles.py)."""
+    from dynamic_asr_eval_tpu.lm.loader import save_lm_checkpoint
+    from dynamic_asr_eval_tpu.lm.transformer_lm import TransformerLMConfig, init_lm
+    from dynamic_asr_eval_tpu_torch.models.convert import lm_params_from_jax
+
+    tmp = tmp_path_factory.mktemp("tlm")
+    cfg = TransformerLMConfig(vocab_size=28, n_layers=2, d_model=32, n_heads=2,
+                              max_cache_length=128)
+    _, variables = init_lm(cfg, jax.random.PRNGKey(17))
+    save_lm_checkpoint(str(tmp / "chars.dlm"), variables, cfg)
+    state = lm_params_from_jax(jax.tree.map(np.asarray, variables["params"]))
+    torch.save({"model": {f"module.{k}": v for k, v in state.items()},
+                "config": {"n_heads": 2}}, str(tmp / "chars.pt"))
+    return {"TLM": str(tmp / "chars.dlm"), "TLM_PT": str(tmp / "chars.pt")}
+
+
 @pytest.fixture(scope="module", params=list(LM_CASES))
-def lm_runs(request, tmp_path_factory, char_lm):
+def lm_runs(request, tmp_path_factory, char_lm, char_tlm):
     """The JAX driver and the port's on the same weights and flags (KWARGS
     first: a later ``-kwargs`` adds to it)."""
     driver, flags = LM_CASES[request.param]
-    flags = [char_lm if f == "LM" else f for f in flags]
+    files = dict(char_tlm, LM=char_lm)
+    flags = [files.get(f, f) for f in flags]
     kwargs = KWARGS + (flags[flags.index("-kwargs") + 1:] if "-kwargs" in flags else [])
     flags = flags[: flags.index("-kwargs")] if "-kwargs" in flags else flags
     tmp = tmp_path_factory.mktemp(request.param)

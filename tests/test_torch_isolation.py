@@ -53,6 +53,28 @@ def test_importing_every_module_pulls_in_no_jax_and_no_yaml():
     assert bad == "", f"the port pulled in {bad}"
 
 
+NEW_MODULES = ("lm.transformer_lm", "lm.loader", "evals.tlm_tools", "perf", "optim.adafactor",
+               "tta.consistency")
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module("dynamic_asr_eval_tpu_torch." + sys.argv[1])
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
+                                             "dynamic_asr_eval_tpu"))))
+"""
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_the_transformer_lm_and_consistency_modules_import_alone(module):
+    """Each module of the transformer-LM and consistency slice, imported on
+    its own, pulls in no JAX, flax, optax, msgpack or PyYAML."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
 _IMPORT_BUILDS_NOTHING = """
 import importlib, pkgutil, subprocess
 calls = []
@@ -139,6 +161,35 @@ def test_lm_without_device_raises_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_lm_adapter(str(path), CharTokenizer())
     assert load_lm_adapter(str(path), CharTokenizer(), device="cpu").device.type == "cpu"
+
+
+def test_transformer_lm_adapter_without_device_raises_without_cuda(no_cuda, tmp_path):
+    from dynamic_asr_eval_tpu_torch.lm.loader import load_lm_adapter, save_lm_checkpoint
+    from dynamic_asr_eval_tpu_torch.lm.transformer_lm import TransformerLMConfig, init_lm
+    from dynamic_asr_eval_tpu_torch.text import CharTokenizer
+
+    cfg = TransformerLMConfig(vocab_size=28, n_layers=1, d_model=16, n_heads=2)
+    path = str(tmp_path / "lm.dlm")
+    save_lm_checkpoint(path, init_lm(cfg), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_lm_adapter(path, CharTokenizer())
+    assert load_lm_adapter(path, CharTokenizer(), device="cpu").device.type == "cpu"
+
+
+def test_consistency_engine_without_device_raises_without_cuda(no_cuda):
+    from dynamic_asr_eval_tpu_torch.tta import ConsistencyEngine
+
+    cfg = ConformerConfig(feat_in=16, n_layers=1, d_model=32, n_heads=2, head_dim=16,
+                          vocab_size=10, subsampling_conv_channels=4, compute_dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ConsistencyEngine(SCConformer(cfg), cfg.blank_id, 8, TTAConfig())
+
+
+def test_tlm_tools_without_device_raise_without_cuda(no_cuda, tmp_path):
+    from dynamic_asr_eval_tpu_torch.evals import tlm_tools
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlm_tools._cli(["dump", "-d", "synthetic", "-s", str(tmp_path)])
 
 
 @pytest.mark.parametrize("flags", [["--profile", "DIR"], ["--dp"], ["--dp_records"]],
