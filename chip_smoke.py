@@ -7,16 +7,19 @@ Phases (each raises on failure; the script then exits non-zero):
 1. the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from the checkout (five sources, one
    nvcc each, all started together, sm_90a) and print each kernel's
-   registers and spills;
+   registers and spills (the f32 attention's ``tf32x3_attention_*`` among
+   them);
 3. each kernel against its plain PyTorch version on the same inputs, TF32
    off, the plain version computed in f32.  Tolerance: |kernel - plain| <=
    1e-4 (f32) or 2e-2 (bf16) of max |plain|:
    - flash attention at the flagship [2, 2048, 6, 128] with lengths
      [2048, 1600] and ragged T 1000 with lengths [1000, 777, 1000], bf16
-     (the tensor-core kernels) and f32 (the CUDA-core kernels), and in bf16
-     with a random, non-prefix 0/1 mask at the flagship shape and at T 37
-     (one key tile); every backward runs twice and must repeat bit for bit
-     (no atomics), and each dtype must take its route; the bf16 kernels are
+     (the tensor-core kernels) and f32 (the ``"tf32x3"`` route: tensor-core
+     kernels taking each product as three TF32 products), f32 also at head
+     dim 30 (zero-padded by the wrapper), and in bf16 with a random,
+     non-prefix 0/1 mask at the flagship shape and at T 37 (one key tile);
+     every backward runs twice and must repeat bit for bit (no atomics), and
+     each dtype must take its route; the bf16 kernels are
      also held against the plain version on the bf16 tensors, which rounds
      where the kernels round (``check_rounding``: 1 bf16 ulp of max, and at
      most 5 % of elements differing in dq, dk, dv, and in out at T 37);
@@ -38,8 +41,12 @@ Phases (each raises on failure; the script then exits non-zero):
 4. kernel, plain and library times (CUDA events after warm-up) at the
    flagship or benchmark shape, and the least time the card could take
    (bound).  Attention and subsampling are timed on both routes: bf16
-   (tensor cores, the main path) and f32 (CUDA cores, the parity route).
-   Library: SDPA with a boolean mask in the same dtype for attention; for
+   (tensor cores, the main path) and f32 (the parity route: 3xTF32 on the
+   tensor cores for attention, bounded by three TF32 products at 495
+   TFLOP/s and, as ``bound_cuda_core_ms``, by the same work at 67 TFLOP/s on
+   the CUDA cores; CUDA cores for the subsampling).
+   Library: SDPA with a boolean mask in the same dtype for attention (the
+   kernels SDPA runs in f32 named from a profile); for
    the fused subsampling, the cuDNN stack the ``"conv"`` path runs (four
    ``F.conv2d`` calls with their activations, forward, and backward through
    autograd) in the same dtype; none for soft-DTW.  The port never calls a
@@ -58,9 +65,9 @@ Phases (each raises on failure; the script then exits non-zero):
    the full-depth model in f32 through the attention kernel agrees with the
    plain attention path on valid frames (1e-3), and so do its weight
    gradients (1e-3 of each gradient's max |value|, or of 1 % of the largest
-   where that is more): this run's launches of the f32 route are its
-   ``parity_launches`` in the kernels line (its ``launches``, the main
-   path's, are 0);
+   where that is more), cuDNN deterministic on both sides: this run's
+   launches of the f32 route (``"tf32x3"``) are its ``parity_launches`` in
+   the kernels line (its ``launches``, the main path's, are 0);
 7. where the time goes: the driver's engine, warm, on the same recording:
    engine wall of 3 runs, ms per window and RTFx at the fastest, then one
    run under torch.profiler for device busy time, idle share, device time
@@ -73,6 +80,15 @@ Phases (each raises on failure; the script then exits non-zero):
    (output), on lengths [4000, 3000] (multiples of 8, where the two
    semantics agree), within 1e-3 on valid frames: this run's f32-route
    launches are ``fused_subsample_f32``'s ``parity_launches``;
+5c. the f32 path: ``evals/run.py`` ``main`` on phase 5's recording at the
+   flagship widths in f32 with ``attention_impl="pallas_flash"`` and
+   ``"conv"`` subsampling (so the f32 attention kernels, route
+   ``"tf32x3"``, are the only kernels on the path), and again with
+   ``"xla"`` attention, cuDNN deterministic in both: launches exactly 6 / 6
+   per window, all on that route (``f32_path_launches`` in the kernels
+   line); stitched log-probs within 1e-3 of max |log-prob|, equal greedy
+   ids; each engine's warm walls (cuDNN's own algorithms), ms per window and
+   RTFx (a ``{"f32_path": ...}`` line);
 8. soft-DTW's own path: ``benchmark(use_pallas=True)`` on the card, value
    and gradient of ``SoftDTW`` through both kernels, its launch counters
    zeroed just before and read just after;
@@ -91,9 +107,11 @@ Phases (each raises on failure; the script then exits non-zero):
    student's weights moved, its WER a number.  10b (parity): the full-depth
    f32 AWMC engine on a 2-window recording (3000 frames at seq 2048 /
    overlap 1024: 2048 and 1976 frames, multiples of 8) through the f32
-   kernels, against the same engine with ``"xla"`` attention and ``"conv"``
-   subsampling: stitched log-probs within 1e-3 of max |log-prob|, equal
-   greedy ids; its f32-route launches are ``awmc_parity_launches``;
+   kernels (attention ``"tf32x3"``, subsampling ``"cuda_core"``), against
+   the same engine with ``"xla"`` attention and ``"conv"`` subsampling,
+   cuDNN deterministic on both sides: stitched log-probs within 1e-3 of max
+   |log-prob|, equal greedy ids; its f32-route launches are
+   ``awmc_parity_launches``;
 11. where AWMC's time goes: phase 7's profile of the driver's warm AWMC
    engine (a ``{"profile": ...}`` line with ``"path": "awmc"``);
 12. the native host libraries: ``native/levenshtein.cc`` and
@@ -137,16 +155,20 @@ Phases (each raises on failure; the script then exits non-zero):
    WER, peak device memory printed.  15b: its profile (a ``{"profile":
    ...}`` line with ``"path": "consistency"``).  15c (parity): a 2-layer f32
    consistency engine at flagship widths, offline, 2 epochs, on phase 10b's
-   2-window recording, through the f32 kernels against the plain path
-   (stitched log-probs within 1e-3 of max |log-prob|, equal greedy ids); its
-   f32-route launches are ``consistency_parity_launches``.
+   2-window recording, through the f32 kernels (attention ``"tf32x3"``)
+   against the plain path, cuDNN deterministic on both sides (stitched
+   log-probs within 1e-3 of max |log-prob|, equal greedy ids); its f32-route
+   launches are ``consistency_parity_launches``.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
 ``lm_launches`` on the ``-lm`` path, ``tlm_launches`` on the transformer-LM
 path and ``consistency_launches`` on the consistency path, each read from
-its own run), and last ``{"ok": true, "device": {...}}``.  TF32 stays off
-throughout.
+its own run; ``f32_path_launches`` for the f32 attention), and last
+``{"ok": true, "device": {...}}``.  TF32 stays off throughout for PyTorch's
+matmuls and convolutions; cuDNN's deterministic algorithms are on only
+inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c), so the timed
+phases keep cuDNN's own choice.
 """
 
 from __future__ import annotations
@@ -177,6 +199,8 @@ ATTENTION_KEY_TILE = 64  # keys per tile of the bf16 forward kernel
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores
+TF32_FLOPS = 495e12  # dense, on the tensor cores: the f32 attention's three products each
+ODD_HEAD_DIM = 30  # phase 3's f32 attention at a head dim the wrapper pads
 N_FRAMES = 30720
 SEQ, OVERLAP = 16384, 14336
 N_WINDOWS = 9  # ops.chunk.chunk_starts_and_lengths(N_FRAMES, SEQ, OVERLAP)
@@ -205,8 +229,7 @@ REFERENCE_FIELDS = ("feat_in", "n_layers", "d_model", "n_heads", "head_dim", "vo
                     "subsampling_factor", "subsampling_conv_channels", "conv_kernel_size",
                     "rotary_base_freq", "self_conditioning")
 FAMILIES = (
-    ("flash_attention", ("tc_attention_", "fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
-                         "bwd_delta_kernel")),
+    ("flash_attention", ("tc_attention_", "tf32x3_attention_")),
     ("fused_subsample", ("::tc_pw_kernel<", "::tc_wgrad_kernel(", "::weights_kernel(",
                          "::pw_kernel<", "::wgrad_kernel<", "::dw_bwd_kernel<", "::gx_kernel",
                          "namespace)::reduce_kernel(")),
@@ -375,11 +398,54 @@ def time_attention(A, B, T, H, D, lengths, dtype):
     esize = torch.finfo(dtype).bits // 8
     tensor_bytes = B * T * H * D * esize
     lse_bytes = B * H * T * 4
-    bounds = {
-        "fwd": bound(4 * D * pairs, 4 * tensor_bytes + lse_bytes + B * T * 4, PEAK_FLOPS[dtype]),
-        "bwd": bound(10 * D * pairs, 8 * tensor_bytes + lse_bytes + B * T * 4, PEAK_FLOPS[dtype]),
-    }
+    work = {"fwd": (4 * D * pairs, 4 * tensor_bytes + lse_bytes + B * T * 4),
+            "bwd": (10 * D * pairs, 8 * tensor_bytes + lse_bytes + B * T * 4)}
+    if dtype == torch.float32:
+        # the f32 kernels take each product as three TF32 products on the
+        # tensor cores; the same work on the CUDA cores is bounded too
+        bounds = {k: bound(3 * f, b, TF32_FLOPS) for k, (f, b) in work.items()}
+        bounds.update({f"{k}_cuda_core": bound(f, b, F32_FLOPS) for k, (f, b) in work.items()})
+    else:
+        bounds = {k: bound(f, b, PEAK_FLOPS[dtype]) for k, (f, b) in work.items()}
     return t, bounds
+
+
+def profile_kernels(fn):
+    """[[kernel name, launches, device ms], ...] of one call of ``fn`` under
+    torch.profiler, slowest first, or "not measured"."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append([kernel_name(evt.key), evt.count, dev_us / 1e3])
+    return sorted(rows, key=lambda r: -r[2]) or "not measured"
+
+
+def sdpa_kernels(A, dtype):
+    """The kernels SDPA (phase 4's yardstick) runs at the flagship shape in
+    ``dtype``, forward and backward, from the profile."""
+    import torch.nn.functional as F
+
+    q, k, v, mask, dout = attention_inputs(2, 2048, 6, 128, [2048, 1600], dtype, seed=1)
+    same = A._same_segment(mask)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=same)
+    result = {
+        "fwd": profile_kernels(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=same)),
+        "bwd": profile_kernels(lambda: torch.autograd.grad(out, (qs, ks, vs), dout.transpose(1, 2),
+                                                           retain_graph=True))}
+    for kind, rows in result.items():
+        log(f"  SDPA {dtype} {kind} by kernel: " + (
+            ", ".join(f"{n} x{c} {ms:.4f} ms" for n, c, ms in rows)
+            if isinstance(rows, list) else rows))
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -524,22 +590,9 @@ def subsample_breakdown(S, card):
     launches of each kernel inside them (a ``{"subsample_breakdown": ...}``
     line)."""
     x, ws, gout = subsample_inputs(S, *SUB_FLAGSHIP, torch.bfloat16, seed=1)
-    result = {"card": card, "shape": SUB_FLAGSHIP}
-    for kind, fn in (("fwd", lambda: S.fused_subsample_fwd(x, ws)),
-                     ("bwd", lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=False))):
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = []
-        for evt in prof.key_averages():
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-            if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
-                rows.append([kernel_name(evt.key), evt.count, dev_us / 1e3])
-        result[kind] = sorted(rows, key=lambda r: -r[2]) or "not measured"
+    result = {"card": card, "shape": SUB_FLAGSHIP,
+              "fwd": profile_kernels(lambda: S.fused_subsample_fwd(x, ws)),
+              "bwd": profile_kernels(lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=False))}
     for kind in ("fwd", "bwd"):
         log(f"  fused subsampling bf16 {kind} by kernel: " + (
             ", ".join(f"{n} x{c} {ms:.4f} ms" for n, c, ms in result[kind])
@@ -678,10 +731,17 @@ def check_launches(launches, expect, windows=N_WINDOWS, exact=False):
                                  f"{bwd_per * windows}")
 
 
+def bf16_only(by_route, expect) -> bool:
+    """All of ``expect`` launches on the bf16 route (``"tensor_core"``), none
+    on any other."""
+    return "tensor_core" in by_route and all(
+        tuple(c) == (tuple(expect) if r == "tensor_core" else (0, 0)) for r, c in by_route.items())
+
+
 def check_routes(what, launches, routes):
     """Every launch of each routed module on the bf16 tensor-core kernels."""
     for name, by_route in routes.items():
-        if by_route != {"tensor_core": launches[name], "cuda_core": (0, 0)}:
+        if not bf16_only(by_route, launches[name]):
             raise AssertionError(f"{what}: {name} launches by route {by_route}: not all on the "
                                  f"bf16 tensor-core kernels")
 
@@ -755,21 +815,25 @@ def check_attention_model(params, A):
     plain attention path, output on valid frames and weight gradients of the
     valid frames' summed log-probs.  Returns the f32 route's (fwd, bwd)
     launches in the kernel-path run (its parity launches)."""
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(2, 80, 4000, generator=g, device="cuda")
     lengths = torch.tensor([4000, 3001], device="cuda")
+    route = A.ROUTES[torch.float32]
     A.reset_counters()
-    a, grads_a = model_run(f32_model(params), x, lengths)
-    torch.cuda.synchronize()
-    launches = tuple(A.route_launches["cuda_core"])
-    b, grads_b = model_run(f32_model(params, attention_impl="xla"), x, lengths)
+    with deterministic_cudnn():
+        a, grads_a = model_run(f32_model(params), x, lengths)
+        torch.cuda.synchronize()
+        launches = tuple(A.route_launches[route])
+        b, grads_b = model_run(f32_model(params, attention_impl="xla"), x, lengths)
     err = valid_frame_err(a, b)
     gerr = grad_err(grads_a, grads_b)
     if not (err <= 1e-3 and gerr <= 1e-3 and launches[0] > 0 and launches[1] > 0):
         raise AssertionError(f"kernel-path model vs plain path: output |err| {err:.3e}, weight "
                              f"gradients {gerr:.3e} of max (> 1e-3?), f32 launches {launches}")
     log(f"  full-depth f32 model, kernel vs plain attention on valid frames: {err:.2e}; weight "
-        f"gradients {gerr:.2e} of max; f32 (cuda_core) launches fwd {launches[0]}, "
+        f"gradients {gerr:.2e} of max; f32 ({route}) launches fwd {launches[0]}, "
         f"bwd {launches[1]}")
     return launches
 
@@ -782,23 +846,26 @@ def check_subsample_model(params, S):
     that are multiples of 8.  Returns the f32 route's (fwd, bwd) launches
     (its parity launches)."""
     import dynamic_asr_eval_tpu_torch.models.conformer as conformer
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
 
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(2, 80, 4000, generator=g, device="cuda")
     lengths = torch.tensor([4000, 3000], device="cuda")
     model = f32_model(params, subsampling_impl="pallas")
+    route = S.ROUTES[torch.float32]
     S.reset_counters()
-    a, grads_a = model_run(model, x, lengths)
-    torch.cuda.synchronize()
-    launches = tuple(S.route_launches["cuda_core"])
-    kernel_entry = conformer.fused_subsample
-    conformer.fused_subsample = S.fused_subsample_reference
-    try:
-        b, grads_b = model_run(model, x, lengths)
-    finally:
-        conformer.fused_subsample = kernel_entry
-    with torch.no_grad():
-        c = f32_model(params)(x, lengths)
+    with deterministic_cudnn():
+        a, grads_a = model_run(model, x, lengths)
+        torch.cuda.synchronize()
+        launches = tuple(S.route_launches[route])
+        kernel_entry = conformer.fused_subsample
+        conformer.fused_subsample = S.fused_subsample_reference
+        try:
+            b, grads_b = model_run(model, x, lengths)
+        finally:
+            conformer.fused_subsample = kernel_entry
+        with torch.no_grad():
+            c = f32_model(params)(x, lengths)
     err_plain, err_conv = valid_frame_err(a, b), valid_frame_err(a, c)
     gerr = grad_err(grads_a, grads_b)
     if not (err_plain <= 1e-3 and err_conv <= 1e-3 and gerr <= 1e-3 and launches == (1, 1)):
@@ -807,7 +874,7 @@ def check_subsample_model(params, S):
                              f"launches {launches}")
     log(f"  full-depth f32 model, subsampling kernels vs plain version {err_plain:.2e} (weight "
         f"gradients {gerr:.2e} of max), vs the conv model {err_conv:.2e} on valid frames; f32 "
-        f"(cuda_core) launches fwd {launches[0]}, bwd {launches[1]}")
+        f"({route}) launches fwd {launches[0]}, bwd {launches[1]}")
     return launches
 
 
@@ -854,10 +921,19 @@ def check_awmc_run(cfg, launches, routes, wer, detail, recorder):
         if launches[name] != expect:
             raise AssertionError(f"AWMC {name} launches {launches[name]}, expected {expect} "
                                  f"(anchor, leader, student and clean forwards, one backward)")
-        if routes[name] != {"tensor_core": expect, "cuda_core": (0, 0)}:
+        if not bf16_only(routes[name], expect):
             raise AssertionError(f"AWMC {name} launches by route {routes[name]}: not all on "
                                  f"the bf16 tensor-core kernels")
     return check_driver_output(cfg, wer, detail, recorder)
+
+
+def f32_route_launches(what, A, S):
+    """{module: (fwd, bwd)} launches of the attention's and the subsampling's
+    f32 routes since the counters were zeroed; raises if a bf16 kernel ran."""
+    if A.route_launches["tensor_core"] != [0, 0] or S.route_launches["tensor_core"] != [0, 0]:
+        raise AssertionError(f"{what} launched a bf16 kernel")
+    return {"attention": tuple(A.route_launches[A.ROUTES[torch.float32]]),
+            "subsample": tuple(S.route_launches[S.ROUTES[torch.float32]])}
 
 
 def check_awmc_parity(params, A, S):
@@ -867,6 +943,7 @@ def check_awmc_parity(params, A, S):
     import numpy as np
 
     from dynamic_asr_eval_tpu_torch.config import TTAConfig
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
     from dynamic_asr_eval_tpu_torch.tta import AWMCEngine
 
     frames, seq, overlap = AWMC_PARITY
@@ -883,12 +960,10 @@ def check_awmc_parity(params, A, S):
 
     A.reset_counters()
     S.reset_counters()
-    a = run(subsampling_impl="pallas")
-    launches = {"attention": tuple(A.route_launches["cuda_core"]),
-                "subsample": tuple(S.route_launches["cuda_core"])}
-    if A.route_launches["tensor_core"] != [0, 0] or S.route_launches["tensor_core"] != [0, 0]:
-        raise AssertionError("the f32 AWMC engine launched a bf16 kernel")
-    b = run(attention_impl="xla")
+    with deterministic_cudnn():
+        a = run(subsampling_impl="pallas")
+        launches = f32_route_launches("the f32 AWMC engine", A, S)
+        b = run(attention_impl="xla")
     lp_a, lp_b = a.numpy_logits(), b.numpy_logits()
     err, scale = float(np.abs(lp_a - lp_b).max()), float(np.abs(lp_b).max())
     same_ids = np.array_equal(a.greedy_ids(), b.greedy_ids())
@@ -897,8 +972,8 @@ def check_awmc_parity(params, A, S):
         raise AssertionError(f"f32 AWMC, kernels vs plain path: {err:.3e} (max |log-prob| "
                              f"{scale:.3e}), greedy ids equal {same_ids}, f32 launches {launches}")
     log(f"  full-depth f32 AWMC engine, kernels vs plain path on {lp_a.shape[0]} frames: "
-        f"{err:.2e} (max |log-prob| {scale:.3e}); greedy ids equal; f32 (cuda_core) launches "
-        f"{launches}")
+        f"{err:.2e} (max |log-prob| {scale:.3e}); greedy ids equal; f32 launches {launches} "
+        f"(attention {A.ROUTES[torch.float32]}, subsampling {S.ROUTES[torch.float32]})")
     return launches
 
 
@@ -931,6 +1006,7 @@ def check_consistency_parity(A, S):
     import numpy as np
 
     from dynamic_asr_eval_tpu_torch.config import TTAConfig
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
     from dynamic_asr_eval_tpu_torch.models import init_conformer
     from dynamic_asr_eval_tpu_torch.tta import ConsistencyEngine
 
@@ -949,12 +1025,10 @@ def check_consistency_parity(A, S):
 
     A.reset_counters()
     S.reset_counters()
-    a = run(subsampling_impl="pallas")
-    launches = {"attention": tuple(A.route_launches["cuda_core"]),
-                "subsample": tuple(S.route_launches["cuda_core"])}
-    if A.route_launches["tensor_core"] != [0, 0] or S.route_launches["tensor_core"] != [0, 0]:
-        raise AssertionError("the f32 consistency engine launched a bf16 kernel")
-    b = run(attention_impl="xla")
+    with deterministic_cudnn():
+        a = run(subsampling_impl="pallas")
+        launches = f32_route_launches("the f32 consistency engine", A, S)
+        b = run(attention_impl="xla")
     lp_a, lp_b = a.numpy_logits(), b.numpy_logits()
     err, scale = float(np.abs(lp_a - lp_b).max()), float(np.abs(lp_b).max())
     same_ids = np.array_equal(a.greedy_ids(), b.greedy_ids())
@@ -964,7 +1038,7 @@ def check_consistency_parity(A, S):
                              f"{scale:.3e}), greedy ids equal {same_ids}, f32 launches {launches}")
     log(f"  {CONSISTENCY_PARITY_LAYERS}-layer f32 consistency engine at flagship widths, kernels "
         f"vs plain path on {lp_a.shape[0]} frames: {err:.2e} (max |log-prob| {scale:.3e}); greedy "
-        f"ids equal; f32 (cuda_core) launches {launches}")
+        f"ids equal; f32 launches {launches}")
     return launches
 
 
@@ -1388,6 +1462,67 @@ def family(name: str) -> str:
     return "other"
 
 
+def warm_run_ms(recorder) -> float:
+    """One run of the driver's engine on its recording and weights (warm
+    after the driver's own run), in ms of wall time."""
+    engine, ((params, spec),) = recorder.engine, recorder.calls
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine(params, spec, SEQ, OVERLAP, rng=0)
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3
+
+
+def f32_path(card, A):
+    """Phase 5c: the flagship NSTI in f32 through ``evals.run.main``, with
+    ``attention_impl="pallas_flash"`` (the f32 attention kernels, the only
+    kernel on the path: ``"conv"`` subsampling) and with ``"xla"``
+    attention, cuDNN deterministic in both driver runs.  Exactly n_layers
+    forward and backward launches per window, all on the f32 route; the
+    stitched log-probs of the two runs within 1e-3 of max |log-prob|, equal
+    greedy ids; then each engine's warm walls (cuDNN's own algorithms).
+    Returns the kernel run's f32-route (fwd, bwd) launches."""
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+
+    runs, route = {}, A.ROUTES[torch.float32]
+    for impl in ("pallas_flash", "xla"):
+        cfg = flagship_config(compute_dtype=torch.float32, attention_impl=impl,
+                              subsampling_impl="conv")
+        with deterministic_cudnn():
+            wer, wall, launches, routes, detail, recorder = main_path(cfg, {"attention": A})
+        check_driver_output(cfg, wer, detail, recorder)
+        runs[impl] = (recorder, routes["attention"], wall)
+    per_window = (cfg.n_layers * N_WINDOWS, cfg.n_layers * N_WINDOWS)
+    kernel_routes, plain_routes = runs["pallas_flash"][1], runs["xla"][1]
+    want = {r: (per_window if r == route else (0, 0)) for r in A.ROUTES.values()}
+    if kernel_routes != want or any(c != (0, 0) for c in plain_routes.values()):
+        raise AssertionError(f"f32 path: attention launches by route {kernel_routes} (expected "
+                             f"{want}), on the xla path {plain_routes}")
+    kern, plain = (runs[impl][0].outputs[0] for impl in ("pallas_flash", "xla"))
+    lp_a, lp_b = kern.numpy_logits(), plain.numpy_logits()
+    err, scale = float(np.abs(lp_a - lp_b).max()), float(np.abs(lp_b).max())
+    same_ids = np.array_equal(kern.greedy_ids(), plain.greedy_ids())
+    if not (lp_a.shape == lp_b.shape and err <= 1e-3 * scale and same_ids):
+        raise AssertionError(f"f32 path, kernel vs xla attention: {err:.3e} (max |log-prob| "
+                             f"{scale:.3e}), greedy ids equal {same_ids}")
+    log(f"  attention launches {kernel_routes} ({route}: {cfg.n_layers} / {cfg.n_layers} per "
+        f"window); stitched log-probs against the xla run {err:.2e} (max |log-prob| "
+        f"{scale:.3e}); greedy ids equal")
+    result = {"card": card, "frames": N_FRAMES, "windows": N_WINDOWS, "route": route,
+              "launches": kernel_routes[route], "max_abs_err": err, "max_abs_log_prob": scale}
+    for impl, (recorder, _, wall) in runs.items():
+        walls = [warm_run_ms(recorder) for _ in range(TIMED_RUNS)]
+        result[impl] = {"driver_wall_s": wall, "engine_walls_ms": walls,
+                        "ms_per_window": min(walls) / N_WINDOWS,
+                        "rtfx": N_FRAMES / 100.0 / (min(walls) / 1e3)}
+        log(f"  {impl}: engine walls {walls} ms, {min(walls) / N_WINDOWS:.2f} ms per window, "
+            f"RTFx {result[impl]['rtfx']:.2f}")
+    print(json.dumps({"f32_path": result}))
+    return kernel_routes[route]
+
+
 def profile_engine(recorder, card, path):
     """Where the time of one recording goes: the driver's engine, warm, on
     the same recording and weights, timed TIMED_RUNS times, then once under
@@ -1396,20 +1531,11 @@ def profile_engine(recorder, card, path):
     wall`` against the fastest timed run."""
     from collections import defaultdict
 
-    engine, ((params, spec),) = recorder.engine, recorder.calls
-
-    def run_once():
-        torch.cuda.synchronize()
-        t0 = time.time()
-        engine(params, spec, SEQ, OVERLAP, rng=0)
-        torch.cuda.synchronize()
-        return (time.time() - t0) * 1e3
-
-    walls_ms = [run_once() for _ in range(TIMED_RUNS)]
+    walls_ms = [warm_run_ms(recorder) for _ in range(TIMED_RUNS)]
     wall_ms = min(walls_ms)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run_once()
+        warm_run_ms(recorder)
     by_kernel = defaultdict(float)
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
@@ -1495,6 +1621,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         errs[("attn", dtype)] = check_attention(A, 2, 2048, 6, 128, [2048, 1600], dtype)
         check_attention(A, 3, 1000, 6, 128, [1000, 777, 1000], dtype)
+    check_attention(A, 2, 300, 2, ODD_HEAD_DIM, [300, 177], torch.float32)
     check_attention(A, 2, 2048, 6, 128, None, torch.bfloat16)
     check_attention(A, 2, 37, 6, 128, [37, 20], torch.bfloat16)
     for length in (2048, 1792):  # AWMC's batch-1 windows
@@ -1523,6 +1650,7 @@ def main() -> int:
             log(f"  {name} {k}: {v:.4f} ms")
         for k, (ms, by) in bnd.items():
             log(f"  {name} bound {k}: {ms * 1e3:.2f} us ({by})")
+    library_kernels = sdpa_kernels(A, torch.float32)
     subsample_breakdown(S, card)
 
     attn_per_window = (flagship_config().n_layers, flagship_config().n_layers)
@@ -1533,6 +1661,9 @@ def main() -> int:
         "b", flagship_config(subsampling_impl="pallas"), {"attention": A, "subsample": S},
         {"attention": attn_per_window, "subsample": (1, 1)}, card,
         lambda params: check_subsample_model(params, S))
+    log(f"[5c] the f32 path: evals.run.main, NSTI on the {N_FRAMES}-frame recording, flagship, "
+        f"f32, the f32 attention kernels against xla attention, subsampling_impl='conv', on {card}")
+    f32_path_launches = f32_path(card, A)
 
     log("[8] soft-DTW's own path: kernels.softdtw.benchmark(use_pallas=True)")
     D.reset_counters()
@@ -1623,26 +1754,19 @@ def main() -> int:
     # (phase 14) and the consistency path (phase 15); the f32 routes are the
     # parity routes and run 0 times there, their counts in the f32 runs of
     # phases 6 and 6b go under "parity_launches", of phase 10b under
-    # "awmc_parity_launches", of phase 15c under "consistency_parity_launches"
-    nsti_launches = {"flash_attention": routes["attention"]["tensor_core"],
-                     "flash_attention_f32": routes["attention"]["cuda_core"],
-                     "fused_subsample": pallas_routes["subsample"]["tensor_core"],
-                     "fused_subsample_f32": pallas_routes["subsample"]["cuda_core"],
-                     "softdtw": sdtw_launches}
-    parity = {"flash_attention_f32": parity_launches, "fused_subsample_f32": sub_parity_launches}
-    awmc_launches = {"flash_attention": awmc_routes["attention"]["tensor_core"],
-                     "flash_attention_f32": awmc_routes["attention"]["cuda_core"],
-                     "fused_subsample": awmc_routes["subsample"]["tensor_core"],
-                     "fused_subsample_f32": awmc_routes["subsample"]["cuda_core"],
-                     "softdtw": launches["softdtw"]}
-
+    # "awmc_parity_launches", of phase 15c under "consistency_parity_launches",
+    # the f32 attention's in phase 5c under "f32_path_launches"
     def by_kernel(routes_, counts_):
         return {"flash_attention": routes_["attention"]["tensor_core"],
-                "flash_attention_f32": routes_["attention"]["cuda_core"],
+                "flash_attention_f32": routes_["attention"][A.ROUTES[torch.float32]],
                 "fused_subsample": routes_["subsample"]["tensor_core"],
-                "fused_subsample_f32": routes_["subsample"]["cuda_core"],
+                "fused_subsample_f32": routes_["subsample"][S.ROUTES[torch.float32]],
                 "softdtw": counts_["softdtw"]}
 
+    nsti_launches = by_kernel({"attention": routes["attention"],
+                               "subsample": pallas_routes["subsample"]}, {"softdtw": sdtw_launches})
+    parity = {"flash_attention_f32": parity_launches, "fused_subsample_f32": sub_parity_launches}
+    awmc_launches = by_kernel(awmc_routes, launches)
     lm_launches = by_kernel(lm_routes, lm_counts)
     tlm_launches = by_kernel(tlm_routes, tlm_counts)
     consistency_launches = by_kernel(cons_routes, cons_counts)
@@ -1672,6 +1796,10 @@ def main() -> int:
                       "awmc_parity_launches": awmc_parity[name][i],
                       "consistency_parity_launches": consistency_parity[name][i]}
                      if name in parity else {})
+            if name == "flash_attention_f32":
+                extra.update(f32_path_launches=f32_path_launches[i],
+                             bound_cuda_core_ms=bnd[f"{kind}_cuda_core"][0],
+                             library_kernels=library_kernels[kind])
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",

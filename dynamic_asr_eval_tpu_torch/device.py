@@ -6,7 +6,8 @@ machine with no GPU raises, it does not run on the CPU instead.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -27,3 +28,16 @@ def set_parity_precision() -> None:
     checks against an f32 reference need."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """cuDNN's deterministic algorithms, without autotuning, inside the
+    block: for parity comparisons, whose plain side must repeat from run to
+    run.  Timed runs keep cuDNN's own choice."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved

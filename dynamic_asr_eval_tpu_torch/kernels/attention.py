@@ -15,8 +15,11 @@ kernels (``_flash_attention_impl`` forward, ``_flash_attention_bwd_dkv`` and
     on the tensor cores (``mma.sync`` m16n8k16, bf16 in, f32 sums).  The
     main path: the flagship runs in bf16.  D must be a multiple of 8 and at
     most 128 (16-byte rows for the asynchronous copies), else ``ValueError``.
-  - f32 → ``"cuda_core"``: ``csrc/flash_attention.cu``, CUDA-core FMAs in
-    f32, the parity route (TF32 tensor cores could not meet its 1e-4 bar).
+  - f32 → ``"tf32x3"``: ``csrc/flash_attention.cu``, every product on the
+    tensor cores as three TF32 products of split operands (``mma.sync``
+    m16n8k8, f32 sums): f32 accuracy, the parity route.  Any D up to 128: a
+    head dim that is not a multiple of 4 is zero-padded in a copy (the
+    kernel's rows are whole 16-byte chunks) and the outputs are sliced.
   Both are built with ``nvcc`` for ``sm_90a`` at first use and bound with
   ``ctypes``.
 - :func:`attention_reference` / :func:`attention_reference_bwd` are the plain
@@ -42,12 +45,13 @@ import math
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from dynamic_asr_eval_tpu_torch.kernels._build import CudaLibrary
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 MAX_HEAD_DIM = 128
-ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
 
 # launch counters: +1 per forward kernel launch and per backward launch
 # (one backward launch runs the Delta, dK/dV and dQ kernels)
@@ -129,7 +133,7 @@ def _bind(lib) -> None:
 
 
 LIBRARIES = {
-    "cuda_core": CudaLibrary(CSRC / "flash_attention.cu", _bind),
+    "tf32x3": CudaLibrary(CSRC / "flash_attention.cu", _bind),
     "tensor_core": CudaLibrary(CSRC / "flash_attention_bf16.cu", _bind),
 }
 
@@ -157,27 +161,40 @@ def _validate(q, k, v, mask):
 
 
 def _aligned(x):
-    """x itself if its rows start on 16 bytes, as the tensor-core kernels'
-    asynchronous copies need; else a contiguous copy (D % 8 == 0 makes its
-    strides multiples of 8 elements)."""
-    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+    """x itself if its rows start on 16 bytes, as the kernels' asynchronous
+    copies need; else a contiguous copy (a head dim of whole 16-byte chunks
+    makes its strides multiples of 16 bytes)."""
+    step = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and all(s % step == 0 for s in x.stride()[:3]):
         return x
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, k, v, seg, which, *tensors):
+def _kernel_head_dim(x) -> int:
+    """The head dim the kernels see: x's, rounded up to whole 16-byte chunks
+    (only the f32 route takes a head dim that needs it)."""
+    step = 16 // x.element_size()
+    return -(-x.shape[-1] // step) * step
+
+
+def _padded(xs, Dk):
+    """Each x [B, T, H, D] with its head dim zero-padded to Dk (a copy), or
+    as it is when D == Dk."""
+    return [x if x.shape[-1] == Dk else F.pad(x, (0, Dk - x.shape[-1])) for x in xs]
+
+
+def _launch(q, k, v, seg, which, scale, *tensors):
     """Call ``dae_flash_attention_<which>`` of q's route; returns the route."""
     route = ROUTES[q.dtype]
     library = LIBRARIES[route]
-    if route == "tensor_core":
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, T, H, D = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = getattr(library.load(), f"dae_flash_attention_{which}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         seg.data_ptr(), *(t.data_ptr() for t in tensors),
-        B, H, T, D, 1.0 / math.sqrt(D), stream)
+        B, H, T, D, scale, stream)
     library.check(code, f"flash attention {which} ({route})")
     return route
 
@@ -185,27 +202,28 @@ def _launch(q, k, v, seg, which, *tensors):
 def _kernel_fwd(q, k, v, seg):
     global fwd_launches
     B, T, H, D = q.shape
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    Dk = _kernel_head_dim(q)
+    q, k, v = _padded((q, k, v), Dk)
+    out = torch.empty((B, T, H, Dk), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    route = _launch(q, k, v, seg, "fwd", out, lse)
+    route = _launch(q, k, v, seg, "fwd", 1.0 / math.sqrt(D), out, lse)
     fwd_launches += 1
     route_launches[route][0] += 1
-    return out, lse
+    return (out if Dk == D else out[..., :D].contiguous()), lse
 
 
 def _kernel_bwd(q, k, v, seg, out, lse, dout):
     global bwd_launches
     B, T, H, D = q.shape
+    Dk = _kernel_head_dim(q)
+    q, k, v, out, dout = _padded((q, k, v, out, dout), Dk)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    dk = torch.empty_like(dq)
-    dv = torch.empty_like(dq)
-    if ROUTES[q.dtype] == "tensor_core":
-        dout = _aligned(dout)
-    route = _launch(q, k, v, seg, "bwd", out, dout, lse, delta, dq, dk, dv)
+    grads = [torch.empty((B, T, H, Dk), dtype=q.dtype, device=q.device) for _ in range(3)]
+    route = _launch(q, k, v, seg, "bwd", 1.0 / math.sqrt(D), out, _aligned(dout), lse, delta,
+                    *grads)
     bwd_launches += 1
     route_launches[route][1] += 1
-    return dq, dk, dv
+    return tuple(g if Dk == D else g[..., :D].contiguous() for g in grads)
 
 
 def flash_attention_fwd(q, k, v, mask):

@@ -147,7 +147,7 @@ def test_cpu_path_launches_no_kernel(case):
     _port(case)
     _port(case, torch.bfloat16)
     assert (A.fwd_launches, A.bwd_launches) == (0, 0)
-    assert A.route_launches == {"tensor_core": [0, 0], "cuda_core": [0, 0]}
+    assert A.route_launches == {"tensor_core": [0, 0], "tf32x3": [0, 0]}
 
 
 def test_tensor_core_operands_are_copied_only_when_misaligned():

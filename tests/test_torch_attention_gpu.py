@@ -5,7 +5,8 @@ imports no JAX, so on a machine with a card and no JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_attention_gpu.py
 
 bf16 runs the tensor-core kernels (``csrc/flash_attention_bf16.cu``), f32 the
-CUDA-core kernels (``csrc/flash_attention.cu``).  Tolerances: |kernel -
+3xTF32 tensor-core kernels (``csrc/flash_attention.cu``, any head dim up to
+128: one that is not a multiple of 4 is zero-padded by the wrapper).  Tolerances: |kernel -
 plain| <= 1e-4 (f32) or 2e-2 (bf16) of max |plain|, the plain version
 computed in f32 from the same inputs with TF32 off; bf16 also against the
 plain version on the bf16 tensors, which rounds where the kernels round
@@ -71,6 +72,14 @@ def test_kernel_matches_plain_version(cuda, dtype, D, T, lengths):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [30, 3, 100])
+def test_f32_kernel_takes_any_head_dim(cuda, D):
+    """Head dims that are not a multiple of 4 (padded to whole 16-byte rows in
+    a copy) or fill a 128-wide tile only in part."""
+    _check(*_inputs(cuda, 300, 2, D, [300, 177], torch.float32))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("length", [2048, 1792])
 def test_batch_one_flagship_shapes(cuda, length):
     """AWMC's shapes: one window at a time, q/k/v [1, 2048, 6, 128] bf16,
@@ -79,8 +88,9 @@ def test_batch_one_flagship_shapes(cuda, length):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["random", "empty_row", "window"])
-def test_tensor_core_kernels_with_masks_that_defeat_tile_skipping(cuda, kind):
+def test_tensor_core_kernels_with_masks_that_defeat_tile_skipping(cuda, kind, dtype):
     """A random 0/1 mask puts both segment ids in almost every tile (nothing
     may be skipped); a batch row with no valid frame is one padding segment;
     valid frames [64, 100) give a mixed tile between tiles of padding, whose
@@ -94,12 +104,13 @@ def test_tensor_core_kernels_with_masks_that_defeat_tile_skipping(cuda, kind):
         mask = _prefix(cuda, T, [T, 0])
     else:
         mask = ((t >= 64) & (t < 100)).expand(2, T)
-    _check(*_inputs(cuda, T, 2, 64, None, torch.bfloat16, mask=mask))
+    _check(*_inputs(cuda, T, 2, 64, None, dtype, mask=mask))
 
 
 @pytest.mark.gpu
-def test_tensor_core_backward_repeats_bit_for_bit(cuda):
-    q, k, v, mask, dout = _inputs(cuda, 2048, 6, 128, [2048, 1600], torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_backward_repeats_bit_for_bit(cuda, dtype):
+    q, k, v, mask, dout = _inputs(cuda, 2048, 6, 128, [2048, 1600], dtype)
     out, lse = A.flash_attention_fwd(q, k, v, mask)
     first = A.flash_attention_bwd(q, k, v, mask, out, lse, dout)
     second = A.flash_attention_bwd(q, k, v, mask, out, lse, dout)
@@ -120,13 +131,13 @@ def test_autograd_function_launches_the_kernels_once_each(cuda):
 
 @pytest.mark.gpu
 def test_each_dtype_takes_its_route(cuda):
-    for dtype, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "cuda_core")):
+    for dtype, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "tf32x3")):
         q, k, v, mask, dout = _inputs(cuda, 130, 2, 64, [130, 65], dtype)
         q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
         A.reset_counters()
         torch.autograd.grad(A.flash_attention(q, k, v, mask), (q, k, v), dout)
         torch.cuda.synchronize()
-        other = "cuda_core" if route == "tensor_core" else "tensor_core"
+        other = "tf32x3" if route == "tensor_core" else "tensor_core"
         assert A.route_launches == {route: [1, 1], other: [0, 0]}
 
 
@@ -143,4 +154,4 @@ def test_bf16_head_dim_not_a_multiple_of_8_raises(cuda):
     A.reset_counters()
     with pytest.raises(ValueError):
         A.flash_attention(q, q, q, torch.ones(1, 8, dtype=torch.bool, device=cuda))
-    assert A.route_launches == {"tensor_core": [0, 0], "cuda_core": [0, 0]}
+    assert A.route_launches == {"tensor_core": [0, 0], "tf32x3": [0, 0]}

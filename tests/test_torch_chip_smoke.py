@@ -121,7 +121,8 @@ def test_check_awmc_run_holds_the_per_window_counts(monkeypatch):
     cfg, n = chip_smoke.flagship_config(), chip_smoke.N_WINDOWS
     good = _awmc_counts(cfg.n_layers, n)
     assert good["attention"] == (24 * n, 6 * n)
-    routes = {k: {"tensor_core": v, "cuda_core": (0, 0)} for k, v in good.items()}
+    routes = {"attention": {"tensor_core": good["attention"], "tf32x3": (0, 0)},
+              "subsample": {"tensor_core": good["subsample"], "cuda_core": (0, 0)}}
     assert chip_smoke.check_awmc_run(cfg, good, routes, 1.0, {}, None) == "output checked"
     nsti_like = dict(good, attention=(6 * n, 6 * n))
     with pytest.raises(AssertionError, match="expected"):
@@ -129,6 +130,9 @@ def test_check_awmc_run_holds_the_per_window_counts(monkeypatch):
     f32_launch = dict(routes, subsample={"tensor_core": (4 * n - 1, n), "cuda_core": (1, 0)})
     with pytest.raises(AssertionError, match="route"):
         chip_smoke.check_awmc_run(cfg, good, f32_launch, 1.0, {}, None)
+    f32_attention = dict(routes, attention={"tensor_core": (24 * n, 6 * n - 1), "tf32x3": (0, 1)})
+    with pytest.raises(AssertionError, match="route"):
+        chip_smoke.check_awmc_run(cfg, good, f32_attention, 1.0, {}, None)
 
 
 def test_check_checkpoints_round_trips_at_a_small_width(monkeypatch, tmp_path):
@@ -226,10 +230,10 @@ def test_check_launches_exact_holds_forwards_too():
 def test_check_routes_refuses_an_f32_launch():
     launches = {"attention": (6, 6)}
     chip_smoke.check_routes("case", launches,
-                            {"attention": {"tensor_core": (6, 6), "cuda_core": (0, 0)}})
+                            {"attention": {"tensor_core": (6, 6), "tf32x3": (0, 0)}})
     with pytest.raises(AssertionError, match="not all on the bf16"):
         chip_smoke.check_routes("case", launches,
-                                {"attention": {"tensor_core": (5, 6), "cuda_core": (1, 0)}})
+                                {"attention": {"tensor_core": (5, 6), "tf32x3": (1, 0)}})
 
 
 def test_weight_change_of_the_consistency_engine_is_its_least_moved_chunk():
@@ -258,7 +262,8 @@ def test_check_consistency_run_holds_the_per_chunk_counts(monkeypatch, epochs):
     cfg, n = chip_smoke.flagship_config(), chip_smoke.N_WINDOWS
     e = max(epochs, 1)
     good = {"attention": ((e + 1) * 6 * n, e * 6 * n), "subsample": ((e + 1) * n, e * n)}
-    routes = {k: {"tensor_core": v, "cuda_core": (0, 0)} for k, v in good.items()}
+    routes = {"attention": {"tensor_core": good["attention"], "tf32x3": (0, 0)},
+              "subsample": {"tensor_core": good["subsample"], "cuda_core": (0, 0)}}
     rec = _Recorder(epochs, n)
     assert chip_smoke.check_consistency_run(cfg, good, routes, 1.0, {}, rec) == "output checked"
     online_like = dict(good, attention=(e * 6 * n, e * 6 * n))
@@ -281,3 +286,64 @@ def test_write_transformer_lm_round_trips_both_files(tmp_path):
                                str(tmp_path), 50)), device="cpu").model.parameters())
     with open(dlm, "rb") as f:
         assert f.read(4) == b"DLM1"
+
+
+class _F32Run:
+    """What ``main_path`` returns for one of phase 5c's driver runs."""
+
+    def __init__(self, logits, routes):
+        import numpy as np
+
+        out = type("Out", (), {"numpy_logits": lambda self: logits,
+                               "greedy_ids": lambda self: np.argmax(logits, -1)})()
+        self.result = (1.0, 2.0, {"attention": routes[A.ROUTES[torch.float32]]},
+                       {"attention": routes}, {}, type("R", (), {"outputs": [out]})())
+
+
+def _f32_path(monkeypatch, capsys, kernel_routes, shift=0.0):
+    """Phase 5c's checks on stand-in driver runs: the kernel run with
+    ``kernel_routes``, the xla run with no launch, log-probs ``shift``
+    apart; returns the ``{"f32_path": ...}`` line."""
+    import json
+
+    import numpy as np
+
+    logits = -np.abs(np.random.default_rng(0).standard_normal((50, 7))) * 10
+    runs = iter([_F32Run(logits, kernel_routes),
+                 _F32Run(logits + shift, {r: (0, 0) for r in A.ROUTES.values()})])
+    monkeypatch.setattr(chip_smoke, "main_path", lambda cfg, modules: next(runs).result)
+    monkeypatch.setattr(chip_smoke, "check_driver_output", lambda *args: None)
+    monkeypatch.setattr(chip_smoke, "warm_run_ms", lambda recorder: 90.0)
+    launches = chip_smoke.f32_path("card", A)
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines() if "f32_path" in x]
+    return launches, line["f32_path"]
+
+
+def test_f32_path_holds_exact_launches_on_the_f32_route(monkeypatch, capsys):
+    """Phase 5c: 6 forward and 6 backward attention launches per window, all
+    on the f32 route; its line carries both runs' ms per window and RTFx."""
+    n = chip_smoke.N_WINDOWS
+    good = {"tensor_core": (0, 0), "tf32x3": (6 * n, 6 * n)}
+    launches, line = _f32_path(monkeypatch, capsys, good)
+    assert launches == (6 * n, 6 * n) and line["launches"] == [6 * n, 6 * n]
+    assert line["route"] == "tf32x3" and line["max_abs_err"] == 0.0
+    for impl in ("pallas_flash", "xla"):
+        assert line[impl]["ms_per_window"] == 90.0 / n
+        assert line[impl]["rtfx"] == chip_smoke.N_FRAMES / 100.0 / 0.09
+
+
+@pytest.mark.parametrize("routes", [{"tensor_core": (1, 0), "tf32x3": (54, 54)},
+                                    {"tensor_core": (0, 0), "tf32x3": (55, 54)},
+                                    {"tensor_core": (0, 0), "tf32x3": (54, 53)}])
+def test_f32_path_refuses_other_launch_counts(monkeypatch, capsys, routes):
+    with pytest.raises(AssertionError, match="f32 path: attention launches"):
+        _f32_path(monkeypatch, capsys, routes)
+
+
+def test_f32_path_refuses_log_probs_past_its_bar(monkeypatch, capsys):
+    """Stitched log-probs more than 1e-3 of max |log-prob| from the xla run
+    fail the phase (the stand-in's max |log-prob| is ~40)."""
+    good = {"tensor_core": (0, 0), "tf32x3": (54, 54)}
+    _f32_path(monkeypatch, capsys, good, shift=0.02)
+    with pytest.raises(AssertionError, match="kernel vs xla attention"):
+        _f32_path(monkeypatch, capsys, good, shift=0.08)
