@@ -7,8 +7,8 @@ Phases (each raises on failure; the script then exits non-zero):
 1. the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from the checkout (five sources, one
    nvcc each, all started together, sm_90a) and print each kernel's
-   registers and spills (the f32 attention's ``tf32x3_attention_*`` among
-   them);
+   registers and spills (the f32 attention's ``tf32x3_attention_*`` and
+   the f32 subsampling's ``tc_pw_kernel`` / ``tc_wgrad_kernel`` among them);
 3. each kernel against its plain PyTorch version on the same inputs, TF32
    off, the plain version computed in f32.  Tolerance: |kernel - plain| <=
    1e-4 (f32) or 2e-2 (bf16) of max |plain|:
@@ -25,8 +25,9 @@ Phases (each raises on failure; the script then exits non-zero):
      most 5 % of elements differing in dq, dk, dv, and in out at T 37);
    - fused subsampling, forward and backward (gx and all 10 weight
      gradients), at the flagship window [2, 16384, 80] with C 256 and ragged
-     [3, 1001, 80], bf16 (the tensor-core kernels) and f32 (the CUDA-core
-     kernels); the backward runs twice and must repeat bit for bit (no
+     [3, 1001, 80], bf16 (the tensor-core kernels) and f32 (the ``"tf32x3"``
+     route: each pointwise product as three TF32 products on the tensor
+     cores); the backward runs twice and must repeat bit for bit (no
      atomics), and each dtype must take its route; the bf16 kernels are also
      held against the plain version on the bf16 tensors
      (``check_subsample_rounding``: every output within 2 bf16 ulps of its
@@ -42,16 +43,17 @@ Phases (each raises on failure; the script then exits non-zero):
    flagship or benchmark shape, and the least time the card could take
    (bound).  Attention and subsampling are timed on both routes: bf16
    (tensor cores, the main path) and f32 (the parity route: 3xTF32 on the
-   tensor cores for attention, bounded by three TF32 products at 495
-   TFLOP/s and, as ``bound_cuda_core_ms``, by the same work at 67 TFLOP/s on
-   the CUDA cores; CUDA cores for the subsampling).
+   tensor cores, bounded by three TF32 products at 495 TFLOP/s, for the
+   subsampling its pointwise products only and the rest at 67 TFLOP/s, and,
+   as ``bound_cuda_core_ms``, by the same work all at 67 TFLOP/s on the CUDA
+   cores).
    Library: SDPA with a boolean mask in the same dtype for attention (the
    kernels SDPA runs in f32 named from a profile); for
    the fused subsampling, the cuDNN stack the ``"conv"`` path runs (four
    ``F.conv2d`` calls with their activations, forward, and backward through
    autograd) in the same dtype; none for soft-DTW.  The port never calls a
-   library yardstick.  Then one bf16 subsampling forward and one backward
-   under torch.profiler, broken down by kernel (a
+   library yardstick.  Then one subsampling forward and one backward of
+   each route (bf16 and f32) under torch.profiler, broken down by kernel (a
    ``{"subsample_breakdown": ...}`` line);
 5. the main path: the port's NSTI driver (``evals/run.py`` ``main``) on one
    30720-frame ``synthetic_spec`` recording (9 windows of seq 16384 /
@@ -83,12 +85,16 @@ Phases (each raises on failure; the script then exits non-zero):
 5c. the f32 path: ``evals/run.py`` ``main`` on phase 5's recording at the
    flagship widths in f32 with ``attention_impl="pallas_flash"`` and
    ``"conv"`` subsampling (so the f32 attention kernels, route
-   ``"tf32x3"``, are the only kernels on the path), and again with
-   ``"xla"`` attention, cuDNN deterministic in both: launches exactly 6 / 6
-   per window, all on that route (``f32_path_launches`` in the kernels
-   line); stitched log-probs within 1e-3 of max |log-prob|, equal greedy
-   ids; each engine's warm walls (cuDNN's own algorithms), ms per window and
-   RTFx (a ``{"f32_path": ...}`` line);
+   ``"tf32x3"``, are the only kernels on the path), again with ``"xla"``
+   attention, and a third time with ``"pallas_flash"`` and ``"pallas"``
+   subsampling (the f32 subsampling kernels, route ``"tf32x3"``, too),
+   cuDNN deterministic in all three: attention launches exactly 6 / 6 per
+   window and subsampling launches exactly 1 / 1 per window, all on that
+   route (``f32_path_launches`` in the kernels line); stitched log-probs of
+   the other runs within 1e-3 of max |log-prob| of the first, equal greedy
+   ids (the windows are multiples of 8, where the two subsampling semantics
+   agree); each engine's warm walls (cuDNN's own algorithms), ms per window
+   and RTFx (a ``{"f32_path": ...}`` line);
 8. soft-DTW's own path: ``benchmark(use_pallas=True)`` on the card, value
    and gradient of ``SoftDTW`` through both kernels, its launch counters
    zeroed just before and read just after;
@@ -107,7 +113,7 @@ Phases (each raises on failure; the script then exits non-zero):
    student's weights moved, its WER a number.  10b (parity): the full-depth
    f32 AWMC engine on a 2-window recording (3000 frames at seq 2048 /
    overlap 1024: 2048 and 1976 frames, multiples of 8) through the f32
-   kernels (attention ``"tf32x3"``, subsampling ``"cuda_core"``), against
+   kernels (attention and subsampling ``"tf32x3"``), against
    the same engine with ``"xla"`` attention and ``"conv"`` subsampling,
    cuDNN deterministic on both sides: stitched log-probs within 1e-3 of max
    |log-prob|, equal greedy ids; its f32-route launches are
@@ -155,7 +161,7 @@ Phases (each raises on failure; the script then exits non-zero):
    WER, peak device memory printed.  15b: its profile (a ``{"profile":
    ...}`` line with ``"path": "consistency"``).  15c (parity): a 2-layer f32
    consistency engine at flagship widths, offline, 2 epochs, on phase 10b's
-   2-window recording, through the f32 kernels (attention ``"tf32x3"``)
+   2-window recording, through the f32 kernels (both ``"tf32x3"``)
    against the plain path, cuDNN deterministic on both sides (stitched
    log-probs within 1e-3 of max |log-prob|, equal greedy ids); its f32-route
    launches are ``consistency_parity_launches``.
@@ -164,7 +170,8 @@ Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
 ``lm_launches`` on the ``-lm`` path, ``tlm_launches`` on the transformer-LM
 path and ``consistency_launches`` on the consistency path, each read from
-its own run; ``f32_path_launches`` for the f32 attention), and last
+its own run; ``f32_path_launches`` for the f32 attention and subsampling,
+from phase 5c), and last
 ``{"ok": true, "device": {...}}``.  TF32 stays off throughout for PyTorch's
 matmuls and convolutions; cuDNN's deterministic algorithms are on only
 inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c), so the timed
@@ -410,28 +417,12 @@ def time_attention(A, B, T, H, D, lengths, dtype):
     return t, bounds
 
 
-def profile_kernels(fn):
-    """[[kernel name, launches, device ms], ...] of one call of ``fn`` under
-    torch.profiler, slowest first, or "not measured"."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append([kernel_name(evt.key), evt.count, dev_us / 1e3])
-    return sorted(rows, key=lambda r: -r[2]) or "not measured"
-
-
 def sdpa_kernels(A, dtype):
     """The kernels SDPA (phase 4's yardstick) runs at the flagship shape in
     ``dtype``, forward and backward, from the profile."""
     import torch.nn.functional as F
+
+    from dynamic_asr_eval_tpu_torch.perf import profile_kernels
 
     q, k, v, mask, dout = attention_inputs(2, 2048, 6, 128, [2048, 1600], dtype, seed=1)
     same = A._same_segment(mask)
@@ -542,10 +533,10 @@ def conv_stack(x, w):
 
 
 def subsample_work(B, T, F, C, dtype):
-    """(flops, bytes) of the forward and of the backward on the main path
-    (no gx): stage 0, both depthwise convs and both pointwise products; the
-    backward recomputes the forward and adds the input and weight gradients
-    of each."""
+    """(flops, bytes, pointwise-product flops) of the forward and of the
+    backward on the main path (no gx): stage 0, both depthwise convs and both
+    pointwise products; the backward recomputes the forward and adds the
+    input and weight gradients of each."""
     from dynamic_asr_eval_tpu_torch.kernels.subsample import ceil_chain
 
     T0, T1, T2 = ceil_chain(T)
@@ -555,8 +546,17 @@ def subsample_work(B, T, F, C, dtype):
     weights = (32 * C + 2 * C * C) * 4
     x_bytes, out_bytes = B * T * F * esize, M2 * C * esize
     fwd = stage0 + dw + pw
-    return {"fwd": (fwd, x_bytes + out_bytes + weights),
-            "bwd": (fwd + 2 * pw + 2 * dw + stage0, x_bytes + out_bytes + 2 * weights)}
+    return {"fwd": (fwd, x_bytes + out_bytes + weights, pw),
+            "bwd": (fwd + 2 * pw + 2 * dw + stage0, x_bytes + out_bytes + 2 * weights, 3 * pw)}
+
+
+def tf32x3_bound(flops, products, nbytes):
+    """(least ms, "operations" or "bytes") of work whose ``products`` flops
+    run as three TF32 products on the tensor cores and the rest on the CUDA
+    cores in f32."""
+    t_ops = (3 * products / TF32_FLOPS + (flops - products) / F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def time_subsample(S, dtype=torch.bfloat16):
@@ -573,30 +573,35 @@ def time_subsample(S, dtype=torch.bfloat16):
         "bwd_library": cuda_ms(lambda: torch.autograd.grad(lib_out, lw, g_nchw, retain_graph=True)),
         "fwd_bwd_library": cuda_ms(lambda: torch.autograd.grad(conv_stack(x, lw), lw, g_nchw)),
     }
-    bounds = {k: bound(f, b, PEAK_FLOPS[dtype])
-              for k, (f, b) in subsample_work(*SUB_FLAGSHIP, dtype).items()}
+    work = subsample_work(*SUB_FLAGSHIP, dtype)
+    if dtype == torch.float32:
+        # the f32 kernels take each pointwise product as three TF32 products
+        # on the tensor cores; the same work all on the CUDA cores is bounded too
+        bounds = {k: tf32x3_bound(f, p, b) for k, (f, b, p) in work.items()}
+        bounds.update({f"{k}_cuda_core": bound(f, b, F32_FLOPS) for k, (f, b, _) in work.items()})
+    else:
+        bounds = {k: bound(f, b, PEAK_FLOPS[dtype]) for k, (f, b, _) in work.items()}
     return t, bounds
 
 
-def kernel_name(key: str) -> str:
-    """A profiler key without ``void``, the namespace and the parameters."""
-    name = key.replace("void ", "").replace("(anonymous namespace)::", "")
-    return name.split("(")[0]
-
-
 def subsample_breakdown(S, card):
-    """One forward and one backward call of the bf16 route at the flagship
-    window (no gx, as on the main path) under torch.profiler: device ms and
-    launches of each kernel inside them (a ``{"subsample_breakdown": ...}``
-    line)."""
-    x, ws, gout = subsample_inputs(S, *SUB_FLAGSHIP, torch.bfloat16, seed=1)
-    result = {"card": card, "shape": SUB_FLAGSHIP,
-              "fwd": profile_kernels(lambda: S.fused_subsample_fwd(x, ws)),
-              "bwd": profile_kernels(lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=False))}
-    for kind in ("fwd", "bwd"):
-        log(f"  fused subsampling bf16 {kind} by kernel: " + (
-            ", ".join(f"{n} x{c} {ms:.4f} ms" for n, c, ms in result[kind])
-            if isinstance(result[kind], list) else result[kind]))
+    """One forward and one backward call of each route (bf16 and f32) at the
+    flagship window (no gx, as on the main path) under torch.profiler: device
+    ms and launches of each kernel inside them (a ``{"subsample_breakdown":
+    ...}`` line, keyed by route)."""
+    from dynamic_asr_eval_tpu_torch.perf import profile_kernels
+
+    result = {"card": card, "shape": SUB_FLAGSHIP}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, ws, gout = subsample_inputs(S, *SUB_FLAGSHIP, dtype, seed=1)
+        route = S.ROUTES[dtype]
+        result[route] = {
+            "fwd": profile_kernels(lambda: S.fused_subsample_fwd(x, ws)),
+            "bwd": profile_kernels(lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=False))}
+        for kind, rows in result[route].items():
+            log(f"  fused subsampling {dtype} ({route}) {kind} by kernel: " + (
+                ", ".join(f"{n} x{c} {ms:.4f} ms" for n, c, ms in rows)
+                if isinstance(rows, list) else rows))
     print(json.dumps({"subsample_breakdown": result}))
 
 
@@ -1473,54 +1478,89 @@ def warm_run_ms(recorder) -> float:
     return (time.time() - t0) * 1e3
 
 
-def f32_path(card, A):
-    """Phase 5c: the flagship NSTI in f32 through ``evals.run.main``, with
-    ``attention_impl="pallas_flash"`` (the f32 attention kernels, the only
-    kernel on the path: ``"conv"`` subsampling) and with ``"xla"``
-    attention, cuDNN deterministic in both driver runs.  Exactly n_layers
-    forward and backward launches per window, all on the f32 route; the
-    stitched log-probs of the two runs within 1e-3 of max |log-prob|, equal
-    greedy ids; then each engine's warm walls (cuDNN's own algorithms).
-    Returns the kernel run's f32-route (fwd, bwd) launches."""
+# phase 5c's driver runs: (attention_impl, subsampling_impl), f32
+F32_RUNS = {"pallas_flash": ("pallas_flash", "conv"), "xla": ("xla", "conv"),
+            "pallas_subsampling": ("pallas_flash", "pallas")}
+
+
+def f32_path(card, A, S):
+    """Phase 5c: the flagship NSTI in f32 through ``evals.run.main``, three
+    driver runs, cuDNN deterministic in each: ``"pallas_flash"`` (the f32
+    attention kernels, ``"conv"`` subsampling), ``"xla"`` (plain attention,
+    ``"conv"``) and ``"pallas_subsampling"`` (the f32 attention kernels and
+    the f32 subsampling kernels, ``"pallas"``).  Launches exactly n_layers
+    attention forwards and backwards per window on the f32 route in both
+    kernel runs, exactly 1 / 1 subsampling launches per window on it in the
+    third, none in ``"xla"``; the stitched log-probs of the other two runs
+    within 1e-3 of max |log-prob| of ``"pallas_flash"``'s, equal greedy ids
+    (the windows are multiples of 8, where the fused kernels' unmasked
+    semantics and ``"conv"``'s masks agree); then each engine's warm walls
+    (cuDNN's own algorithms).  Returns the f32-route (fwd, bwd) launches by
+    kernel: the attention's of ``"pallas_flash"``, the subsampling's of
+    ``"pallas_subsampling"``."""
     import numpy as np
 
     from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
 
     runs, route = {}, A.ROUTES[torch.float32]
-    for impl in ("pallas_flash", "xla"):
-        cfg = flagship_config(compute_dtype=torch.float32, attention_impl=impl,
-                              subsampling_impl="conv")
+    for name, (attention, subsampling) in F32_RUNS.items():
+        cfg = flagship_config(compute_dtype=torch.float32, attention_impl=attention,
+                              subsampling_impl=subsampling)
+        modules = {"attention": A} if subsampling == "conv" else {"attention": A, "subsample": S}
         with deterministic_cudnn():
-            wer, wall, launches, routes, detail, recorder = main_path(cfg, {"attention": A})
+            wer, wall, launches, routes, detail, recorder = main_path(cfg, modules)
         check_driver_output(cfg, wer, detail, recorder)
-        runs[impl] = (recorder, routes["attention"], wall)
+        runs[name] = (recorder, routes, wall)
     per_window = (cfg.n_layers * N_WINDOWS, cfg.n_layers * N_WINDOWS)
-    kernel_routes, plain_routes = runs["pallas_flash"][1], runs["xla"][1]
     want = {r: (per_window if r == route else (0, 0)) for r in A.ROUTES.values()}
-    if kernel_routes != want or any(c != (0, 0) for c in plain_routes.values()):
-        raise AssertionError(f"f32 path: attention launches by route {kernel_routes} (expected "
-                             f"{want}), on the xla path {plain_routes}")
-    kern, plain = (runs[impl][0].outputs[0] for impl in ("pallas_flash", "xla"))
-    lp_a, lp_b = kern.numpy_logits(), plain.numpy_logits()
-    err, scale = float(np.abs(lp_a - lp_b).max()), float(np.abs(lp_b).max())
-    same_ids = np.array_equal(kern.greedy_ids(), plain.greedy_ids())
-    if not (lp_a.shape == lp_b.shape and err <= 1e-3 * scale and same_ids):
-        raise AssertionError(f"f32 path, kernel vs xla attention: {err:.3e} (max |log-prob| "
-                             f"{scale:.3e}), greedy ids equal {same_ids}")
-    log(f"  attention launches {kernel_routes} ({route}: {cfg.n_layers} / {cfg.n_layers} per "
-        f"window); stitched log-probs against the xla run {err:.2e} (max |log-prob| "
-        f"{scale:.3e}); greedy ids equal")
+    kernel_routes, plain_routes = runs["pallas_flash"][1], runs["xla"][1]
+    fused_routes = runs["pallas_subsampling"][1]
+    if (kernel_routes["attention"] != want or fused_routes["attention"] != want
+            or any(c != (0, 0) for c in plain_routes["attention"].values())):
+        raise AssertionError(f"f32 path: attention launches by route {kernel_routes['attention']}"
+                             f" and {fused_routes['attention']} (expected {want}), on the xla "
+                             f"path {plain_routes['attention']}")
+    sub_route = S.ROUTES[torch.float32]
+    sub_want = {r: ((N_WINDOWS, N_WINDOWS) if r == sub_route else (0, 0))
+                for r in S.ROUTES.values()}
+    if fused_routes.get("subsample") != sub_want:
+        raise AssertionError(f"f32 path: subsampling launches by route "
+                             f"{fused_routes.get('subsample')} (expected {sub_want})")
+    base = runs["pallas_flash"][0].outputs[0]
+    lp_base = base.numpy_logits()
+    scale = float(np.abs(lp_base).max())
+    errs = {}
+    for name in ("xla", "pallas_subsampling"):
+        other = runs[name][0].outputs[0]
+        lp = other.numpy_logits()
+        same_ids = lp.shape == lp_base.shape and np.array_equal(other.greedy_ids(),
+                                                                 base.greedy_ids())
+        errs[name] = float(np.abs(lp - lp_base).max()) if lp.shape == lp_base.shape else math.inf
+        if not (errs[name] <= 1e-3 * scale and same_ids):
+            raise AssertionError(f"f32 path, {name} vs the kernel attention run: "
+                                 f"{errs[name]:.3e} (max |log-prob| {scale:.3e}), greedy ids "
+                                 f"equal {same_ids}")
+    log(f"  attention launches {kernel_routes['attention']} ({route}: {cfg.n_layers} / "
+        f"{cfg.n_layers} per window), subsampling launches {fused_routes['subsample']} "
+        f"({sub_route}: 1 / 1 per window); stitched log-probs against the pallas_flash run: xla "
+        f"{errs['xla']:.2e}, pallas_subsampling {errs['pallas_subsampling']:.2e} (max "
+        f"|log-prob| {scale:.3e}); greedy ids equal")
     result = {"card": card, "frames": N_FRAMES, "windows": N_WINDOWS, "route": route,
-              "launches": kernel_routes[route], "max_abs_err": err, "max_abs_log_prob": scale}
-    for impl, (recorder, _, wall) in runs.items():
+              "launches": kernel_routes["attention"][route],
+              "subsample_route": sub_route,
+              "subsample_launches": fused_routes["subsample"][sub_route],
+              "max_abs_err": errs["xla"], "pallas_subsampling_max_abs_err":
+                  errs["pallas_subsampling"], "max_abs_log_prob": scale}
+    for name, (recorder, _, wall) in runs.items():
         walls = [warm_run_ms(recorder) for _ in range(TIMED_RUNS)]
-        result[impl] = {"driver_wall_s": wall, "engine_walls_ms": walls,
+        result[name] = {"driver_wall_s": wall, "engine_walls_ms": walls,
                         "ms_per_window": min(walls) / N_WINDOWS,
                         "rtfx": N_FRAMES / 100.0 / (min(walls) / 1e3)}
-        log(f"  {impl}: engine walls {walls} ms, {min(walls) / N_WINDOWS:.2f} ms per window, "
-            f"RTFx {result[impl]['rtfx']:.2f}")
+        log(f"  {name}: engine walls {walls} ms, {min(walls) / N_WINDOWS:.2f} ms per window, "
+            f"RTFx {result[name]['rtfx']:.2f}")
     print(json.dumps({"f32_path": result}))
-    return kernel_routes[route]
+    return {"flash_attention_f32": kernel_routes["attention"][route],
+            "fused_subsample_f32": fused_routes["subsample"][sub_route]}
 
 
 def profile_engine(recorder, card, path):
@@ -1662,8 +1702,9 @@ def main() -> int:
         {"attention": attn_per_window, "subsample": (1, 1)}, card,
         lambda params: check_subsample_model(params, S))
     log(f"[5c] the f32 path: evals.run.main, NSTI on the {N_FRAMES}-frame recording, flagship, "
-        f"f32, the f32 attention kernels against xla attention, subsampling_impl='conv', on {card}")
-    f32_path_launches = f32_path(card, A)
+        f"f32: the f32 attention kernels with subsampling_impl='conv', xla attention with 'conv', "
+        f"and the f32 attention and subsampling kernels ('pallas'), on {card}")
+    f32_path_launches = f32_path(card, A, S)
 
     log("[8] soft-DTW's own path: kernels.softdtw.benchmark(use_pallas=True)")
     D.reset_counters()
@@ -1755,7 +1796,7 @@ def main() -> int:
     # parity routes and run 0 times there, their counts in the f32 runs of
     # phases 6 and 6b go under "parity_launches", of phase 10b under
     # "awmc_parity_launches", of phase 15c under "consistency_parity_launches",
-    # the f32 attention's in phase 5c under "f32_path_launches"
+    # the f32 kernels' in phase 5c under "f32_path_launches"
     def by_kernel(routes_, counts_):
         return {"flash_attention": routes_["attention"]["tensor_core"],
                 "flash_attention_f32": routes_["attention"][A.ROUTES[torch.float32]],
@@ -1796,10 +1837,11 @@ def main() -> int:
                       "awmc_parity_launches": awmc_parity[name][i],
                       "consistency_parity_launches": consistency_parity[name][i]}
                      if name in parity else {})
+            if name in f32_path_launches:
+                extra.update(f32_path_launches=f32_path_launches[name][i],
+                             bound_cuda_core_ms=bnd[f"{kind}_cuda_core"][0])
             if name == "flash_attention_f32":
-                extra.update(f32_path_launches=f32_path_launches[i],
-                             bound_cuda_core_ms=bnd[f"{kind}_cuda_core"][0],
-                             library_kernels=library_kernels[kind])
+                extra.update(library_kernels=library_kernels[kind])
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",

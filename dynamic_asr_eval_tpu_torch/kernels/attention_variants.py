@@ -1,21 +1,33 @@
-"""Time variants of the f32 attention source side by side on one card.
+"""Time variants of an f32 kernel source side by side on one card.
 
     python -m dynamic_asr_eval_tpu_torch.kernels.attention_variants \\
-        [--steps 16 32] [--parent DIR] [--sources NAME=PATH ...]
+        [--module attention|subsample] [--steps 16 32] [--parent DIR] \\
+        [--sources NAME=PATH ...] [--unchecked NAME=PATH ...]
 
-Builds ``csrc/flash_attention.cu`` as it stands and, for each value of
-``--steps``, a copy with its step constant ``BN`` (rows of the other side
-per step) replaced; with ``--parent``, also the same file from another
+Builds the module's f32 source as it stands (``csrc/flash_attention.cu`` for
+``--module attention``, the default; ``csrc/fused_subsample.cu`` for
+``--module subsample``) and, with ``--parent``, the same file from another
 checkout (an earlier design of the f32 route), and any other sources named
-with ``--sources``.  The copies go under
-``build/variants/``, one ``nvcc`` each, all started together.  Each is bound
-with the attention module's ``_bind``, held against the plain version at the
-flagship shape ([2, 2048, 6, 128], lengths [2048, 1600], f32, TF32 off:
-1e-4 of max |plain|), and timed forward and backward with CUDA events after
-warm-up, in turns (every variant, then every variant in reverse order),
-beside SDPA in f32 on the same inputs.  Prints the card line, the ptxas
-report of each build and one JSON line.  A design-time measurement: the
-port never calls it.
+with ``--sources``; for attention also, for each value of ``--steps``, a copy
+with its step constant ``BN`` (rows of the other side per step) replaced.
+The copies go under ``build/variants/``, one ``nvcc`` each, all started
+together.  Each is bound with the module's ``_bind``, held against the plain
+version at the flagship shape (f32, TF32 off, 1e-4 of max |plain|):
+
+- attention: q/k/v [2, 2048, 6, 128], lengths [2048, 1600]; out, dq, dk, dv;
+- subsample: x [2, 16384, 80], C 256; out, gx and the 10 weight gradients
+  (the timed backward takes no gx, as on the drivers' path);
+
+and timed forward and backward with CUDA events after warm-up, in turns
+(every variant, then every variant in reverse order), beside the PyTorch
+yardstick on the same inputs (SDPA in f32; the ``"conv"`` path's cuDNN stack
+in f32).  Sources named with ``--unchecked`` are timed with their errors
+reported but not held to the bar: copies that drop one phase of a kernel
+(the products, a tile build) to find where its time goes.  For the
+subsampling each variant's forward and backward is also
+broken down by kernel under torch.profiler.  Prints the card line, the
+ptxas report of each build and one JSON line.  A design-time measurement:
+the port never calls it.
 """
 
 from __future__ import annotations
@@ -32,20 +44,26 @@ from pathlib import Path
 import torch
 
 from dynamic_asr_eval_tpu_torch.kernels import attention as A
+from dynamic_asr_eval_tpu_torch.kernels import subsample as S
 from dynamic_asr_eval_tpu_torch.kernels._build import BUILD_DIR, CudaLibrary
+from dynamic_asr_eval_tpu_torch.perf import profile_kernels
 
 VARIANT_DIR = BUILD_DIR.parent / "variants"
 SHAPE, LENGTHS = (2, 2048, 6, 128), [2048, 1600]
+SUB_SHAPE = (2, 16384, 80, 256)  # B, T, F, C
+SOURCES = {"attention": "flash_attention.cu", "subsample": "fused_subsample.cu"}
 
 
-def variant_sources(steps, parent, others=()):
-    """{name: source path}: the checkout's source, one copy per step, the
-    parent's source, then ``others`` ("name=path" each)."""
+def variant_sources(module, steps, parent, others=()):
+    """{name: source path}: the checkout's source, one copy per step
+    (attention), the parent's source, then ``others`` ("name=path" each)."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
-    here = A.CSRC / "flash_attention.cu"
+    here = A.CSRC / SOURCES[module]
     text = here.read_text()
     sources = {"current": here}
     for bn in steps:
+        if module != "attention":
+            raise ValueError("--steps replaces the attention source's BN only")
         new, n = re.subn(r"constexpr int BN = \d+;", f"constexpr int BN = {bn};", text)
         if n != 1:
             raise ValueError("the source has no single `constexpr int BN = ...;` line")
@@ -53,23 +71,14 @@ def variant_sources(steps, parent, others=()):
         path.write_text(new)
         sources[f"bn{bn}"] = path
     if parent:
-        path = VARIANT_DIR / "flash_attention_parent.cu"
-        shutil.copyfile(Path(parent) / "dynamic_asr_eval_tpu_torch/kernels/csrc/flash_attention.cu",
+        path = VARIANT_DIR / f"{Path(SOURCES[module]).stem}_parent.cu"
+        shutil.copyfile(Path(parent) / "dynamic_asr_eval_tpu_torch/kernels/csrc" / SOURCES[module],
                         path)
         sources["parent"] = path
     for item in others:
         name, path = item.split("=", 1)
         sources[name] = Path(path)
     return sources
-
-
-def call(lib, which, q, k, v, seg, *tensors):
-    B, T, H, D = q.shape
-    code = getattr(lib.load(), f"dae_flash_attention_{which}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], seg.data_ptr(), *(t.data_ptr() for t in tensors), B, H, T, D,
-        1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-    lib.check(code, f"flash attention {which}")
 
 
 def events_ms(fn, iters=20, warmup=3):
@@ -85,19 +94,155 @@ def events_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def rel_errs(names, got, want):
+    return {n: ((a - b).abs().max() / b.abs().max()).item() for n, a, b in zip(names, got, want)}
+
+
+class AttentionCase:
+    """The f32 flash attention's entry points at the flagship shape."""
+
+    bind = staticmethod(A._bind)
+
+    def __init__(self):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        B, T, H, D = SHAPE
+        qkv = torch.randn(B, T, 3, H, D, generator=g, device="cuda")
+        self.q, self.k, self.v = (x.contiguous() for x in qkv.unbind(2))
+        self.mask = (torch.arange(T, device="cuda")[None]
+                     < torch.tensor(LENGTHS, device="cuda")[:, None])
+        self.seg = self.mask.to(torch.int32).contiguous()
+        self.dout = torch.randn(B, T, H, D, generator=g, device="cuda")
+        ref_out, ref_lse = A.attention_reference(self.q, self.k, self.v, self.mask)
+        self.ref = [ref_out] + list(A.attention_reference_bwd(self.q, self.k, self.v, self.mask,
+                                                              ref_out, ref_lse, self.dout))
+
+    def _call(self, lib, which, *tensors):
+        B, T, H, D = self.q.shape
+        q, k, v = self.q, self.k, self.v
+        code = getattr(lib.load(), f"dae_flash_attention_{which}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], self.seg.data_ptr(), *(t.data_ptr() for t in tensors), B, H, T, D,
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+        lib.check(code, f"flash attention {which}")
+
+    def outputs(self, lib):
+        """(fwd, bwd) callables on this variant's own output buffers, and its
+        errors against the plain version."""
+        B, T, H, _ = SHAPE
+        out, lse = torch.empty_like(self.q), torch.empty(B, H, T, device="cuda")
+        delta, grads = torch.empty(B, H, T, device="cuda"), [torch.empty_like(self.q) for _ in range(3)]
+        fwd = lambda: self._call(lib, "fwd", out, lse)  # noqa: E731
+        bwd = lambda: self._call(lib, "bwd", out, self.dout, lse, delta, *grads)  # noqa: E731
+        fwd()
+        bwd()
+        torch.cuda.synchronize()
+        return fwd, bwd, rel_errs(("out", "dq", "dk", "dv"), [out] + grads, self.ref)
+
+    def library(self):
+        same = A._same_segment(self.mask)
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (self.q, self.k, self.v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out = sdpa(qs, ks, vs, attn_mask=same)
+        return "sdpa_f32_ms", {
+            "fwd": lambda: sdpa(qs, ks, vs, attn_mask=same),
+            "bwd": lambda: torch.autograd.grad(out, (qs, ks, vs), self.dout.transpose(1, 2),
+                                               retain_graph=True)}
+
+
+class SubsampleCase:
+    """The f32 fused subsampling's entry points at the flagship window."""
+
+    bind = staticmethod(S._bind)
+
+    def __init__(self):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        B, T, F, C = SUB_SHAPE
+        self.x = torch.randn(B, T, F, generator=g, device="cuda")
+        shapes = {"k9": (9, C), "dw1": (9, C), "dw2": (9, C), "pw1": (C, C), "pw2": (C, C)}
+        self.ws = []
+        for name in S.WEIGHT_NAMES:
+            scale = (1 / 3 if name in ("k9", "dw1", "dw2")
+                     else (C ** -0.5 if name.startswith("pw") else 0.1))
+            self.ws.append(torch.randn(shapes.get(name, (C,)), generator=g, device="cuda") * scale)
+        self.g = torch.randn(B, S.ceil_chain(T)[2], F // 8, C, generator=g, device="cuda")
+        self.w = S._pack(self.ws)
+        ref_gx, ref_gws = S.fused_subsample_reference_bwd(self.x, self.ws, self.g, "silu", True)
+        self.ref = [S.fused_subsample_reference(self.x, *self.ws), ref_gx] + ref_gws
+
+    def outputs(self, lib):
+        B, T, F, C = SUB_SHAPE
+        so = lib.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty(self.ref[0].shape, device="cuda")  # the plain version's is a permuted view
+        fwork = torch.empty(so.dae_fused_subsample_workspace(0, 0, B, T, F, C), dtype=torch.uint8,
+                            device="cuda")
+        bwork = torch.empty(so.dae_fused_subsample_workspace(0, 1, B, T, F, C), dtype=torch.uint8,
+                            device="cuda")
+        gw, gx = torch.empty_like(self.w), torch.empty_like(self.x)
+
+        def fwd():
+            lib.check(so.dae_fused_subsample_fwd(0, 0, self.x.data_ptr(), B, T, F, C,
+                                                 self.w.data_ptr(), out.data_ptr(),
+                                                 fwork.data_ptr(), stream), "subsampling fwd")
+
+        def bwd(with_gx=False):
+            lib.check(so.dae_fused_subsample_bwd(0, 0, self.x.data_ptr(), self.g.data_ptr(), B, T,
+                                                 F, C, self.w.data_ptr(),
+                                                 gx.data_ptr() if with_gx else None,
+                                                 gw.data_ptr(), bwork.data_ptr(), stream),
+                      "subsampling bwd")
+
+        fwd()
+        bwd(True)
+        torch.cuda.synchronize()
+        grads = [t.view(w.shape) for t, w in zip(torch.split(gw, [w.numel() for w in self.ws]),
+                                                  self.ws)]
+        errs = rel_errs(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + grads, self.ref)
+        return fwd, bwd, errs
+
+    def library(self):
+        """The ``"conv"`` path's cuDNN stack (no masks), f32."""
+        F_ = torch.nn.functional
+        C = SUB_SHAPE[3]
+        k9, b0, dw1, bdw1, pw1, bpw1, dw2, bdw2, pw2, bpw2 = self.ws
+        w = [k9.t().reshape(C, 1, 3, 3), b0]
+        for dw, bdw, pw, bpw in ((dw1, bdw1, pw1, bpw1), (dw2, bdw2, pw2, bpw2)):
+            w += [dw.t().reshape(C, 1, 3, 3), bdw, pw.t()[:, :, None, None], bpw]
+        w = [t.detach().requires_grad_(True) for t in w]
+
+        def stack():
+            h = F_.silu(F_.conv2d(self.x[:, None], w[0], w[1], stride=2, padding=1))
+            for i in (2, 6):
+                h = F_.conv2d(h, w[i], w[i + 1], stride=2, padding=1, groups=C)
+                h = F_.silu(F_.conv2d(h, w[i + 2], w[i + 3]))
+            return h
+
+        out = stack()
+        g = self.g.permute(0, 3, 1, 2).contiguous()
+        return "cudnn_f32_ms", {"fwd": stack,
+                                "bwd": lambda: torch.autograd.grad(out, w, g, retain_graph=True)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--module", choices=sorted(SOURCES), default="attention")
     ap.add_argument("--steps", type=int, nargs="*", default=[])
     ap.add_argument("--parent", default=None, help="another checkout's root")
     ap.add_argument("--sources", nargs="*", default=[], help="more variants, name=path each")
+    ap.add_argument("--unchecked", nargs="*", default=[],
+                    help="variants timed but not held to the plain version, name=path each")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    libs = {name: CudaLibrary(path, A._bind)
-            for name, path in variant_sources(args.steps, args.parent, args.sources).items()}
+    case = {"attention": AttentionCase, "subsample": SubsampleCase}[args.module]()
+    libs = {name: CudaLibrary(path, case.bind) for name, path in
+            variant_sources(args.module, args.steps, args.parent,
+                            args.sources + args.unchecked).items()}
+    unchecked = {item.split("=", 1)[0] for item in args.unchecked}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.load) for lib in libs.values()]:
             fut.result()
@@ -106,50 +251,35 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    B, T, H, D = SHAPE
-    qkv = torch.randn(B, T, 3, H, D, generator=g, device="cuda")
-    q, k, v = (x.contiguous() for x in qkv.unbind(2))
-    mask = torch.arange(T, device="cuda")[None] < torch.tensor(LENGTHS, device="cuda")[:, None]
-    seg = mask.to(torch.int32).contiguous()
-    dout = torch.randn(B, T, H, D, generator=g, device="cuda")
-    ref_out, ref_lse = A.attention_reference(q, k, v, mask)
-    ref_grads = A.attention_reference_bwd(q, k, v, mask, ref_out, ref_lse, dout)
-
-    outs = {}
+    calls = {}
     for name, lib in libs.items():
-        out, lse = torch.empty_like(q), torch.empty(B, H, T, device="cuda")
-        delta, grads = torch.empty(B, H, T, device="cuda"), [torch.empty_like(q) for _ in range(3)]
-        call(lib, "fwd", q, k, v, seg, out, lse)
-        call(lib, "bwd", q, k, v, seg, out, dout, lse, delta, *grads)
-        torch.cuda.synchronize()
-        errs = {n: ((a - b).abs().max() / b.abs().max()).item()
-                for n, a, b in zip(("out", "dq", "dk", "dv"), [out] + grads,
-                                   [ref_out] + list(ref_grads))}
-        if not max(errs.values()) <= 1e-4:
+        fwd, bwd, errs = case.outputs(lib)
+        if name not in unchecked and not max(errs.values()) <= 1e-4:
             raise AssertionError(f"{name}: {errs} of max |plain|")
-        outs[name] = (out, lse, delta, grads, errs)
+        calls[name] = (fwd, bwd, errs)
+        print(f"  {name}: max error {max(errs.values()):.2e} of max |plain|", flush=True)
 
     times = {name: {"fwd": [], "bwd": []} for name in libs}
     order = list(libs)
     for name in order + order[::-1]:
-        lib, (out, lse, delta, grads, _) = libs[name], outs[name]
-        times[name]["fwd"].append(events_ms(lambda: call(lib, "fwd", q, k, v, seg, out, lse)))
-        times[name]["bwd"].append(events_ms(
-            lambda: call(lib, "bwd", q, k, v, seg, out, dout, lse, delta, *grads)))
-    same = A._same_segment(mask)
-    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=same)
-    library = {"fwd": events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                   qs, ks, vs, attn_mask=same)),
-               "bwd": events_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs),
-                                                            dout.transpose(1, 2),
-                                                            retain_graph=True))}
-    result = {"card": card, "shape": SHAPE, "lengths": LENGTHS,
+        fwd, bwd, _ = calls[name]
+        times[name]["fwd"].append(events_ms(fwd))
+        times[name]["bwd"].append(events_ms(bwd))
+    key, library = case.library()
+    result = {"card": card, "module": args.module,
+              "shape": SHAPE if args.module == "attention" else SUB_SHAPE,
               "variants": {name: {"fwd_ms": times[name]["fwd"], "bwd_ms": times[name]["bwd"],
-                                  "max_rel_err": outs[name][4]} for name in libs},
-              "sdpa_f32_ms": library}
-    print(json.dumps({"attention_variants": result}))
+                                  "max_rel_err": calls[name][2], "checked": name not in unchecked}
+                           for name in libs},
+              key: {kind: events_ms(fn) for kind, fn in library.items()}}
+    if args.module == "attention":
+        result["lengths"] = LENGTHS
+    else:
+        for name in libs:
+            fwd, bwd, _ = calls[name]
+            result["variants"][name]["by_kernel"] = {"fwd": profile_kernels(fwd),
+                                                     "bwd": profile_kernels(bwd)}
+    print(json.dumps({f"{args.module}_variants": result}))
 
 
 if __name__ == "__main__":

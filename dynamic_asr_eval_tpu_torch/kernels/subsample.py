@@ -22,8 +22,11 @@ whose valid length is not a multiple of 8.
     pointwise products, forward and backward, on the tensor cores
     (``mma.sync`` m16n8k16, bf16 in, f32 sums).  The main path: the flagship
     runs in bf16.
-  - f32 → ``"cuda_core"``: ``csrc/fused_subsample.cu``, CUDA-core FMAs in
-    f32, the parity route (TF32 tensor cores could not hold its bars).
+  - f32 → ``"tf32x3"``: ``csrc/fused_subsample.cu``, the parity route, the
+    same tiling with every pointwise product on the tensor cores as three
+    TF32 products of operands split into big + small (``mma.sync``
+    m16n8k8, f32 sums), the depthwise and stage-0 parts on the CUDA cores
+    in f32.
   Both export the same C entry points (``dae_fused_subsample_fwd``,
   ``_bwd``, ``_workspace``), are built with ``nvcc`` for ``sm_90a`` at first
   use and bound with ``ctypes``.  Any B, T, F % 8 == 0 and C <= 256.
@@ -49,7 +52,7 @@ from dynamic_asr_eval_tpu_torch.kernels._build import CudaLibrary
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 MAX_CHANNELS = 256  # a block keeps all C output channels of its positions
-ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"silu": 0, "relu": 1, "gelu": 2}
 _ACTS = {"silu": F.silu, "relu": F.relu,
@@ -128,7 +131,7 @@ def _bind(lib) -> None:
 
 
 LIBRARIES = {
-    "cuda_core": CudaLibrary(CSRC / "fused_subsample.cu", _bind),
+    "tf32x3": CudaLibrary(CSRC / "fused_subsample.cu", _bind),
     "tensor_core": CudaLibrary(CSRC / "fused_subsample_bf16.cu", _bind),
 }
 

@@ -9,7 +9,8 @@ each inner layer), for the engines' steps, and for one incremental step of
 the transformer LM.  Backward ≈ 2× forward (each matmul contributes dX and
 dW products).  The bf16 dense peaks are the NVIDIA H100 SXM's (989 TFLOP/s,
 the figure the kernel bounds of ``chip_smoke.py`` use) beside the TPUs' of
-the JAX package.
+the JAX package.  :func:`profile_kernels` reads one call's device time by
+kernel on the card (``chip_smoke.py``, ``kernels/attention_variants.py``).
 """
 
 from __future__ import annotations
@@ -141,3 +142,30 @@ def mfu(total_flops: float, elapsed_s: float, device_kind: str) -> Optional[floa
     if not peak or elapsed_s <= 0:
         return None
     return total_flops / (elapsed_s * peak)
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without ``void``, the namespace and the parameters."""
+    name = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0]
+
+
+def profile_kernels(fn):
+    """[[kernel name, launches, device ms], ...] of one call of ``fn`` (after
+    one warm-up call) under torch.profiler, slowest first, or "not
+    measured"."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append([kernel_name(evt.key), evt.count, dev_us / 1e3])
+    return sorted(rows, key=lambda r: -r[2]) or "not measured"

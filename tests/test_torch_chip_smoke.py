@@ -10,6 +10,7 @@ import torch
 import chip_smoke
 from dynamic_asr_eval_tpu_torch.kernels import attention as A
 from dynamic_asr_eval_tpu_torch.kernels import subsample as S
+from dynamic_asr_eval_tpu_torch.perf import kernel_name
 
 NS = "_ZN56_GLOBAL__N__53e36a9c_23_flash_attention_bf16_cu_ce332a91"
 FWD = NS + "16tc_attention_fwdILi128EEEvPK13__nv_bfloat16S3_S3_NS_7StridesES4_S4_PKiPS1_Pfiiif"
@@ -106,7 +107,7 @@ def test_check_subsample_rounding_holds_the_rounding_points(monkeypatch, plain_r
      "reduce_kernel"),
 ])
 def test_kernel_name_drops_namespace_and_parameters(key, name):
-    assert chip_smoke.kernel_name(key) == name
+    assert kernel_name(key) == name
 
 
 def _awmc_counts(n_layers, n_windows):
@@ -122,12 +123,12 @@ def test_check_awmc_run_holds_the_per_window_counts(monkeypatch):
     good = _awmc_counts(cfg.n_layers, n)
     assert good["attention"] == (24 * n, 6 * n)
     routes = {"attention": {"tensor_core": good["attention"], "tf32x3": (0, 0)},
-              "subsample": {"tensor_core": good["subsample"], "cuda_core": (0, 0)}}
+              "subsample": {"tensor_core": good["subsample"], "tf32x3": (0, 0)}}
     assert chip_smoke.check_awmc_run(cfg, good, routes, 1.0, {}, None) == "output checked"
     nsti_like = dict(good, attention=(6 * n, 6 * n))
     with pytest.raises(AssertionError, match="expected"):
         chip_smoke.check_awmc_run(cfg, nsti_like, routes, 1.0, {}, None)
-    f32_launch = dict(routes, subsample={"tensor_core": (4 * n - 1, n), "cuda_core": (1, 0)})
+    f32_launch = dict(routes, subsample={"tensor_core": (4 * n - 1, n), "tf32x3": (1, 0)})
     with pytest.raises(AssertionError, match="route"):
         chip_smoke.check_awmc_run(cfg, good, f32_launch, 1.0, {}, None)
     f32_attention = dict(routes, attention={"tensor_core": (24 * n, 6 * n - 1), "tf32x3": (0, 1)})
@@ -263,7 +264,7 @@ def test_check_consistency_run_holds_the_per_chunk_counts(monkeypatch, epochs):
     e = max(epochs, 1)
     good = {"attention": ((e + 1) * 6 * n, e * 6 * n), "subsample": ((e + 1) * n, e * n)}
     routes = {"attention": {"tensor_core": good["attention"], "tf32x3": (0, 0)},
-              "subsample": {"tensor_core": good["subsample"], "cuda_core": (0, 0)}}
+              "subsample": {"tensor_core": good["subsample"], "tf32x3": (0, 0)}}
     rec = _Recorder(epochs, n)
     assert chip_smoke.check_consistency_run(cfg, good, routes, 1.0, {}, rec) == "output checked"
     online_like = dict(good, attention=(e * 6 * n, e * 6 * n))
@@ -291,45 +292,56 @@ def test_write_transformer_lm_round_trips_both_files(tmp_path):
 class _F32Run:
     """What ``main_path`` returns for one of phase 5c's driver runs."""
 
-    def __init__(self, logits, routes):
+    def __init__(self, logits, routes, sub_routes=None):
         import numpy as np
 
         out = type("Out", (), {"numpy_logits": lambda self: logits,
                                "greedy_ids": lambda self: np.argmax(logits, -1)})()
-        self.result = (1.0, 2.0, {"attention": routes[A.ROUTES[torch.float32]]},
-                       {"attention": routes}, {}, type("R", (), {"outputs": [out]})())
+        by_route = {"attention": routes}
+        if sub_routes is not None:
+            by_route["subsample"] = sub_routes
+        self.result = (1.0, 2.0, {"attention": routes[A.ROUTES[torch.float32]]}, by_route, {},
+                       type("R", (), {"outputs": [out]})())
 
 
-def _f32_path(monkeypatch, capsys, kernel_routes, shift=0.0):
+def _f32_path(monkeypatch, capsys, kernel_routes, shift=0.0, sub_routes=None, sub_shift=0.0):
     """Phase 5c's checks on stand-in driver runs: the kernel run with
-    ``kernel_routes``, the xla run with no launch, log-probs ``shift``
-    apart; returns the ``{"f32_path": ...}`` line."""
+    ``kernel_routes``, the xla run with no launch, log-probs ``shift`` apart,
+    then the fused-subsampling run with ``kernel_routes`` and ``sub_routes``
+    (default: 1 / 1 a window on the f32 route), log-probs ``sub_shift``
+    apart; returns the launches and the ``{"f32_path": ...}`` line."""
     import json
 
     import numpy as np
 
+    n = chip_smoke.N_WINDOWS
+    if sub_routes is None:
+        sub_routes = {"tensor_core": (0, 0), "tf32x3": (n, n)}
     logits = -np.abs(np.random.default_rng(0).standard_normal((50, 7))) * 10
     runs = iter([_F32Run(logits, kernel_routes),
-                 _F32Run(logits + shift, {r: (0, 0) for r in A.ROUTES.values()})])
+                 _F32Run(logits + shift, {r: (0, 0) for r in A.ROUTES.values()}),
+                 _F32Run(logits + sub_shift, kernel_routes, sub_routes)])
     monkeypatch.setattr(chip_smoke, "main_path", lambda cfg, modules: next(runs).result)
     monkeypatch.setattr(chip_smoke, "check_driver_output", lambda *args: None)
     monkeypatch.setattr(chip_smoke, "warm_run_ms", lambda recorder: 90.0)
-    launches = chip_smoke.f32_path("card", A)
+    launches = chip_smoke.f32_path("card", A, S)
     (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines() if "f32_path" in x]
     return launches, line["f32_path"]
 
 
 def test_f32_path_holds_exact_launches_on_the_f32_route(monkeypatch, capsys):
     """Phase 5c: 6 forward and 6 backward attention launches per window, all
-    on the f32 route; its line carries both runs' ms per window and RTFx."""
+    on the f32 route, and in the third run 1 / 1 subsampling launches per
+    window on it; its line carries every run's ms per window and RTFx."""
     n = chip_smoke.N_WINDOWS
     good = {"tensor_core": (0, 0), "tf32x3": (6 * n, 6 * n)}
     launches, line = _f32_path(monkeypatch, capsys, good)
-    assert launches == (6 * n, 6 * n) and line["launches"] == [6 * n, 6 * n]
-    assert line["route"] == "tf32x3" and line["max_abs_err"] == 0.0
-    for impl in ("pallas_flash", "xla"):
-        assert line[impl]["ms_per_window"] == 90.0 / n
-        assert line[impl]["rtfx"] == chip_smoke.N_FRAMES / 100.0 / 0.09
+    assert launches == {"flash_attention_f32": (6 * n, 6 * n), "fused_subsample_f32": (n, n)}
+    assert line["launches"] == [6 * n, 6 * n] and line["subsample_launches"] == [n, n]
+    assert line["route"] == line["subsample_route"] == "tf32x3" and line["max_abs_err"] == 0.0
+    for name in ("pallas_flash", "xla", "pallas_subsampling"):
+        assert line[name]["ms_per_window"] == 90.0 / n
+        assert line[name]["rtfx"] == chip_smoke.N_FRAMES / 100.0 / 0.09
 
 
 @pytest.mark.parametrize("routes", [{"tensor_core": (1, 0), "tf32x3": (54, 54)},
@@ -340,10 +352,34 @@ def test_f32_path_refuses_other_launch_counts(monkeypatch, capsys, routes):
         _f32_path(monkeypatch, capsys, routes)
 
 
-def test_f32_path_refuses_log_probs_past_its_bar(monkeypatch, capsys):
-    """Stitched log-probs more than 1e-3 of max |log-prob| from the xla run
-    fail the phase (the stand-in's max |log-prob| is ~40)."""
+@pytest.mark.parametrize("sub_routes", [{"tensor_core": (1, 0), "tf32x3": (9, 9)},
+                                        {"tensor_core": (0, 0), "tf32x3": (10, 9)},
+                                        {"tensor_core": (0, 0), "tf32x3": (9, 8)}])
+def test_f32_path_refuses_other_subsampling_launch_counts(monkeypatch, capsys, sub_routes):
     good = {"tensor_core": (0, 0), "tf32x3": (54, 54)}
-    _f32_path(monkeypatch, capsys, good, shift=0.02)
-    with pytest.raises(AssertionError, match="kernel vs xla attention"):
+    with pytest.raises(AssertionError, match="f32 path: subsampling launches"):
+        _f32_path(monkeypatch, capsys, good, sub_routes=sub_routes)
+
+
+def test_f32_path_refuses_log_probs_past_its_bar(monkeypatch, capsys):
+    """Stitched log-probs more than 1e-3 of max |log-prob| from the kernel
+    attention run fail the phase (the stand-in's max |log-prob| is ~40), for
+    the xla run and for the fused-subsampling run."""
+    good = {"tensor_core": (0, 0), "tf32x3": (54, 54)}
+    _f32_path(monkeypatch, capsys, good, shift=0.02, sub_shift=0.02)
+    with pytest.raises(AssertionError, match="xla vs the kernel attention run"):
         _f32_path(monkeypatch, capsys, good, shift=0.08)
+    with pytest.raises(AssertionError, match="pallas_subsampling vs the kernel attention run"):
+        _f32_path(monkeypatch, capsys, good, sub_shift=0.08)
+
+
+def test_subsample_bounds_take_the_products_as_three_tf32_products():
+    """Phase 4's f32 subsampling bound at the flagship window: the pointwise
+    products three times at 495 TFLOP/s, the rest at 67 on the CUDA cores
+    (0.222 / 0.620 ms); the same work all on the CUDA cores 0.460 / 1.334."""
+    work = chip_smoke.subsample_work(*chip_smoke.SUB_FLAGSHIP, torch.float32)
+    got = {k: chip_smoke.tf32x3_bound(f, p, b) for k, (f, b, p) in work.items()}
+    cuda_core = {k: chip_smoke.bound(f, b, chip_smoke.F32_FLOPS) for k, (f, b, _) in work.items()}
+    assert [round(got[k][0], 3) for k in ("fwd", "bwd")] == [0.222, 0.620]
+    assert [round(cuda_core[k][0], 3) for k in ("fwd", "bwd")] == [0.460, 1.334]
+    assert {by for _, by in got.values()} == {"operations"}

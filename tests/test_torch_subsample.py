@@ -92,9 +92,9 @@ def test_cpu_path_launches_no_kernel(dtype):
 
 
 def test_routes_send_each_dtype_to_its_source():
-    assert S.ROUTES == {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+    assert S.ROUTES == {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
     assert {r: lib.source.name for r, lib in S.LIBRARIES.items()} == {
-        "tensor_core": "fused_subsample_bf16.cu", "cuda_core": "fused_subsample.cu"}
+        "tensor_core": "fused_subsample_bf16.cu", "tf32x3": "fused_subsample.cu"}
     assert set(S.route_launches) == set(S.ROUTES.values())
     for lib in S.LIBRARIES.values():
         assert lib.source.exists()
@@ -108,7 +108,7 @@ def test_both_sources_export_the_same_entry_points():
     for route, lib in S.LIBRARIES.items():
         text = lib.source.read_text()
         names[route] = sorted(re.findall(r'extern "C" [\w\s*]+?(dae_fused_subsample_\w+)\(', text))
-    assert names["tensor_core"] == names["cuda_core"] == [
+    assert names["tensor_core"] == names["tf32x3"] == [
         "dae_fused_subsample_bwd", "dae_fused_subsample_fwd", "dae_fused_subsample_workspace"]
 
 

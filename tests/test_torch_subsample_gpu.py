@@ -5,8 +5,11 @@ JAX is imported, so on a machine with a card and no JAX they run as
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_*_gpu.py
 
 Two routes: bf16 through the tensor-core kernels of
-``csrc/fused_subsample_bf16.cu``, f32 through the CUDA-core kernels of
-``csrc/fused_subsample.cu``.  Tolerances: |kernel - plain| <= 1e-4 (f32) or
+``csrc/fused_subsample_bf16.cu``, f32 (route ``"tf32x3"``) through the
+kernels of ``csrc/fused_subsample.cu``, which take every pointwise product as
+three TF32 products of split operands on the tensor cores; the f32 route is
+also run at channel counts the kernels pad (C 100 and 144, past a multiple of
+16) and with ReLU and GELU.  Tolerances: |kernel - plain| <= 1e-4 (f32) or
 2e-2 (bf16) of max |plain|, the plain version computed in f32 from the same
 inputs with TF32 off.  The bf16 kernels are also held against the plain
 version on the bf16 tensors, which rounds where the kernels round: every
@@ -91,6 +94,22 @@ def test_kernels_match_plain_version(cuda, dtype, B, T, F, C):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,T,F,C", [(2, 515, 80, 100), (1, 700, 32, 144), (3, 1001, 80, 144)])
+def test_f32_route_at_padded_channels_matches_plain_version(cuda, B, T, F, C):
+    """C not a multiple of 16: the kernels' [M, CP] intermediates and split
+    weights carry zeros past C."""
+    x, ws, gout = _inputs(cuda, B, T, F, C, torch.float32, seed=C)
+    out = S.fused_subsample_fwd(x, ws, "silu")
+    gx, gws = S.fused_subsample_bwd(x, ws, gout, "silu", True)
+    ref = S.fused_subsample_reference(x, *ws)
+    ref_gx, ref_gws = S.fused_subsample_reference_bwd(x, ws, gout, "silu", True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(NAMES, [out, gx] + gws, [ref, ref_gx] + ref_gws):
+        err, scale = _err(a, b)
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_repeats_bit_for_bit(cuda, dtype):
     x, ws, gout = _inputs(cuda, 2, 515, 80, 256, dtype, seed=1)
@@ -101,9 +120,10 @@ def test_backward_repeats_bit_for_bit(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 100])
 @pytest.mark.parametrize("act", ["relu", "gelu"])
-def test_other_activations_match_plain_version(cuda, act):
-    x, ws, gout = _inputs(cuda, 1, 300, 32, 64, torch.float32, seed=2)
+def test_other_activations_match_plain_version(cuda, act, C):
+    x, ws, gout = _inputs(cuda, 1, 300, 32, C, torch.float32, seed=2)
     out = S.fused_subsample_fwd(x, ws, act)
     gx, gws = S.fused_subsample_bwd(x, ws, gout, act, True)
     ref = S.fused_subsample_reference(x, *ws, act_name=act)
@@ -135,8 +155,21 @@ def test_each_dtype_takes_its_route(cuda, dtype):
     S.fused_subsample_bwd(x, ws, gout, need_gx=False)
     torch.cuda.synchronize()
     route = S.ROUTES[dtype]
-    assert route == {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}[dtype]
+    assert route == {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}[dtype]
     assert S.route_launches == {r: ([1, 1] if r == route else [0, 0]) for r in S.route_launches}
+
+
+@pytest.mark.gpu
+def test_f32_route_counts_each_launch(cuda):
+    x, ws, gout = _inputs(cuda, 1, 200, 80, 64, torch.float32)
+    S.reset_counters()
+    for _ in range(2):
+        S.fused_subsample_fwd(x, ws)
+    for need_gx in (True, False, False):
+        S.fused_subsample_bwd(x, ws, gout, need_gx=need_gx)
+    torch.cuda.synchronize()
+    assert S.route_launches == {"tensor_core": [0, 0], "tf32x3": [2, 3]}
+    assert (S.fwd_launches, S.bwd_launches) == (2, 3)
 
 
 @pytest.mark.gpu
