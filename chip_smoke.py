@@ -35,6 +35,10 @@ Phases (each raises on failure; the script then exits non-zero):
    - both bf16 kernels at AWMC's batch-1 shapes, with the same checks:
      attention [1, 2048, 6, 128] with length 2048 and 1792 (the ragged last
      window), subsampling [1, 16384, 80];
+   - both bf16 kernels at the protocol drivers' evaluation-engine batch of
+     4 windows (phases 16-16c), with the same checks: attention [4, 2048,
+     6, 128] with lengths [2048, 2048, 2048, 1792] (a recording's last
+     window) and [2048, 2048, 2048, 1100], subsampling [4, 16384, 80];
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
@@ -164,13 +168,41 @@ Phases (each raises on failure; the script then exits non-zero):
    2-window recording, through the f32 kernels (both ``"tf32x3"``)
    against the plain path, cuDNN deterministic on both sides (stitched
    log-probs within 1e-3 of max |log-prob|, equal greedy ids); its f32-route
-   launches are ``consistency_parity_launches``.
+   launches are ``consistency_parity_launches``;
+16. the protocol drivers at the flagship widths, bf16, ``"pallas"``
+   subsampling, with the launch scripts' settings (offline, shuffled
+   windows, 1 epoch, lr 9e-5, 6 frequency masks of width < 34, no time
+   masks), each driven twice through its ``main`` (first and warm), the
+   launch counters zeroed just before each run and read just after: per
+   run exactly one attention launch per layer and one subsampling launch
+   per forward (a window's [augmented, clean] batch, or ``infer_batch``
+   windows of the evaluation engine) and per backward, as the plans
+   (``half_concat_plan``, ``loo_plan``, ``seq_plan``) derive them from the
+   engine's code, all bf16, none of soft-DTW.  16: ``run_half_concat_eval``
+   ``-ao 14336`` on four 30720-frame recordings: each fold adapt-only on a
+   61440-frame concatenation (24 windows; no stitched log-probs, weights
+   moved from the pristine ones, which stay bit for bit), then 2 records of
+   9 windows evaluated with that fold's weights; the baseline evaluates all
+   4; a pickle with 2 folds and a baseline, finite WERs.  16b:
+   ``run_within_recording_loo_eval`` on one 131072-frame recording at
+   ``--loo_seq_len 65536 --loo_overlap 57344``: 10 chunks, 4 adaptations
+   (chunks 0, 1, 8, 9) and 6 windowed inferences; ``loo_eval`` took the
+   ``"loo"`` mode, its stitch covers every downsampled frame, finite.  16c:
+   ``run_seq_eval`` on one 49152-frame recording at ``--nsti_seq_len 32768
+   --nsti_overlap 28672``: 6 outer chunks (the stop rule adds a sixth of
+   28672 frames) of 10, 10, 10, 10, 10 and 8 windows; the second-level
+   stitch has the recording's downsampled length, finite.  Each prints a
+   ``{"protocols": ...}`` line: plan, windows adapted and evaluated, walls
+   (first, warm), engine seconds, the adapting engine's re-inference
+   seconds (timed apart), ms per adapted window (adaptation alone: the
+   adapting engine's seconds less its re-inference), launches, card.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
 ``lm_launches`` on the ``-lm`` path, ``tlm_launches`` on the transformer-LM
-path and ``consistency_launches`` on the consistency path, each read from
-its own run; ``f32_path_launches`` for the f32 attention and subsampling,
+path, ``consistency_launches`` on the consistency path and
+``protocol_launches`` over the first runs of phases 16-16c, each read from
+its own runs; ``f32_path_launches`` for the f32 attention and subsampling,
 from phase 5c), and last
 ``{"ok": true, "device": {...}}``.  TF32 stays off throughout for PyTorch's
 matmuls and convolutions; cuDNN's deterministic algorithms are on only
@@ -231,6 +263,14 @@ TLM_FRAMES, TLM_WINDOWS = 18432, 3  # phase 14's recording: 16384, 16384, 14336 
 TLM_HEADS = 8  # the published lming shape: 6 x 512, 8 heads, expansion 4, cache 128
 TLM_RTOL = 1e-4  # phase 14's card-against-CPU beam scores
 CONSISTENCY_PARITY_LAYERS = 2  # phase 15's f32 engine: flagship widths, depth cut
+# phases 16-16c: the protocol drivers with the launch scripts' settings
+# (launch_scripts/tune_half_concat_eval.sh, tune_within_loo.sh, eval_seq2.sh:
+# offline, shuffled windows, 1 epoch)
+PROTOCOL_KWARGS = ["-kwargs", "epochs=1", "optim_lr=9e-5", "spec_augment_n_freq_masks=6",
+                   "spec_augment_freq_mask_param=34", "spec_augment_n_time_masks=0", "seed=0"]
+HALF_RECORDS = 4  # phase 16: four recordings of N_FRAMES frames
+LOO_FRAMES, LOO_SEQ, LOO_OVERLAP = 131072, 65536, 57344  # phase 16b: 10 chunks
+SEQ_FRAMES, NSTI_SEQ, NSTI_OVERLAP = 49152, 32768, 28672  # phase 16c: 6 outer chunks
 # the flagship's fields in a reference checkpoint's config (no kernel named)
 REFERENCE_FIELDS = ("feat_in", "n_layers", "d_model", "n_heads", "head_dim", "vocab_size",
                     "subsampling_factor", "subsampling_conv_channels", "conv_kernel_size",
@@ -1048,6 +1088,363 @@ def check_consistency_parity(A, S):
 
 
 # ---------------------------------------------------------------------------
+# the protocol drivers (phases 16, 16b, 16c)
+# ---------------------------------------------------------------------------
+
+
+def n_windows(frames, seq=SEQ, overlap=OVERLAP) -> int:
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+
+    return len(chunk_starts_and_lengths(frames, seq, overlap)[0])
+
+
+def n_forwards(windows, infer_batch) -> int:
+    """The evaluation engine's forwards over ``windows``: ``infer_batch``
+    windows a forward."""
+    return -(-windows // infer_batch)
+
+
+def engine_plan(frames, infer_batch, adapt_only=False):
+    """(windows adapted, forwards) of one offline NSTI engine call with
+    ``epochs=1``: one forward and one backward of the [augmented, clean]
+    batch per window, then, unless ``adapt_only``, the re-inference of
+    every window with the adapted weights."""
+    windows = n_windows(frames)
+    infer = 0 if adapt_only else n_forwards(windows, infer_batch)
+    return windows, windows + infer
+
+
+def half_concat_plan(frames, n_records, infer_batch):
+    """Phase 16: the baseline evaluates every record; each fold adapts only
+    on the concatenation of its half, then evaluates the other half."""
+    per_record = n_windows(frames)
+    plan = {"records": n_records, "adapted": 0, "evaluated": n_records * per_record,
+            "forwards": n_records * n_forwards(per_record, infer_batch), "adapt_calls": 2,
+            "eval_calls": 2 * n_records}
+    for fold in (0, 1):
+        n_adapt = n_records // 2 if fold == 0 else n_records - n_records // 2
+        adapted, fwd = engine_plan(frames * n_adapt, infer_batch, adapt_only=True)
+        plan["adapted"] += adapted
+        plan["forwards"] += fwd + (n_records - n_adapt) * n_forwards(per_record, infer_batch)
+        plan["evaluated"] += (n_records - n_adapt) * per_record
+    return plan
+
+
+def loo_plan(frames, loo_seq, loo_overlap, infer_batch):
+    """Phase 16b: one adaptation per chunk that has an audio-disjoint
+    partner, then windowed inference of each of its partners.  Offline, the
+    adapting engine also re-infers its own chunk, whose output the driver
+    drops (``discarded``: those windows)."""
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+
+    starts, lens = chunk_starts_and_lengths(frames, loo_seq, loo_overlap)
+    valid = {i: [j for j in range(len(starts)) if starts[j] >= starts[i] + lens[i]
+                 or starts[i] >= starts[j] + lens[j]] for i in range(len(starts))}
+    usable = [i for i in valid if valid[i]]
+    plan = {"n_chunks": len(starts), "usable": usable,
+            "pairs": sum(len(v) for v in valid.values()), "adapted": 0, "evaluated": 0,
+            "discarded": 0, "forwards": 0, "adapt_calls": len(usable),
+            "eval_calls": sum(len(v) for v in valid.values())}
+    for i in usable:
+        adapted, fwd = engine_plan(lens[i], infer_batch)
+        plan["adapted"] += adapted
+        plan["forwards"] += fwd
+        plan["discarded"] += adapted
+        for j in valid[i]:
+            plan["evaluated"] += n_windows(lens[j])
+            plan["forwards"] += n_forwards(n_windows(lens[j]), infer_batch)
+    return plan
+
+
+def seq_plan(frames, nsti_seq, nsti_overlap, infer_batch):
+    """Phase 16c: the full NSTI engine on each outer chunk."""
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+
+    _, lens = chunk_starts_and_lengths(frames, nsti_seq, nsti_overlap)
+    plan = {"n_chunks": len(lens), "inner_windows": [n_windows(L) for L in lens], "adapted": 0,
+            "evaluated": 0, "forwards": 0, "adapt_calls": len(lens), "eval_calls": 0}
+    for L in lens:
+        adapted, fwd = engine_plan(L, infer_batch)
+        plan["adapted"] += adapted
+        plan["forwards"] += fwd
+        plan["evaluated"] += adapted  # the re-inference gives the output
+    return plan
+
+
+def plan_launches(plan, n_layers):
+    """{module: (fwd, bwd)}: one attention launch per layer and one
+    subsampling launch per forward (a batch of windows) or backward."""
+    return {"attention": (n_layers * plan["forwards"], n_layers * plan["adapted"]),
+            "subsample": (plan["forwards"], plan["adapted"])}
+
+
+def check_protocol_launches(what, launches, routes, expect):
+    """Exactly ``expect`` launches of each module, all on the bf16 route."""
+    for name, want in expect.items():
+        if tuple(launches[name]) != tuple(want):
+            raise AssertionError(f"{what}: {name} launches {launches[name]}, expected {want}")
+        if name in routes and not bf16_only(routes[name], want):
+            raise AssertionError(f"{what}: {name} launches by route {routes[name]}: not all on "
+                                 f"the bf16 tensor-core kernels")
+
+
+class CallLog:
+    """Stands in for an engine that a protocol driver builds: passes each
+    call on unchanged, synchronizes the card around it and keeps (params,
+    frames, keyword arguments, output, seconds); every other attribute is
+    the engine's.  The engine's windowed inference (an adapting engine's
+    offline re-inference) is timed apart, into ``infer_seconds``."""
+
+    def __init__(self, engine, run):
+        self.engine, self.run, self.calls, self.infer_seconds = engine, run, [], []
+        infer = engine._infer
+
+        def timed_infer(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = infer(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.infer_seconds.append(time.time() - t0)
+            return out
+        engine._infer = timed_infer
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def __call__(self, params, spec, *args, **kwargs):
+        if self.run.pristine is None:  # the driver's weights, before any call
+            self.run.params = params
+            self.run.pristine = {k: v.clone() for k, v in params.items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = self.engine(params, spec, *args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append((params, spec.shape[-1], kwargs, out, time.time() - t0))
+        return out
+
+
+class ProtocolRun:
+    """One run of a protocol driver's ``main`` with its engines logged and
+    its ``core`` function's (``loo_eval``, ``seq_eval_one``) results kept."""
+
+    def __init__(self, driver, core=None):
+        self.driver, self.core = driver, core
+        self.adapt = self.eval = None
+        self.pristine = self.params = None
+        self.core_results = []
+
+    def patches(self):
+        d = self.driver
+
+        def wrap_build(build, slot):
+            def built(*args, **kwargs):
+                log = CallLog(build(*args, **kwargs), self)
+                setattr(self, slot, log)
+                return log
+            return built
+
+        out = {"build_engine": wrap_build(d.build_engine, "adapt")}
+        if hasattr(d, "build_eval_engine"):
+            out["build_eval_engine"] = wrap_build(d.build_eval_engine, "eval")
+        if self.core is not None:
+            core = getattr(d, self.core)
+
+            def kept(*args, **kwargs):
+                result = core(*args, **kwargs)
+                self.core_results.append(result)
+                return result
+            out[self.core] = kept
+        return out
+
+    def __call__(self, cfg, frames, flags, kernel_modules, pickle_name):
+        """Returns (the driver's return, wall seconds, {module: (fwd, bwd)},
+        {module: {route: (fwd, bwd)}}, the result pickle); the counters are
+        zeroed just before ``main`` and read just after."""
+        import pickle
+
+        os.environ["DAE_SYNTH_SPEC_FRAMES"] = ",".join(str(f) for f in frames)
+        patches = self.patches()
+        saved = {name: getattr(self.driver, name) for name in patches}
+        with tempfile.TemporaryDirectory() as tmp:
+            args = self.driver.parse_args([
+                "-d", "synthetic_spec", "--quiet", "-s", os.path.join(tmp, "r.pkl"),
+                "-seq", str(SEQ), "-o", str(OVERLAP), *flags, *PROTOCOL_KWARGS])
+            for name, fn in patches.items():
+                setattr(self.driver, name, fn)
+            try:
+                for mod in kernel_modules.values():
+                    mod.reset_counters()
+                t0 = time.time()
+                result = self.driver.main(args, model_config=cfg)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = {k: (m.fwd_launches, m.bwd_launches)
+                            for k, m in kernel_modules.items()}
+                routes = {k: {r: tuple(c) for r, c in m.route_launches.items()}
+                          for k, m in kernel_modules.items() if hasattr(m, "route_launches")}
+            finally:
+                for name, fn in saved.items():
+                    setattr(self.driver, name, fn)
+            with open(os.path.join(tmp, pickle_name), "rb") as f:
+                detail = pickle.load(f)
+        return result, wall, launches, routes, detail
+
+    def check_pristine(self, what):
+        """The driver's weights are bit for bit what they were before its
+        first engine call."""
+        if not all(torch.equal(self.params[k], v) for k, v in self.pristine.items()):
+            raise AssertionError(f"{what}: the pristine weights changed")
+
+    def check_calls(self, what, plan):
+        n = (len(self.adapt.calls), len(self.eval.calls) if self.eval else 0)
+        if n != (plan["adapt_calls"], plan["eval_calls"]):
+            raise AssertionError(f"{what}: {n[0]} adaptations and {n[1]} evaluations, expected "
+                                 f"{plan['adapt_calls']} and {plan['eval_calls']}")
+
+
+def finite_wers(what, wers):
+    if not all(math.isfinite(w) for w in wers):
+        raise AssertionError(f"{what}: WER not finite: {wers}")
+
+
+def check_half_concat(run, result, detail, plan):
+    """Phase 16: adapt-only folds (no stitched log-probs, weights moved,
+    pristine weights unchanged), each fold's evaluations with that fold's
+    weights, a pickle with 2 folds and a baseline, finite WERs."""
+    run.check_calls("half-concat", plan)
+    run.check_pristine("half-concat")
+    folds = []
+    for params, _, kwargs, out, _ in run.adapt.calls:
+        if not (kwargs.get("adapt_only") and out.logits is None and out.counts is None):
+            raise AssertionError(f"half-concat: an adaptation was not adapt-only: {kwargs}")
+        moved = weight_change(out.params, run.pristine)
+        if params is not run.params or not moved > 0:
+            raise AssertionError(f"half-concat: a fold did not adapt from the pristine weights "
+                                 f"(max change {moved})")
+        folds.append(out.params)
+    n = plan["records"]  # fold 0 adapts on the first n // 2 records and evaluates the rest
+    want = [run.params] * n + [folds[0]] * (n - n // 2) + [folds[1]] * (n // 2)
+    if [p is w for (p, *_), w in zip(run.eval.calls, want)] != [True] * len(want):
+        raise AssertionError("half-concat: an evaluation ran with the wrong weights")
+    if len(detail["folds"]) != 2 or detail["baseline"] is None:
+        raise AssertionError(f"half-concat pickle: {sorted(detail)}, {len(detail['folds'])} folds")
+    finite_wers("half-concat", [result, detail["baseline"]["wer"]]
+                + [f["wer"] for f in detail["folds"]])
+    return [weight_change(f, run.pristine) for f in folds]
+
+
+def check_stitched(what, logits, frames, cfg):
+    """Stitched log-probs of the whole recording: one row per downsampled
+    frame (no gap dropped), finite."""
+    expect = (-(-frames // cfg.subsampling_factor), cfg.n_classes)
+    if logits.shape != expect or not torch.isfinite(torch.from_numpy(logits)).all():
+        raise AssertionError(f"{what}: stitched log-probs {logits.shape} (expected {expect}), "
+                             f"finite {bool(torch.isfinite(torch.from_numpy(logits)).all())}")
+
+
+def check_loo(run, result, detail, plan, frames, cfg):
+    """Phase 16b: ``loo_eval`` took the ``"loo"`` mode over every chunk, and
+    its stitched coverage has no gap."""
+    run.check_calls("LOO", plan)
+    run.check_pristine("LOO")
+    ((logits, meta),) = run.core_results
+    if meta != {"n_chunks": plan["n_chunks"], "mode": "loo"}:
+        raise AssertionError(f"LOO: loo_eval returned {meta}")
+    check_stitched("LOO", logits, frames, cfg)
+    finite_wers("LOO", [result, detail["wer"]])
+
+
+def check_seq(run, result, detail, frames, cfg):
+    """Phase 16c: the second-level stitch has the recording's downsampled
+    length and finite values."""
+    run.check_pristine("sequence scaling")
+    (logits,) = run.core_results
+    check_stitched("sequence scaling", logits, frames, cfg)
+    finite_wers("sequence scaling", [result, detail["wer"]])
+
+
+def protocol_phase(label, driver, card, kernel_modules, cfg, frames, flags, pickle_name, plan_fn,
+                   check, core=None):
+    """Runs a protocol driver twice (first and warm), zeroing and reading the
+    launch counters around each run; checks each run's launches (exact, all
+    bf16) and the first run's output; prints a ``{"protocols": ...}`` line
+    and returns the first run's launches and routes."""
+    name = driver.__name__.rsplit(".", 1)[-1]
+    runs = []
+    for attempt in ("first", "warm"):
+        run = ProtocolRun(driver, core)
+        result, wall, launches, routes, detail = run(cfg, frames, flags, kernel_modules,
+                                                     pickle_name)
+        plan = plan_fn(run.adapt.infer_batch)
+        check_protocol_launches(f"{name} ({attempt})", launches, routes,
+                                {**plan_launches(plan, cfg.n_layers), "softdtw": (0, 0)})
+        extra = check(run, result, detail, plan) if attempt == "first" else None
+        runs.append((run, wall, launches, routes, result, extra))
+    (first, first_wall, launches, routes, result, extra), (warm, warm_wall, *_) = runs
+    adapt_s = [sum(c[-1] for c in r.adapt.calls) for r in (first, warm)]
+    reinfer_s = [sum(r.adapt.infer_seconds) for r in (first, warm)]
+    eval_s = [sum(c[-1] for c in r.eval.calls) if r.eval else 0.0 for r in (first, warm)]
+    # adaptation only: the adapting engine's seconds less its re-inference
+    per_window = [(a - i) * 1e3 / plan["adapted"] for a, i in zip(adapt_s, reinfer_s)]
+    line = {"phase": label, "driver": name, "card": card, "frames": frames,
+            "plan": plan, "windows_adapted": plan["adapted"],
+            "windows_evaluated": plan["evaluated"], "forwards": plan["forwards"],
+            "wall_s": {"first": first_wall, "warm": warm_wall},
+            "adapt_engine_s": {"first": adapt_s[0], "warm": adapt_s[1]},
+            "adapt_engine_reinfer_s": {"first": reinfer_s[0], "warm": reinfer_s[1]},
+            "eval_engine_s": {"first": eval_s[0], "warm": eval_s[1]},
+            "ms_per_adapted_window": {"first": per_window[0], "warm": per_window[1]},
+            "wer": result, "launches": launches}
+    if extra is not None:
+        line["fold_weight_change"] = extra
+    log(f"  {name}: {plan['adapted']} windows adapted, {plan['evaluated']} evaluated, "
+        f"{plan['forwards']} forwards; wall first {first_wall:.3f} s, warm {warm_wall:.3f} s; "
+        f"adaptation alone {per_window[1]:.2f} ms a window (warm; the adapting engine's "
+        f"re-inference {reinfer_s[1]:.3f} s apart); launches {launches}, all bf16")
+    print(json.dumps({"protocols": line}))
+    return launches, routes
+
+
+def protocol_phases(card, A, S, D):
+    """Phases 16, 16b and 16c at the flagship widths, bf16, ``"pallas"``
+    subsampling; returns each phase's first-run (launches, routes)."""
+    from dynamic_asr_eval_tpu_torch.evals import (
+        run_half_concat_eval,
+        run_seq_eval,
+        run_within_recording_loo_eval,
+    )
+
+    modules = {"attention": A, "subsample": S, "softdtw": D}
+    cfg = flagship_config(subsampling_impl="pallas")
+    log(f"[16] half-concat: evals.run_half_concat_eval.main -ao {OVERLAP} on {HALF_RECORDS} "
+        f"{N_FRAMES}-frame recordings, flagship, bf16, subsampling_impl='pallas', offline, "
+        f"on {card}")
+    half = protocol_phase(
+        "16", run_half_concat_eval, card, modules, cfg, [N_FRAMES] * HALF_RECORDS,
+        ["-ao", str(OVERLAP)], "r.pkl", lambda ib: half_concat_plan(N_FRAMES, HALF_RECORDS, ib),
+        check_half_concat)
+    log(f"[16b] within-recording LOO: evals.run_within_recording_loo_eval.main --loo_seq_len "
+        f"{LOO_SEQ} --loo_overlap {LOO_OVERLAP} on a {LOO_FRAMES}-frame recording, flagship, "
+        f"bf16, offline, on {card}")
+    loo = protocol_phase(
+        "16b", run_within_recording_loo_eval, card, modules, cfg, [LOO_FRAMES],
+        ["--loo_seq_len", str(LOO_SEQ), "--loo_overlap", str(LOO_OVERLAP)], "r_1.pkl",
+        lambda ib: loo_plan(LOO_FRAMES, LOO_SEQ, LOO_OVERLAP, ib),
+        lambda run, result, detail, plan: check_loo(run, result, detail, plan, LOO_FRAMES, cfg),
+        core="loo_eval")
+    log(f"[16c] sequence scaling: evals.run_seq_eval.main --nsti_seq_len {NSTI_SEQ} "
+        f"--nsti_overlap {NSTI_OVERLAP} on a {SEQ_FRAMES}-frame recording, flagship, bf16, "
+        f"offline, on {card}")
+    seq = protocol_phase(
+        "16c", run_seq_eval, card, modules, cfg, [SEQ_FRAMES],
+        ["--nsti_seq_len", str(NSTI_SEQ), "--nsti_overlap", str(NSTI_OVERLAP)], "r_1.pkl",
+        lambda ib: seq_plan(SEQ_FRAMES, NSTI_SEQ, NSTI_OVERLAP, ib),
+        lambda run, result, detail, plan: check_seq(run, result, detail, SEQ_FRAMES, cfg),
+        core="seq_eval_one")
+    return half, loo, seq
+
+
+# ---------------------------------------------------------------------------
 # the native host libraries and the -lm path
 # ---------------------------------------------------------------------------
 
@@ -1666,10 +2063,15 @@ def main() -> int:
     check_attention(A, 2, 37, 6, 128, [37, 20], torch.bfloat16)
     for length in (2048, 1792):  # AWMC's batch-1 windows
         check_attention(A, 1, 2048, 6, 128, [length], torch.bfloat16)
+    # the protocol drivers' evaluation engine: forwards of infer_batch 4
+    # windows, the last of a recording 14336 frames, and a ragged batch
+    for lengths in ([2048, 2048, 2048, 1792], [2048, 2048, 2048, 1100]):
+        check_attention(A, 4, 2048, 6, 128, lengths, torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32):
         errs[("sub", dtype)] = check_subsample(S, SUB_FLAGSHIP, dtype)
         check_subsample(S, SUB_RAGGED, dtype)
-    check_subsample(S, (1,) + SUB_FLAGSHIP[1:], torch.bfloat16)
+    for batch in (1, 4):  # AWMC's windows; the evaluation engine's batches
+        check_subsample(S, (batch,) + SUB_FLAGSHIP[1:], torch.bfloat16)
     for shape, bandwidth in SDTW_CASES:
         e = check_softdtw(D, shape, bandwidth)
         if shape == SDTW_BENCH:
@@ -1773,6 +2175,8 @@ def main() -> int:
             "path")
         cons_parity_routes = check_consistency_parity(A, S)
 
+    protocol_runs = protocol_phases(card, A, S, D)
+
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
                "fused_subsample": "fused_subsample_bf16.cu",
@@ -1811,6 +2215,11 @@ def main() -> int:
     lm_launches = by_kernel(lm_routes, lm_counts)
     tlm_launches = by_kernel(tlm_routes, tlm_counts)
     consistency_launches = by_kernel(cons_routes, cons_counts)
+    protocol_launches = {}  # phases 16, 16b and 16c together
+    for counts_, routes_ in protocol_runs:
+        for name, counts in by_kernel(routes_, counts_).items():
+            protocol_launches[name] = tuple(
+                a + b for a, b in zip(protocol_launches.get(name, (0, 0)), counts))
     awmc_parity = {"flash_attention_f32": awmc_parity_routes["attention"],
                    "fused_subsample_f32": awmc_parity_routes["subsample"]}
     consistency_parity = {"flash_attention_f32": cons_parity_routes["attention"],
@@ -1852,6 +2261,7 @@ def main() -> int:
                 "lm_launches": lm_launches[name][i],
                 "tlm_launches": tlm_launches[name][i],
                 "consistency_launches": consistency_launches[name][i],
+                "protocol_launches": protocol_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

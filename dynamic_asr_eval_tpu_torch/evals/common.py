@@ -7,12 +7,15 @@ the NSTI, AWMC and consistency engines, the LM of ``-lm`` (an ARPA n-gram,
 or the transformer LM from a DLM1 file or a lming torch pickle) for the
 final beam decode, after groups of ``--decode_batch`` records, and for
 LM-fused NSTI pseudo-labels,
-greedy decode, and the repeat loop the drivers share
-(:func:`evaluate_repeats`).  The device mesh is not ported yet.
+greedy decode, the repeat loop the drivers share
+(:func:`evaluate_repeats`), and the protocol drivers' evaluation engine
+(:func:`build_eval_engine`, :func:`evaluate_with`).  The device mesh is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import time
@@ -129,6 +132,35 @@ def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_
     device = device if device is not None else getattr(args, "device", None)
     return ENGINES[engine_kind](model, cfg.blank_id, cfg.subsampling_factor, tta,
                                 transfer_dtype=transfer, device=device, **kwargs)
+
+
+def build_eval_engine(model, cfg: ConformerConfig, engine: DynamicEvalEngine) -> DynamicEvalEngine:
+    """The protocol drivers' evaluation engine: ``engine``'s configuration
+    with ``epochs=0, online=False, shuffle=False`` (windowed inference, no
+    adaptation, with whatever weights each call is given), on ``engine``'s
+    device and with its transfer dtype (that of :func:`build_engine`)."""
+    eval_cfg = dataclasses.replace(engine.config, epochs=0, online=False, shuffle=False)
+    return DynamicEvalEngine(model, cfg.blank_id, cfg.subsampling_factor, eval_cfg,
+                             transfer_dtype=engine.transfer_dtype, device=engine.device)
+
+
+def adapt_overlap(args) -> int:
+    """``-ao/--adapt_overlap``: the adaptation's overlap, ``--overlap`` when
+    it is -1 (the default)."""
+    overlap = getattr(args, "adapt_overlap", -1)
+    return args.overlap if overlap == -1 else overlap
+
+
+def evaluate_with(eval_engine, params, records: List[Dict], args, tokenizer) -> Tuple[float, Dict]:
+    """Corpus WER of ``records`` through ``eval_engine`` with the weights
+    ``params`` (a state dict; not modified): windowed inference at
+    ``--seq_len`` / ``--overlap``, greedy decode, normalizer."""
+    def run_one(rec):
+        spec, gold = rec["process_fn"](rec)
+        out = eval_engine(params, spec, args.seq_len, args.overlap)
+        return normalize(decode_output(out, tokenizer)), gold
+
+    return evaluate_records(records, run_one, verbose=not getattr(args, "quiet", False))
 
 
 def decode_output(out, tokenizer, beam_search_fn: Optional[Callable] = None,

@@ -383,3 +383,108 @@ def test_subsample_bounds_take_the_products_as_three_tf32_products():
     assert [round(got[k][0], 3) for k in ("fwd", "bwd")] == [0.222, 0.620]
     assert [round(cuda_core[k][0], 3) for k in ("fwd", "bwd")] == [0.460, 1.334]
     assert {by for _, by in got.values()} == {"operations"}
+
+
+# ---------------------------------------------------------------------------
+# phases 16-16c: the protocol drivers' plans and checks
+# ---------------------------------------------------------------------------
+
+
+def test_half_concat_plan_at_the_flagship():
+    """Phase 16: each fold adapts only on a 61440-frame concatenation (24
+    windows) and evaluates 2 records of 9 windows (3 forwards of 4, 4, 1
+    windows each); the baseline evaluates all 4 records."""
+    assert chip_smoke.n_windows(2 * chip_smoke.N_FRAMES) == 24
+    plan = chip_smoke.half_concat_plan(chip_smoke.N_FRAMES, chip_smoke.HALF_RECORDS, 4)
+    assert (plan["adapted"], plan["evaluated"], plan["forwards"]) == (48, 72, 12 + 2 * (24 + 6))
+    assert (plan["adapt_calls"], plan["eval_calls"]) == (2, 8)
+    assert chip_smoke.plan_launches(plan, 6) == {"attention": (432, 288), "subsample": (72, 48)}
+
+
+def test_loo_plan_at_the_flagship():
+    """Phase 16b: 10 chunks of 65536 frames every 8192 (the last 57344);
+    chunks {0, 1, 8, 9} have audio-disjoint partners: 4 adaptations (26, 26,
+    26 and 22 windows, each re-inferred offline) and 6 windowed inferences."""
+    plan = chip_smoke.loo_plan(chip_smoke.LOO_FRAMES, chip_smoke.LOO_SEQ, chip_smoke.LOO_OVERLAP, 4)
+    assert (plan["n_chunks"], plan["usable"], plan["pairs"]) == (10, [0, 1, 8, 9], 6)
+    assert (plan["adapted"], plan["discarded"], plan["evaluated"]) == (100, 100, 148)
+    assert plan["forwards"] == 100 + (7 + 7 + 7 + 6) + (7 + 6) + 6 + 7 + (7 + 7)
+
+
+def test_seq_plan_at_the_flagship():
+    """Phase 16c: 6 outer chunks (five of 32768 frames, the stop rule adds
+    one of 28672), of 10, 10, 10, 10, 10 and 8 windows, each adapted and
+    re-inferred."""
+    plan = chip_smoke.seq_plan(chip_smoke.SEQ_FRAMES, chip_smoke.NSTI_SEQ,
+                               chip_smoke.NSTI_OVERLAP, 4)
+    assert plan["inner_windows"] == [10, 10, 10, 10, 10, 8]
+    assert (plan["adapted"], plan["forwards"]) == (58, 58 + 5 * 3 + 2)
+    assert chip_smoke.plan_launches(plan, 6) == {"attention": (450, 348), "subsample": (75, 58)}
+
+
+def test_check_protocol_launches_is_exact_and_bf16_only():
+    want = {"attention": (432, 288), "subsample": (72, 48), "softdtw": (0, 0)}
+    routes = {"attention": {"tensor_core": (432, 288), "tf32x3": (0, 0)},
+              "subsample": {"tensor_core": (72, 48), "tf32x3": (0, 0)}}
+    chip_smoke.check_protocol_launches("case", want, routes, want)
+    with pytest.raises(AssertionError, match="expected"):
+        chip_smoke.check_protocol_launches("case", dict(want, subsample=(73, 48)), routes, want)
+    with pytest.raises(AssertionError, match="expected"):
+        chip_smoke.check_protocol_launches("case", dict(want, softdtw=(1, 0)), routes, want)
+    f32 = dict(routes, attention={"tensor_core": (431, 288), "tf32x3": (1, 0)})
+    with pytest.raises(AssertionError, match="not all on the bf16"):
+        chip_smoke.check_protocol_launches("case", want, f32, want)
+
+
+def _tiny_protocol(monkeypatch, driver):
+    """Phase 16's machinery on the CPU at a tiny size: records of 320
+    frames, windows of 256 / 192."""
+    flagship = chip_smoke.flagship_config
+    small = dict(n_layers=1, d_model=32, n_heads=2, head_dim=16, vocab_size=30,
+                 subsampling_conv_channels=8, conv_kernel_size=3, compute_dtype=torch.float32)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "SEQ", 256)
+    monkeypatch.setattr(chip_smoke, "OVERLAP", 192)
+    monkeypatch.setattr(chip_smoke.n_windows, "__defaults__", (256, 192))
+    parse = driver.parse_args
+    monkeypatch.setattr(driver, "parse_args", lambda argv: parse(["--device", "cpu"] + argv))
+    return flagship(**small)
+
+
+def test_half_concat_checks_hold_the_driver_run(monkeypatch):
+    """The driver's own run passes ``check_half_concat``: adapt-only folds
+    from the pristine weights, which stay unchanged, and each evaluation
+    with its fold's weights; an evaluation with the wrong weights fails."""
+    from dynamic_asr_eval_tpu_torch.evals import run_half_concat_eval as driver
+
+    cfg = _tiny_protocol(monkeypatch, driver)
+    run = chip_smoke.ProtocolRun(driver)
+    result, _, launches, _, detail = run(cfg, [320] * 4, ["-ao", "192"], {"attention": A},
+                                         "r.pkl")
+    plan = chip_smoke.half_concat_plan(320, 4, run.adapt.infer_batch)
+    assert (plan["adapted"], plan["eval_calls"]) == (2 * 8, 8)
+    assert launches == {"attention": (0, 0)}  # nothing counts on the CPU
+    # adapt-only folds never re-infer; each evaluation is one timed inference
+    assert run.adapt.infer_seconds == []
+    assert len(run.eval.infer_seconds) == len(run.eval.calls) == plan["eval_calls"]
+    moved = chip_smoke.check_half_concat(run, result, detail, plan)
+    assert len(moved) == 2 and min(moved) > 0
+    run.eval.calls[-1] = (run.params,) + run.eval.calls[-1][1:]
+    with pytest.raises(AssertionError, match="wrong weights"):
+        chip_smoke.check_half_concat(run, result, detail, plan)
+    next(iter(run.params.values())).add_(1.0)
+    with pytest.raises(AssertionError, match="pristine weights changed"):
+        run.check_pristine("half-concat")
+
+
+def test_check_stitched_refuses_a_gap_and_non_finite_values():
+    import numpy as np
+
+    cfg = chip_smoke.flagship_config()
+    good = np.zeros((16, cfg.n_classes), np.float32)
+    chip_smoke.check_stitched("case", good, 128, cfg)
+    with pytest.raises(AssertionError, match="stitched"):
+        chip_smoke.check_stitched("case", good[:-1], 128, cfg)
+    good[3, 2] = np.nan
+    with pytest.raises(AssertionError, match="finite False"):
+        chip_smoke.check_stitched("case", good, 128, cfg)

@@ -55,13 +55,19 @@ def test_importing_every_module_pulls_in_no_jax_and_no_yaml():
 
 NEW_MODULES = ("lm.transformer_lm", "lm.loader", "evals.tlm_tools", "perf", "optim.adafactor",
                "tta.consistency")
+PROTOCOL_CLIS = ("evals.run_in_dataset_eval", "evals.run_cross_dataset_eval",
+                 "evals.run_half_concat_eval", "evals.run_whole_concat_eval",
+                 "evals.run_within_recording_loo_eval", "evals.run_seq_eval",
+                 "evals.run_cross_speaker_gender_tedlium", "evals.eval_for_each_cpt",
+                 "evals.run_sweep")
+PROTOCOL_MODULES = PROTOCOL_CLIS + ("evals.hpo", "analysis")
 
 _IMPORT_ONE = """
 import importlib, sys
 importlib.import_module("dynamic_asr_eval_tpu_torch." + sys.argv[1])
 print(",".join(sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
-                                             "dynamic_asr_eval_tpu"))))
+                                             "wandb", "matplotlib", "dynamic_asr_eval_tpu"))))
 """
 
 
@@ -69,6 +75,18 @@ print(",".join(sorted(m for m in sys.modules
 def test_the_transformer_lm_and_consistency_modules_import_alone(module):
     """Each module of the transformer-LM and consistency slice, imported on
     its own, pulls in no JAX, flax, optax, msgpack or PyYAML."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("module", PROTOCOL_MODULES)
+def test_the_protocol_modules_import_alone(module):
+    """Each module of the protocol slice (drivers, sweep, TPE, analysis),
+    imported on its own, pulls in no JAX, no module of the JAX package, and
+    no PyYAML, wandb or matplotlib: those are imported inside the functions
+    that use them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -190,6 +208,32 @@ def test_tlm_tools_without_device_raise_without_cuda(no_cuda, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlm_tools._cli(["dump", "-d", "synthetic", "-s", str(tmp_path)])
+
+
+@pytest.mark.parametrize("module", PROTOCOL_CLIS)
+def test_protocol_clis_without_device_raise_without_cuda(module, no_cuda, tmp_path):
+    """Every protocol CLI, the per-checkpoint loop and the sweep raise with
+    no GPU and no ``--device cpu``, before any work; with ``--device cpu``
+    they run (their parity tests: tests/test_torch_protocols*.py,
+    tests/test_torch_sweep.py)."""
+    import importlib
+
+    argv = ["-d", "synthetic", "--quiet"]
+    if module.endswith("run_cross_dataset_eval"):
+        argv = ["-da", "synthetic", "-db", "synthetic", "--quiet"]
+    elif module.endswith("eval_for_each_cpt"):
+        cfg = ConformerConfig(feat_in=80, n_layers=1, d_model=32, n_heads=2, head_dim=16,
+                              vocab_size=28, subsampling_conv_channels=4,
+                              compute_dtype="float32")
+        torch.save({"model": SCConformer(cfg).state_dict()}, str(tmp_path / "a.pt"))
+        argv += ["-cf", str(tmp_path)]
+    elif module.endswith("run_sweep"):
+        (tmp_path / "s.yaml").write_text(
+            "method: grid\nparameters:\n  optim_lr: {values: [1.0e-4]}\n")
+        argv += ["-sc", str(tmp_path / "s.yaml"), "--no_wandb"]
+    driver = importlib.import_module("dynamic_asr_eval_tpu_torch." + module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.cli(argv)
 
 
 @pytest.mark.parametrize("flags", [["--profile", "DIR"], ["--dp"], ["--dp_records"]],
