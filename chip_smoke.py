@@ -42,7 +42,8 @@ Phases (each raises on failure; the script then exits non-zero):
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
-     100 and at (1, 2048, 2048);
+     100, at the utterance engine's shapes (1, 64, 64) and (1, 512, 512) and
+     at (1, 2048, 2048); each kernel runs twice and must repeat bit for bit;
 4. kernel, plain and library times (CUDA events after warm-up) at the
    flagship or benchmark shape, and the least time the card could take
    (bound).  Attention and subsampling are timed on both routes: bf16
@@ -55,7 +56,14 @@ Phases (each raises on failure; the script then exits non-zero):
    kernels SDPA runs in f32 named from a profile); for
    the fused subsampling, the cuDNN stack the ``"conv"`` path runs (four
    ``F.conv2d`` calls with their activations, forward, and backward through
-   autograd) in the same dtype; none for soft-DTW.  The port never calls a
+   autograd) in the same dtype; none for soft-DTW.  Soft-DTW is also timed
+   at (1, 64, 64), (1, 512, 512) and (1, 2048, 2048), and its chain floor
+   printed: (N + M - 1) steps at the latency of one step's dependent chain,
+   the kernels' own step run alone by one warp and timed in SM cycles at the
+   clock it ran at, beside the kernels' own time a step on a single strip of
+   32 rows (one warp, 4096 columns), which is not a bound (a
+   ``{"softdtw_chain": ...}`` line).
+   The port never calls a
    library yardstick.  Then one subsampling forward and one backward of
    each route (bf16 and f32) under torch.profiler, broken down by kernel (a
    ``{"subsample_breakdown": ...}`` line);
@@ -248,7 +256,10 @@ TOP_KERNELS = 15
 SUB_FLAGSHIP = (2, 16384, 80, 256)  # B, T, F, C of one adapted window
 SUB_RAGGED = (3, 1001, 80, 256)
 SDTW_BENCH = (4, 256, 256)  # kernels.softdtw.benchmark defaults, D 64, gamma 1
-SDTW_CASES = ((SDTW_BENCH, 0), ((2, 1500, 700), 100), ((1, 2048, 2048), 0))
+SDTW_UTTERANCE = ((1, 64, 64), (1, 512, 512), (1, 2048, 2048))  # B = 1, T_ds 64 to ~2k
+SDTW_CASES = ((SDTW_BENCH, 0), ((2, 1500, 700), 100), ((1, 64, 64), 0), ((1, 512, 512), 0),
+              ((1, 2048, 2048), 0))
+SDTW_STRIP = (1, 32, 4096)  # one strip: the kernels' own time a step
 AWMC_PARITY = (3000, 2048, 1024)  # frames, seq, overlap: windows of 2048 and 1976
 RUN_KWARGS = ["-kwargs", "epochs=1", "online=true", "shuffle=false", "optim_lr=9e-5",
               "spec_augment_n_freq_masks=6", "spec_augment_freq_mask_param=34", "seed=0"]
@@ -663,18 +674,22 @@ def check_softdtw(D, shape, bandwidth, gamma=1.0):
     Db = softdtw_inputs(D, shape, bandwidth)
     R = D.softdtw_R(Db, gamma)
     E = D.softdtw_E(Db, R, gamma)
+    R2, E2 = D.softdtw_R(Db, gamma), D.softdtw_E(Db, R, gamma)
     ref_R = D.forward_R_reference(Db, gamma)
     ref_E = D.backward_E_reference(Db, R, gamma)  # E's inputs: the same D and R
     torch.cuda.synchronize()
+    what = f"soft-DTW {shape} bandwidth {bandwidth}"
+    if not (torch.equal(R, R2) and torch.equal(E, E2)):
+        raise AssertionError(f"{what}: the kernels do not repeat bit for bit")
     r_err = ((R - ref_R).abs() / ref_R.abs().clamp_min(1.0)).max().item()
     e_err = (E - ref_E).abs().max().item()
     e_scale = ref_E.abs().max().item()
     if not (r_err <= 1e-4 and torch.isfinite(E).all() and e_err <= 1e-4 * e_scale):
-        raise AssertionError(f"soft-DTW {shape} bandwidth {bandwidth}: R rel err {r_err:.3e}, "
-                             f"E err {e_err:.3e} of max {e_scale:.3e}")
-    log(f"  soft-DTW {shape} bandwidth {bandwidth}: R rel {r_err:.2e}, E {e_err:.2e} "
-        f"(max |E| {e_scale:.3e}, loss {R[0, shape[1], shape[2]].item():.6g})")
-    return {"R": r_err * max(1.0, ref_R.abs().max().item()), "E": e_err}
+        raise AssertionError(f"{what}: R rel err {r_err:.3e}, E err {e_err:.3e} of max "
+                             f"{e_scale:.3e}")
+    log(f"  {what}: R rel {r_err:.2e}, E {e_err:.2e} (max |E| {e_scale:.3e}, loss "
+        f"{R[0, shape[1], shape[2]].item():.6g}); both repeat bit for bit")
+    return {"R": (R - ref_R).abs().max().item(), "E": e_err}
 
 
 def softdtw_work(B, N, M):
@@ -686,7 +701,54 @@ def softdtw_work(B, N, M):
             "bwd": (17 * cells, 4 * (2 * cells + padded))}
 
 
-def time_softdtw(D, gamma=1.0):
+def softdtw_kernel_ms(D, shape, gamma=1.0, iters=20):
+    """(forward ms, whole backward call ms) of the kernels at ``shape``."""
+    Db = softdtw_inputs(D, shape, 0, seed=1)
+    R = D.softdtw_R(Db, gamma)
+    return (cuda_ms(lambda: D.softdtw_R(Db, gamma), iters=iters),
+            cuda_ms(lambda: D.softdtw_E(Db, R, gamma), iters=iters))
+
+
+def softdtw_constant(D, name):
+    """A ``constexpr int`` of the kernels' source."""
+    return int(re.search(rf"constexpr int {name} = (\d+);", D.SOURCE.read_text()).group(1))
+
+
+def softdtw_chain(D, card, shapes):
+    """The chain floor of each shape: its N + M - 1 steps at the latency of
+    one step's dependent chain (``kernels.softdtw.chain_step``: the kernels'
+    own step run alone by one warp, in SM cycles, at the clock it ran at).
+    Beside it, and not a bound, the kernels' own time a step on a single
+    strip (SDTW_STRIP: one warp, no strip above to wait on), which adds what
+    a step carries besides its chain: loads, stores and ring traffic."""
+    D.chain_step()  # the card's clock up
+    chain = {k: D.chain_step(backward=k == "bwd") for k in ("fwd", "bwd")}
+    floors = {f"{s}": {k: (s[1] + s[2] - 1) * v["ns"] * 1e-6 for k, v in chain.items()}
+              for s in shapes}
+    # the steps the kernels take on the strip: a panel of P columns takes
+    # P + 31 (lane 31 starts 31 steps after lane 0), rounded up to whole chunks
+    B, N, M = SDTW_STRIP
+    panel, chunk = (softdtw_constant(D, name) for name in ("PANEL", "CHUNK"))
+    P = min(panel, M)
+    steps = -(-M // P) * -(-(P + 31) // chunk) * chunk
+    fwd_ms, bwd_ms = softdtw_kernel_ms(D, SDTW_STRIP, iters=200)
+    strip_ns = {"fwd": fwd_ms / steps * 1e6, "bwd": bwd_ms / steps * 1e6}
+    result = {"card": card, "chain_step": chain, "floor_ms": floors,
+              "single_strip": {"shape": SDTW_STRIP, "steps": steps, "fwd_ms": fwd_ms,
+                               "bwd_ms": bwd_ms, "step_ns": strip_ns}}
+    log(f"  soft-DTW chain: one step {chain['fwd']['cycles']:.1f} / {chain['bwd']['cycles']:.1f} "
+        f"cycles forward / backward at {chain['fwd']['mhz']:.0f} / {chain['bwd']['mhz']:.0f} MHz "
+        f"({chain['fwd']['ns']:.2f} / {chain['bwd']['ns']:.2f} ns); the kernels on a single "
+        f"strip {SDTW_STRIP}: {strip_ns['fwd']:.2f} / {strip_ns['bwd']:.2f} ns a step")
+    print(json.dumps({"softdtw_chain": result}))
+    return floors
+
+
+def time_softdtw(D, card, gamma=1.0):
+    for shape in SDTW_UTTERANCE:
+        fwd_ms, bwd_ms = softdtw_kernel_ms(D, shape, gamma)
+        log(f"  softdtw at {shape}: fwd {fwd_ms:.4f} ms, bwd {bwd_ms:.4f} ms")
+    floors = softdtw_chain(D, card, SDTW_UTTERANCE + (SDTW_BENCH,))
     Db = softdtw_inputs(D, SDTW_BENCH, 0, seed=1)
     R = D.softdtw_R(Db, gamma)
     t = {
@@ -696,6 +758,7 @@ def time_softdtw(D, gamma=1.0):
         "bwd_plain": cuda_ms(lambda: D.backward_E_reference(Db, R, gamma), iters=3, warmup=1),
     }
     bounds = {k: bound(f, b, F32_FLOPS) for k, (f, b) in softdtw_work(*SDTW_BENCH).items()}
+    bounds.update({f"{k}_chain": (v, "chain") for k, v in floors[f"{SDTW_BENCH}"].items()})
     return t, bounds
 
 
@@ -2086,7 +2149,7 @@ def main() -> int:
              time_attention(A, 2, 2048, 6, 128, [2048, 1600], torch.float32)),
             ("fused_subsample", time_subsample(S)),
             ("fused_subsample_f32", time_subsample(S, torch.float32)),
-            ("softdtw", time_softdtw(D))):
+            ("softdtw", time_softdtw(D, card))):
         times[name] = (t, bnd)
         for k, v in t.items():
             log(f"  {name} {k}: {v:.4f} ms")
@@ -2251,6 +2314,8 @@ def main() -> int:
                              bound_cuda_core_ms=bnd[f"{kind}_cuda_core"][0])
             if name == "flash_attention_f32":
                 extra.update(library_kernels=library_kernels[kind])
+            if name == "softdtw":
+                extra.update(chain_floor_ms=bnd[f"{kind}_chain"][0])
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",

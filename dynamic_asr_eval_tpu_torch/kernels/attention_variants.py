@@ -1,22 +1,30 @@
 """Time variants of an f32 kernel source side by side on one card.
 
     python -m dynamic_asr_eval_tpu_torch.kernels.attention_variants \\
-        [--module attention|subsample] [--steps 16 32] [--parent DIR] \\
-        [--sources NAME=PATH ...] [--unchecked NAME=PATH ...]
+        [--module attention|subsample|softdtw] [--steps 16 32] [--parent DIR] \\
+        [--sources NAME=PATH ...] [--unchecked NAME=PATH ...] [--shape N ...]
 
 Builds the module's f32 source as it stands (``csrc/flash_attention.cu`` for
 ``--module attention``, the default; ``csrc/fused_subsample.cu`` for
-``--module subsample``) and, with ``--parent``, the same file from another
+``--module subsample``; ``csrc/softdtw.cu`` for ``--module softdtw``) and,
+with ``--parent``, the same file from another
 checkout (an earlier design of the f32 route), and any other sources named
 with ``--sources``; for attention also, for each value of ``--steps``, a copy
 with its step constant ``BN`` (rows of the other side per step) replaced.
 The copies go under ``build/variants/``, one ``nvcc`` each, all started
 together.  Each is bound with the module's ``_bind``, held against the plain
-version at the flagship shape (f32, TF32 off, 1e-4 of max |plain|):
+version at the module's shape, or at ``--shape`` (f32, TF32 off, 1e-4 of
+max |plain|):
 
-- attention: q/k/v [2, 2048, 6, 128], lengths [2048, 1600]; out, dq, dk, dv;
-- subsample: x [2, 16384, 80], C 256; out, gx and the 10 weight gradients
-  (the timed backward takes no gx, as on the drivers' path);
+- attention: q/k/v [B, T, H, D] = [2, 2048, 6, 128], every sequence but the
+  last whole and the last 25/32 of it (lengths [2048, 1600]); out, dq, dk,
+  dv;
+- subsample: x [B, T, F] = [2, 16384, 80], C 256; out, gx and the 10 weight
+  gradients (the timed backward takes no gx, as on the drivers' path);
+- softdtw: D [B, N, M] = [4, 256, 256], the squared distances of
+  standard-normal 64-dim features, γ 1; R (relative, as chip_smoke.py holds
+  it) and E (of max |E|), every variant's backward given the plain version's
+  R; no yardstick (no PyTorch call computes soft-DTW);
 
 and timed forward and backward with CUDA events after warm-up, in turns
 (every variant, then every variant in reverse order), beside the PyTorch
@@ -44,14 +52,14 @@ from pathlib import Path
 import torch
 
 from dynamic_asr_eval_tpu_torch.kernels import attention as A
+from dynamic_asr_eval_tpu_torch.kernels import softdtw as SD
 from dynamic_asr_eval_tpu_torch.kernels import subsample as S
 from dynamic_asr_eval_tpu_torch.kernels._build import BUILD_DIR, CudaLibrary
 from dynamic_asr_eval_tpu_torch.perf import profile_kernels
 
 VARIANT_DIR = BUILD_DIR.parent / "variants"
-SHAPE, LENGTHS = (2, 2048, 6, 128), [2048, 1600]
-SUB_SHAPE = (2, 16384, 80, 256)  # B, T, F, C
-SOURCES = {"attention": "flash_attention.cu", "subsample": "fused_subsample.cu"}
+SOURCES = {"attention": "flash_attention.cu", "subsample": "fused_subsample.cu",
+           "softdtw": "softdtw.cu"}
 
 
 def variant_sources(module, steps, parent, others=()):
@@ -102,14 +110,17 @@ class AttentionCase:
     """The f32 flash attention's entry points at the flagship shape."""
 
     bind = staticmethod(A._bind)
+    SHAPE = (2, 2048, 6, 128)  # B, T, H, D
 
-    def __init__(self):
+    def __init__(self, shape=None):
         g = torch.Generator(device="cuda").manual_seed(1)
-        B, T, H, D = SHAPE
+        self.shape = tuple(shape or self.SHAPE)
+        B, T, H, D = self.shape
+        self.lengths = [T] * (B - 1) + [T * 25 // 32]
         qkv = torch.randn(B, T, 3, H, D, generator=g, device="cuda")
         self.q, self.k, self.v = (x.contiguous() for x in qkv.unbind(2))
         self.mask = (torch.arange(T, device="cuda")[None]
-                     < torch.tensor(LENGTHS, device="cuda")[:, None])
+                     < torch.tensor(self.lengths, device="cuda")[:, None])
         self.seg = self.mask.to(torch.int32).contiguous()
         self.dout = torch.randn(B, T, H, D, generator=g, device="cuda")
         ref_out, ref_lse = A.attention_reference(self.q, self.k, self.v, self.mask)
@@ -128,7 +139,7 @@ class AttentionCase:
     def outputs(self, lib):
         """(fwd, bwd) callables on this variant's own output buffers, and its
         errors against the plain version."""
-        B, T, H, _ = SHAPE
+        B, T, H, _ = self.shape
         out, lse = torch.empty_like(self.q), torch.empty(B, H, T, device="cuda")
         delta, grads = torch.empty(B, H, T, device="cuda"), [torch.empty_like(self.q) for _ in range(3)]
         fwd = lambda: self._call(lib, "fwd", out, lse)  # noqa: E731
@@ -137,6 +148,9 @@ class AttentionCase:
         bwd()
         torch.cuda.synchronize()
         return fwd, bwd, rel_errs(("out", "dq", "dk", "dv"), [out] + grads, self.ref)
+
+    def report(self, calls):
+        return {"lengths": self.lengths}
 
     def library(self):
         same = A._same_segment(self.mask)
@@ -154,10 +168,12 @@ class SubsampleCase:
     """The f32 fused subsampling's entry points at the flagship window."""
 
     bind = staticmethod(S._bind)
+    SHAPE = (2, 16384, 80, 256)  # B, T, F, C
 
-    def __init__(self):
+    def __init__(self, shape=None):
         g = torch.Generator(device="cuda").manual_seed(1)
-        B, T, F, C = SUB_SHAPE
+        self.shape = tuple(shape or self.SHAPE)
+        B, T, F, C = self.shape
         self.x = torch.randn(B, T, F, generator=g, device="cuda")
         shapes = {"k9": (9, C), "dw1": (9, C), "dw2": (9, C), "pw1": (C, C), "pw2": (C, C)}
         self.ws = []
@@ -171,7 +187,7 @@ class SubsampleCase:
         self.ref = [S.fused_subsample_reference(self.x, *self.ws), ref_gx] + ref_gws
 
     def outputs(self, lib):
-        B, T, F, C = SUB_SHAPE
+        B, T, F, C = self.shape
         so = lib.load()
         stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty(self.ref[0].shape, device="cuda")  # the plain version's is a permuted view
@@ -201,10 +217,15 @@ class SubsampleCase:
         errs = rel_errs(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + grads, self.ref)
         return fwd, bwd, errs
 
+    def report(self, calls):
+        """Each variant's forward and backward by kernel."""
+        return {"by_kernel": {name: {"fwd": profile_kernels(fwd), "bwd": profile_kernels(bwd)}
+                              for name, (fwd, bwd, _) in calls.items()}}
+
     def library(self):
         """The ``"conv"`` path's cuDNN stack (no masks), f32."""
         F_ = torch.nn.functional
-        C = SUB_SHAPE[3]
+        C = self.shape[3]
         k9, b0, dw1, bdw1, pw1, bpw1, dw2, bdw2, pw2, bpw2 = self.ws
         w = [k9.t().reshape(C, 1, 3, 3), b0]
         for dw, bdw, pw, bpw in ((dw1, bdw1, pw1, bpw1), (dw2, bdw2, pw2, bpw2)):
@@ -224,6 +245,53 @@ class SubsampleCase:
                                 "bwd": lambda: torch.autograd.grad(out, w, g, retain_graph=True)}
 
 
+class SoftdtwCase:
+    """The soft-DTW kernels' entry points at the benchmark's shape."""
+
+    bind = staticmethod(SD._bind)
+    SHAPE = (4, 256, 256)  # B, N, M: kernels.softdtw.benchmark's defaults
+
+    def __init__(self, shape=None):
+        self.shape = tuple(shape or self.SHAPE)
+        B, N, M = self.shape
+        g = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(B, N, 64, generator=g, device="cuda")
+        y = torch.randn(B, M, 64, generator=g, device="cuda")
+        self.D = SD.pairwise_sq_dist(x, y).contiguous()
+        self.R = SD.forward_R_reference(self.D, 1.0)
+        self.E = SD.backward_E_reference(self.D, self.R, 1.0)
+
+    def outputs(self, lib):
+        B, N, M = self.D.shape
+        so = lib.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        R, E = torch.empty_like(self.R), torch.empty_like(self.D)
+
+        def fwd():
+            lib.check(so.dae_softdtw_fwd(self.D.data_ptr(), R.data_ptr(), B, N, M, 1.0, stream),
+                      "soft-DTW forward")
+
+        def bwd():
+            lib.check(so.dae_softdtw_bwd(self.D.data_ptr(), self.R.data_ptr(), E.data_ptr(), B, N,
+                                         M, 1.0, stream), "soft-DTW backward")
+
+        fwd()
+        bwd()
+        torch.cuda.synchronize()
+        errs = {"R": ((R - self.R).abs() / self.R.abs().clamp_min(1.0)).max().item(),
+                "E": ((E - self.E).abs().max() / self.E.abs().max()).item()}
+        return fwd, bwd, errs
+
+    def report(self, calls):
+        return {}
+
+    def library(self):
+        return "library_ms", {}
+
+
+CASES = {"attention": AttentionCase, "subsample": SubsampleCase, "softdtw": SoftdtwCase}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--module", choices=sorted(SOURCES), default="attention")
@@ -232,13 +300,15 @@ def main(argv=None):
     ap.add_argument("--sources", nargs="*", default=[], help="more variants, name=path each")
     ap.add_argument("--unchecked", nargs="*", default=[],
                     help="variants timed but not held to the plain version, name=path each")
+    ap.add_argument("--shape", type=int, nargs="+", default=None,
+                    help="the case's shape in place of the module's (B T H D, B T F C, B N M)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    case = {"attention": AttentionCase, "subsample": SubsampleCase}[args.module]()
+    case = CASES[args.module](args.shape)
     libs = {name: CudaLibrary(path, case.bind) for name, path in
             variant_sources(args.module, args.steps, args.parent,
                             args.sources + args.unchecked).items()}
@@ -266,19 +336,11 @@ def main(argv=None):
         times[name]["fwd"].append(events_ms(fwd))
         times[name]["bwd"].append(events_ms(bwd))
     key, library = case.library()
-    result = {"card": card, "module": args.module,
-              "shape": SHAPE if args.module == "attention" else SUB_SHAPE,
+    result = {"card": card, "module": args.module, "shape": case.shape,
               "variants": {name: {"fwd_ms": times[name]["fwd"], "bwd_ms": times[name]["bwd"],
                                   "max_rel_err": calls[name][2], "checked": name not in unchecked}
                            for name in libs},
-              key: {kind: events_ms(fn) for kind, fn in library.items()}}
-    if args.module == "attention":
-        result["lengths"] = LENGTHS
-    else:
-        for name in libs:
-            fwd, bwd, _ = calls[name]
-            result["variants"][name]["by_kernel"] = {"fwd": profile_kernels(fwd),
-                                                     "bwd": profile_kernels(bwd)}
+              key: {kind: events_ms(fn) for kind, fn in library.items()}, **case.report(calls)}
     print(json.dumps({f"{args.module}_variants": result}))
 
 

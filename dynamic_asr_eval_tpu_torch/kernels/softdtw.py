@@ -11,10 +11,15 @@ Counterpart of the JAX package's ``kernels/softdtw.py``:
   ``use_pallas=False``, or on the CPU, both directions run the plain
   anti-diagonal versions below, as JAX runs XLA without a kernel.
 - :func:`forward_R_reference` / :func:`backward_E_reference`: the plain
-  versions, one vectorised update per anti-diagonal.
+  versions, one vectorised update per anti-diagonal.  The backward is the
+  composition of its two stages, as the E kernel splits it:
+  :func:`backward_weights_reference` (the three weights of every cell, from
+  D and R alone) and :func:`backward_E_from_weights` (the E recursion).
 - The Sakoe-Chiba band stays outside the kernels (:func:`_apply_band`), and
   :func:`pairwise_sq_dist` is one batched matmul, as in JAX.
 - ``fwd_launches`` / ``bwd_launches`` count kernel launches.
+- :func:`chain_step` times one step of each direction's dependent chain on
+  the card, alone: the chain floor of the kernels.
 """
 
 from __future__ import annotations
@@ -100,15 +105,18 @@ def forward_R_reference(D: torch.Tensor, gamma: float) -> torch.Tensor:
     return R
 
 
-def backward_E_reference(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Cuturi-Blondel backward: E [B, N, M] = ∂R[N, M]/∂D.
+def backward_weights_reference(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Tensor:
+    """The backward's weights W [3, B, N, M] of each cell (i, j), 1-based in
+    R: exp of ``(R[nb] - R[i, j] - D[nb]) / γ`` for its lower neighbour
+    (i+1, j), its right (i, j+1) and its lower right (i+1, j+1), with R's last
+    row and column read as -INF, R[N+1, M+1] as R[N, M] and D as 0 outside.
 
-    Each weight is exp of ``(R[nb] - R[cell] - D[nb]) / γ``, which is <= 0 in
-    exact arithmetic (softmin <= min); it is clamped at 0.  JAX's
-    ``_backward_E`` does not clamp: next to a band, R - D of a cell outside
-    it is a difference of two INF-sized f32 values, a multiple of 1024, whose
-    exp overflows, and 0 · inf makes NaN gradients inside the band.
-    Elsewhere the clamp changes nothing."""
+    Each exponent is <= 0 in exact arithmetic (softmin <= min); it is clamped
+    at 0.  JAX's ``_backward_E`` does not clamp: next to a band, R - D of a
+    cell outside it is a difference of two INF-sized f32 values, a multiple of
+    1024, whose exp overflows, and 0 · inf makes NaN gradients inside the
+    band.  Elsewhere the clamp changes nothing.  The weights need no E, so
+    the kernel computes them off the E chain."""
     B, N, M = D.shape
     D_ = torch.zeros((B, N + 2, M + 2), dtype=D.dtype, device=D.device)
     D_[:, 1:N + 1, 1:M + 1] = D
@@ -116,20 +124,36 @@ def backward_E_reference(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torc
     R_[:, :, M + 1] = -INF
     R_[:, N + 1, :] = -INF
     R_[:, N + 1, M + 1] = R[:, N, M]
-    E = torch.zeros((B, N + 2, M + 2), dtype=D.dtype, device=D.device)
+    r = R_[:, 1:N + 1, 1:M + 1]
+
+    def weight(di, dj):
+        nb = (slice(None), slice(1 + di, N + 1 + di), slice(1 + dj, M + 1 + dj))
+        return torch.exp(torch.clamp((R_[nb] - r - D_[nb]) / gamma, max=0.0))
+
+    return torch.stack([weight(1, 0), weight(0, 1), weight(1, 1)])
+
+
+def backward_E_from_weights(W: torch.Tensor) -> torch.Tensor:
+    """The Cuturi-Blondel recursion over the anti-diagonals in reverse, from
+    the weights W [3, B, N, M] of :func:`backward_weights_reference`:
+    E[i, j] = E[i+1, j] a + E[i, j+1] b + E[i+1, j+1] c, with E[N+1, M+1] = 1
+    and 0 elsewhere outside.  → E [B, N, M]."""
+    _, B, N, M = W.shape
+    E = torch.zeros((B, N + 2, M + 2), dtype=W.dtype, device=W.device)
     E[:, N + 1, M + 1] = 1.0
-
-    def weight(di, dj, r, i, j):
-        return torch.exp(torch.clamp((R_[:, i + di, j + dj] - r - D_[:, i + di, j + dj]) / gamma,
-                                     max=0.0))
-
+    a, b, c = W
     for k in range(N + M - 2, -1, -1):
-        i = _diagonal(k, N, M, D.device) + 1
+        i = _diagonal(k, N, M, W.device) + 1
         j = k - i + 2
-        r = R_[:, i, j]
-        E[:, i, j] = (E[:, i + 1, j] * weight(1, 0, r, i, j) + E[:, i, j + 1] * weight(0, 1, r, i, j)
-                      + E[:, i + 1, j + 1] * weight(1, 1, r, i, j))
+        E[:, i, j] = (E[:, i + 1, j] * a[:, i - 1, j - 1] + E[:, i, j + 1] * b[:, i - 1, j - 1]
+                      + E[:, i + 1, j + 1] * c[:, i - 1, j - 1])
     return E[:, 1:N + 1, 1:M + 1]
+
+
+def backward_E_reference(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Cuturi-Blondel backward: E [B, N, M] = ∂R[N, M]/∂D, the weights
+    first, then the recursion."""
+    return backward_E_from_weights(backward_weights_reference(D, R, gamma))
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +196,23 @@ def _kernel_bwd(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Tensor:
     LIBRARY.check(code, "soft-DTW backward")
     bwd_launches += 1
     return E
+
+
+def chain_step(backward: bool = False, steps: int = 1 << 16) -> dict:
+    """One step of the forward's (``backward``: the backward's) dependent
+    chain, run alone on the current card by one warp through the kernels' own
+    step (``chain_kernel`` of ``csrc/softdtw.cu``), for ``steps`` steps:
+    ``{"cycles": SM cycles a step, "ns": nanoseconds a step, "mhz": the SM
+    clock it ran at}``.  N + M - 1 such steps are the least time the kernel
+    can take.  Counts no launch: it computes no soft-DTW."""
+    # bound here, not in _bind: other sources of the kernels (attention_variants) lack it
+    chain = LIBRARY.load().dae_softdtw_chain
+    chain.restype = ctypes.c_int
+    chain.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * 3)()
+    LIBRARY.check(chain(int(backward), steps, out), "soft-DTW chain")
+    cycles, ns, n = out
+    return {"cycles": cycles / n, "ns": ns / n, "mhz": cycles / ns * 1e3}
 
 
 def _validate(D: torch.Tensor, gamma: float, use_pallas: bool) -> None:

@@ -4,6 +4,8 @@ kernels round where the plain version rounds, phase 4's kernel names,
 phase 9's checkpoint round trip (at a small width) and phase 10's launch
 checks on the AWMC path."""
 
+import json
+
 import pytest
 import torch
 
@@ -488,3 +490,33 @@ def test_check_stitched_refuses_a_gap_and_non_finite_values():
     good[3, 2] = np.nan
     with pytest.raises(AssertionError, match="finite False"):
         chip_smoke.check_stitched("case", good, 128, cfg)
+
+
+def test_softdtw_chain_reads_the_kernels_constants():
+    from dynamic_asr_eval_tpu_torch.kernels import softdtw as D
+
+    text = D.SOURCE.read_text()
+    for name in ("PANEL", "CHUNK", "FWD_WARPS", "BWD_WARPS"):
+        value = chip_smoke.softdtw_constant(D, name)
+        assert f"constexpr int {name} = {value};" in text
+    assert chip_smoke.SDTW_STRIP[1] == 32  # a single strip: one warp, no ring to wait on
+
+
+def test_softdtw_chain_floor_is_the_steps_at_one_steps_latency(monkeypatch, capsys):
+    from dynamic_asr_eval_tpu_torch.kernels import softdtw as D
+
+    steps = {"fwd": {"cycles": 90.0, "ns": 50.0, "mhz": 1800.0},
+             "bwd": {"cycles": 36.0, "ns": 20.0, "mhz": 1800.0}}
+    monkeypatch.setattr(D, "chain_step",
+                        lambda backward=False: dict(steps["bwd" if backward else "fwd"]))
+    # the kernels on the strip: 544 steps (a 512-column panel takes 543,
+    # rounded up to chunks of 8) in each of 8 panels
+    monkeypatch.setattr(chip_smoke, "softdtw_kernel_ms", lambda D_, shape, iters: (0.8704, 0.4352))
+    floors = chip_smoke.softdtw_chain(D, "card", ((4, 256, 256), (1, 64, 64)))
+    assert floors["(4, 256, 256)"] == pytest.approx({"fwd": 511 * 50e-6, "bwd": 511 * 20e-6})
+    assert floors["(1, 64, 64)"] == pytest.approx({"fwd": 127 * 50e-6, "bwd": 127 * 20e-6})
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["softdtw_chain"]
+    assert line["chain_step"] == steps and line["floor_ms"] == floors
+    strip = line["single_strip"]
+    assert strip["steps"] == 8 * 544
+    assert strip["step_ns"] == pytest.approx({"fwd": 0.8704e6 / 4352, "bwd": 0.4352e6 / 4352})

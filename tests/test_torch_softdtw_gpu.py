@@ -28,8 +28,12 @@ def _D(cuda, B, N, M, bandwidth, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,M,gamma,bandwidth", [(2, 300, 200, 1.0, 0), (3, 150, 140, 0.1, 30),
-                                                   (1, 7, 600, 0.5, 0)])
+@pytest.mark.parametrize("B,N,M,gamma,bandwidth", [
+    (2, 300, 200, 1.0, 0), (3, 150, 140, 0.1, 30), (1, 7, 600, 0.5, 0),
+    # the utterance engine's shapes (B 1, T_ds 64 to ~2k), several panels of
+    # the kernels at 2048, a single row and a single column, and a small γ
+    (1, 64, 64, 1.0, 0), (1, 512, 512, 1.0, 0), (1, 2048, 2048, 1.0, 0),
+    (1, 2048, 2048, 1.0, 100), (1, 1, 300, 1.0, 0), (1, 33, 1, 1.0, 0), (2, 100, 90, 0.01, 0)])
 def test_kernels_match_plain_versions(cuda, B, N, M, gamma, bandwidth):
     D = _D(cuda, B, N, M, bandwidth)
     R = S.softdtw_R(D, gamma)
@@ -59,3 +63,25 @@ def test_autograd_function_launches_each_kernel_once(cuda):
 def test_cuda_tensor_of_another_type_raises(cuda):
     with pytest.raises(TypeError):
         S.soft_dtw(torch.zeros(1, 8, 8, device=cuda, dtype=torch.float16), 1.0, 0, use_pallas=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M", [(1, 512, 512), (3, 150, 700)])
+def test_kernels_repeat_bit_for_bit(cuda, B, N, M):
+    D = _D(cuda, B, N, M, 0, seed=2)
+    R = S.softdtw_R(D, 1.0)
+    E = S.softdtw_E(D, R, 1.0)
+    assert torch.equal(S.softdtw_R(D, 1.0), R)
+    assert torch.equal(S.softdtw_E(D, R, 1.0), E)
+
+
+@pytest.mark.gpu
+def test_chain_step_times_the_dependent_chain(cuda):
+    before = (S.fwd_launches, S.bwd_launches)
+    fwd, bwd = S.chain_step(), S.chain_step(backward=True)
+    assert (S.fwd_launches, S.bwd_launches) == before  # it computes no soft-DTW
+    # forward: a shuffle, a select, adds, two ex2, an FMA and a lg2 on the
+    # chain; backward: a shuffle, a select and an FMA
+    assert 10 < bwd["cycles"] < fwd["cycles"] < 1000
+    assert all(500 < x["mhz"] < 2500 for x in (fwd, bwd))
+    assert fwd["ns"] == pytest.approx(fwd["cycles"] / fwd["mhz"] * 1e3)
