@@ -32,6 +32,9 @@ Phases (each raises on failure; the script then exits non-zero):
      held against the plain version on the bf16 tensors
      (``check_subsample_rounding``: every output within 2 bf16 ulps of its
      max, at most 2 % of out's and 15 % of gx's elements differing);
+   - the bf16 subsampling with ``relu`` (the NeMo preset's activation) at
+     the flagship window, forward and backward with gx, with the same checks
+     (every launch of that activation, each backward with gx);
    - both bf16 kernels at AWMC's batch-1 shapes, with the same checks:
      attention [1, 2048, 6, 128] with length 2048 and 1792 (the ragged last
      window), subsampling [1, 16384, 80];
@@ -63,7 +66,10 @@ Phases (each raises on failure; the script then exits non-zero):
    clock it ran at, beside the kernels' own time a step on a single strip of
    32 rows (one warp, 4096 columns), which is not a bound (a
    ``{"softdtw_chain": ...}`` line).
-   The port never calls a
+   The subsampling is also timed forward with ``relu`` and backward with gx
+   (the entropy pass's), its bound adding stage 0's input gradient and gx's
+   bytes, beside the plain version and cuDNN's backward with the input
+   gradient.  The port never calls a
    library yardstick.  Then one subsampling forward and one backward of
    each route (bf16 and f32) under torch.profiler, broken down by kernel (a
    ``{"subsample_breakdown": ...}`` line);
@@ -114,7 +120,10 @@ Phases (each raises on failure; the script then exits non-zero):
    ``"pallas_flash"``, ``"pallas"``) saved as a DAE1 file and reloaded by
    ``load_any_checkpoint`` (state dict bit for bit, config field for
    field); the same weights as a reference ``{"model", "config"}`` torch
-   pickle, reloaded (the same tensors; its config names no kernel);
+   pickle, reloaded (the same tensors; its config names no kernel); the
+   flagship with batch-renorm mid-norms and moved running statistics as a
+   reference pickle whose config names no norm: reloaded as batch renorm bit
+   for bit, its log-probs on the card within 1e-3 of the in-memory model's;
 10. the AWMC main path: ``evals/run_dynamic_eval_full.py`` ``main`` with
    ``--awmc --checkpoint`` the DAE1 file, on phase 5's recording (online, 1
    epoch, lr 9e-5); the launch counters are zeroed just before and read just
@@ -203,15 +212,44 @@ Phases (each raises on failure; the script then exits non-zero):
    ``{"protocols": ...}`` line: plan, windows adapted and evaluated, walls
    (first, warm), engine seconds, the adapting engine's re-inference
    seconds (timed apart), ms per adapted window (adaptation alone: the
-   adapting engine's seconds less its re-inference), launches, card.
+   adapting engine's seconds less its re-inference), launches, card;
+17. entropy augmentation: ``evals/run.py`` ``main`` with ``-kwargs
+   entropy_augmentation_enabled=true --profile build/profiles/phase17``
+   on phase 5's recording, flagship, bf16, ``"pallas"`` subsampling: per
+   adapted window exactly 12 attention forwards and 12 backwards (the
+   batch-1 entropy pass and the batch-2 step) and 2 subsampling forwards and
+   2 backwards, exactly one of them with gx (``gx_launches``), all bf16;
+   stitched log-probs finite, weights moved; the Chrome trace of repeat 0
+   exists and holds CUDA kernels (kept gzipped); the first window's
+   perturbation in f32, max |delta| beside max |aug| (finite, non-zero);
+   peak memory above what the phase began with; 17b its profile (``"path": "entropy"``) and an
+   ``{"entropy_path": ...}`` line;
+18. the NeMo preset: ``stt_en_fastconformer_ctc_large`` (17 layers, d 512,
+   8 heads x 64, vocab 1024, ``rel_pos``, ``input_xscale``, biases,
+   ``batch_norm``, relu x8 dw-striding with 256 channels) with
+   ``"pallas"`` subsampling, bf16, its weights random from a seed as a
+   NeMo-named state dict through ``convert_nemo_state_dict`` (running
+   statistics mean ~ N(0, 0.1), var ~ U(0.5, 2)), saved as DAE1 and driven
+   by ``evals/run.py`` ``main --checkpoint`` on phase 5's recording with a
+   1024-piece vocabulary: per window 0 attention launches (``rel_pos`` is
+   plain PyTorch in both packages) and exactly 1 subsampling forward and 1
+   backward, no gx, all bf16 and relu; stitched log-probs finite, weights
+   moved, peak memory above what the phase began with; the preset at full depth in f32 through the f32
+   subsampling kernel against the plain subsampling version on lengths
+   [4000, 3000], within 1e-3 on valid frames (``nemo_parity_launches``);
+   18b its profile (``"path": "nemo"``: ms per window, RTFx, warm, 3 runs)
+   and a ``{"nemo_path": ...}`` line.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
 ``lm_launches`` on the ``-lm`` path, ``tlm_launches`` on the transformer-LM
-path, ``consistency_launches`` on the consistency path and
-``protocol_launches`` over the first runs of phases 16-16c, each read from
-its own runs; ``f32_path_launches`` for the f32 attention and subsampling,
-from phase 5c), and last
+path, ``consistency_launches`` on the consistency path,
+``protocol_launches`` over the first runs of phases 16-16c,
+``entropy_launches`` (phase 17) and ``nemo_launches`` (phase 18), each read
+from its own runs; ``f32_path_launches`` for the f32 attention and
+subsampling, from phase 5c; the subsampling backwards' ``entropy_gx_launches``
+and ``nemo_gx_launches``, its ``gx_ms`` / ``gx_bound_ms`` /
+``gx_library_ms``, and the bf16 forward's ``relu_ms``), and last
 ``{"ok": true, "device": {...}}``.  TF32 stays off throughout for PyTorch's
 matmuls and convolutions; cuDNN's deterministic algorithms are on only
 inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c), so the timed
@@ -242,6 +280,13 @@ BF16_DIFF_SHARE = 0.05
 # of max |plain| for every output, share of differing elements for out and gx
 SUB_BF16_ULPS = 2.0
 SUB_DIFF_SHARE = {"out": 0.02, "gx": 0.15}
+# relu's derivative jumps at 0: where the kernels' and the plain version's
+# pre-activations straddle 0 by rounding, their gradients differ there by the
+# whole local gradient, which no element-wise bar on gx can hold; gx is held
+# by its L2 error relative to the plain version's and the share of its
+# elements beyond FWD_TOL of max (the weight gradients, sums over every
+# position, and out keep the element-wise bars)
+RELU_GX = {"rel_l2": 1e-2, "share": 1e-3}
 ATTENTION_KEY_TILE = 64  # keys per tile of the bf16 forward kernel
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
@@ -508,40 +553,48 @@ def subsample_inputs(S, B, T, F, C, dtype, seed=0):
     return x, ws, gout
 
 
-def check_subsample(S, shape, dtype):
+def check_subsample(S, shape, dtype, act="silu"):
     x, ws, gout = subsample_inputs(S, *shape, dtype)
     S.reset_counters()
-    out = S.fused_subsample_fwd(x, ws)
-    gx, gws = S.fused_subsample_bwd(x, ws, gout)
-    gx2, gws2 = S.fused_subsample_bwd(x, ws, gout)
+    out = S.fused_subsample_fwd(x, ws, act)
+    gx, gws = S.fused_subsample_bwd(x, ws, gout, act)
+    gx2, gws2 = S.fused_subsample_bwd(x, ws, gout, act)
     route = S.ROUTES[dtype]
-    if S.route_launches[route] != [1, 2]:
-        raise AssertionError(f"fused subsampling {dtype}: launches by route {S.route_launches}, "
-                             f"expected {route} only")
-    ref = S.fused_subsample_reference(x.float(), *ws)
-    ref_gx, ref_gws = S.fused_subsample_reference_bwd(x.float(), ws, gout.float(), "silu", True)
+    if (S.route_launches[route] != [1, 2] or S.act_launches[act] != [1, 2]
+            or S.gx_launches != 2):
+        raise AssertionError(f"fused subsampling {dtype} {act}: launches by route "
+                             f"{S.route_launches}, by activation {S.act_launches}, gx "
+                             f"{S.gx_launches}; expected {route} and {act} only, gx 2")
+    ref = S.fused_subsample_reference(x.float(), *ws, act_name=act)
+    ref_gx, ref_gws = S.fused_subsample_reference_bwd(x.float(), ws, gout.float(), act, True)
     torch.cuda.synchronize()
-    what = f"fused subsampling {dtype} {shape}"
+    what = f"fused subsampling {dtype} {act} {shape}"
     if not (torch.equal(gx, gx2) and all(torch.equal(a, b) for a, b in zip(gws, gws2))):
         raise AssertionError(f"{what}: the backward does not repeat bit for bit")
+    if act == "relu" and dtype == torch.bfloat16:
+        errs = check_close(what, [("out", out, ref)], FWD_TOL[dtype])
+        errs.update(check_subsample_relu_rounding(S, what, x, ws, gout, out, gx, gws))
+        log(f"  {what} ({route}): out {errs['out']:.2e} of the plain version in f32; backward "
+            f"repeats bit for bit")
+        return errs
     errs = check_close(what, zip(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + gws,
                                  [ref, ref_gx] + ref_gws), FWD_TOL[dtype])
     log(f"  {what} ({route}): out {errs['out']:.2e}, gx {errs['gx']:.2e}, "
         f"weights {max(errs[n] for n in S.WEIGHT_NAMES):.2e}; backward repeats bit for bit")
     if dtype == torch.bfloat16:
-        check_subsample_rounding(S, what, x, ws, gout, out, gx, gws)
+        check_subsample_rounding(S, what, x, ws, gout, out, gx, gws, act)
     return errs
 
 
-def check_subsample_rounding(S, what, x, ws, gout, out, gx, gws):
+def check_subsample_rounding(S, what, x, ws, gout, out, gx, gws, act="silu"):
     """The bf16 kernels against the plain version on the same bf16 tensors,
     which rounds where the TPU kernel (and so the kernels) round.  Every
     output within SUB_BF16_ULPS bf16 ulps of its max |plain|; the share of
     elements that differ at all within SUB_DIFF_SHARE for out and gx (the
     weight gradients are f32 sums taken in another order, so all of their
     elements differ a little)."""
-    r_out = S.fused_subsample_reference(x, *ws)
-    r_gx, r_gws = S.fused_subsample_reference_bwd(x, ws, gout, "silu", True)
+    r_out = S.fused_subsample_reference(x, *ws, act_name=act)
+    r_gx, r_gws = S.fused_subsample_reference_bwd(x, ws, gout, act, True)
     torch.cuda.synchronize()
     report, worst = [], 0.0
     for name, a, b in zip(("out", "gx") + S.WEIGHT_NAMES, [out, gx] + gws, [r_out, r_gx] + r_gws):
@@ -558,6 +611,42 @@ def check_subsample_rounding(S, what, x, ws, gout, out, gx, gws):
                                  f"of max")
     log(f"    against the plain version rounding as the kernels: {', '.join(report)}, "
         f"weights <= {worst:.2f} ulp")
+
+
+def check_subsample_relu_rounding(S, what, x, ws, gout, out, gx, gws):
+    """The bf16 kernels with ``relu`` against the plain version on the same
+    bf16 tensors: out within SUB_BF16_ULPS bf16 ulps of its max and at most
+    SUB_DIFF_SHARE["out"] of its elements differing; each weight gradient
+    within FWD_TOL of its max; gx by RELU_GX (L2 error relative to the plain
+    gx, share of elements beyond FWD_TOL of max) and at most
+    SUB_DIFF_SHARE["gx"] of its elements differing.  Returns {name: max
+    |err|} (out's against the plain version in f32 comes from the caller)."""
+    r_out = S.fused_subsample_reference(x, *ws, act_name="relu")
+    r_gx, r_gws = S.fused_subsample_reference_bwd(x, ws, gout, "relu", True)
+    torch.cuda.synchronize()
+    tol = FWD_TOL[torch.bfloat16]
+    ulps = (out.float() - r_out.float()).abs().max().item() / bf16_ulp(
+        r_out.float().abs().max().item())
+    share = {"out": (out != r_out).float().mean().item(), "gx": (gx != r_gx).float().mean().item()}
+    if not (ulps <= SUB_BF16_ULPS and share["out"] <= SUB_DIFF_SHARE["out"]):
+        raise AssertionError(f"{what} against the rounding plain version: out {ulps:.2f} ulps, "
+                             f"{share['out']:.4f} of elements differ")
+    errs = check_close(what, zip(S.WEIGHT_NAMES, gws, [g.float() for g in r_gws]), tol)
+    err = (gx.float() - r_gx.float()).abs()
+    scale = r_gx.float().abs().max().item()
+    rel_l2 = (err.norm() / r_gx.float().norm()).item()
+    beyond = (err > tol * scale).float().mean().item()
+    if not (rel_l2 <= RELU_GX["rel_l2"] and beyond <= RELU_GX["share"]
+            and share["gx"] <= SUB_DIFF_SHARE["gx"]):
+        raise AssertionError(f"{what} against the rounding plain version: gx relative L2 "
+                             f"{rel_l2:.3e}, {beyond:.2e} of elements beyond {tol} of max, "
+                             f"{share['gx']:.4f} differ")
+    errs["gx"] = err.max().item()
+    log(f"    against the plain version rounding as the kernels: out {ulps:.2f} ulp, "
+        f"{share['out']:.4f} differ; weights <= {max(errs[n] for n in S.WEIGHT_NAMES):.2e}; gx "
+        f"relative L2 {rel_l2:.2e}, {beyond:.2e} beyond {tol} of max (kinks), "
+        f"{share['gx']:.4f} differ")
+    return errs
 
 
 def conv_weights(S, ws, dtype):
@@ -584,10 +673,12 @@ def conv_stack(x, w):
 
 
 def subsample_work(B, T, F, C, dtype):
-    """(flops, bytes, pointwise-product flops) of the forward and of the
-    backward on the main path (no gx): stage 0, both depthwise convs and both
-    pointwise products; the backward recomputes the forward and adds the
-    input and weight gradients of each."""
+    """(flops, bytes, pointwise-product flops) of the forward, of the
+    backward on the main path (no gx) and of the backward with gx (the
+    entropy pass): stage 0, both depthwise convs and both pointwise
+    products; the backward recomputes the forward and adds the input and
+    weight gradients of each but stage 0's input gradient, which gx adds
+    (as many operations as stage 0, and gx written once)."""
     from dynamic_asr_eval_tpu_torch.kernels.subsample import ceil_chain
 
     T0, T1, T2 = ceil_chain(T)
@@ -597,8 +688,10 @@ def subsample_work(B, T, F, C, dtype):
     weights = (32 * C + 2 * C * C) * 4
     x_bytes, out_bytes = B * T * F * esize, M2 * C * esize
     fwd = stage0 + dw + pw
+    bwd = fwd + 2 * pw + 2 * dw + stage0
     return {"fwd": (fwd, x_bytes + out_bytes + weights, pw),
-            "bwd": (fwd + 2 * pw + 2 * dw + stage0, x_bytes + out_bytes + 2 * weights, 3 * pw)}
+            "bwd": (bwd, x_bytes + out_bytes + 2 * weights, 3 * pw),
+            "bwd_gx": (bwd + stage0, 2 * x_bytes + out_bytes + 2 * weights, 3 * pw)}
 
 
 def tf32x3_bound(flops, products, nbytes):
@@ -615,6 +708,8 @@ def time_subsample(S, dtype=torch.bfloat16):
     lw = conv_weights(S, ws, dtype)
     lib_out = conv_stack(x, lw)
     g_nchw = gout.permute(0, 3, 1, 2).contiguous()
+    xg = x.detach().requires_grad_(True)
+    lib_out_gx = conv_stack(xg, lw)
     t = {
         "fwd": cuda_ms(lambda: S.fused_subsample_fwd(x, ws)),
         "bwd": cuda_ms(lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=False)),
@@ -623,6 +718,13 @@ def time_subsample(S, dtype=torch.bfloat16):
         "fwd_library": cuda_ms(lambda: conv_stack(x, lw)),
         "bwd_library": cuda_ms(lambda: torch.autograd.grad(lib_out, lw, g_nchw, retain_graph=True)),
         "fwd_bwd_library": cuda_ms(lambda: torch.autograd.grad(conv_stack(x, lw), lw, g_nchw)),
+        # the entropy pass's backward (with gx) and the NeMo preset's relu
+        "bwd_gx": cuda_ms(lambda: S.fused_subsample_bwd(x, ws, gout, need_gx=True)),
+        "bwd_gx_plain": cuda_ms(lambda: S.fused_subsample_reference_bwd(x, ws, gout, "silu", True),
+                                iters=5),
+        "bwd_gx_library": cuda_ms(lambda: torch.autograd.grad(lib_out_gx, [xg] + lw, g_nchw,
+                                                              retain_graph=True)),
+        "fwd_relu": cuda_ms(lambda: S.fused_subsample_fwd(x, ws, "relu")),
     }
     work = subsample_work(*SUB_FLAGSHIP, dtype)
     if dtype == torch.float32:
@@ -986,7 +1088,7 @@ def check_subsample_model(params, S):
     return launches
 
 
-def check_checkpoints(tmp):
+def check_checkpoints(tmp, device="cuda"):
     """Phase 9: the flagship's seed-0 weights through a DAE1 file and a
     reference torch pickle; returns the DAE1 file's path."""
     import dataclasses
@@ -1017,7 +1119,44 @@ def check_checkpoints(tmp):
         f"{t2 - t1:.2f} s, {len(state)} tensors bit for bit, config field for field; reference "
         f"pickle reloaded bit for bit (its config names no kernel: attention "
         f"{ref_cfg.attention_impl!r}, subsampling {ref_cfg.subsampling_impl!r})")
+    check_batch_renorm_reference(tmp, model_cfg, device)
     return dae
+
+
+def check_batch_renorm_reference(tmp, model_cfg, device="cuda"):
+    """Phase 9, batch renorm: the flagship with batch-renorm mid-norms and
+    moved running statistics (mean ~ N(0, 0.1), var ~ U(0.5, 2)) as a
+    reference pickle whose config names no norm: reloaded as batch renorm,
+    bit for bit, and on the card its log-probs are the in-memory model's."""
+    from dynamic_asr_eval_tpu_torch.models import ConformerConfig, init_conformer
+    from dynamic_asr_eval_tpu_torch.models.checkpoint import load_any_checkpoint
+
+    cfg = ConformerConfig(default_norm="batch_renorm", **model_cfg)
+    model = init_conformer(cfg, seed=0)
+    g = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for layer in model.layers:
+            norm = layer.conv.norm_mid
+            norm.running_mean.copy_(0.1 * torch.randn(norm.running_mean.shape, generator=g))
+            norm.running_var.copy_(0.5 + 1.5 * torch.rand(norm.running_var.shape, generator=g))
+    path = os.path.join(tmp, "flagship_batch_renorm.pt")
+    torch.save({"model": model.state_dict(), "config": {"model": model_cfg}}, path)
+    loaded, state, loaded_cfg = load_any_checkpoint(path)
+    if loaded_cfg != cfg or state.keys() != model.state_dict().keys() or not all(
+            torch.equal(state[k], v) for k, v in model.state_dict().items()):
+        raise AssertionError(f"batch-renorm reference pickle: config {loaded_cfg} or weights "
+                             f"differ from the in-memory model's")
+    x = torch.randn(1, cfg.feat_in, 4000, generator=g).to(device)
+    lengths = torch.tensor([3001], device=device)
+    with torch.no_grad():
+        a, b = loaded.to(device)(x, lengths), model.to(device)(x, lengths)
+    err = valid_frame_err(a, b)
+    if not (err <= 1e-3 and torch.isfinite(a["final_posteriors"]).all()):
+        raise AssertionError(f"batch-renorm reference pickle: log-probs {err:.3e} from the "
+                             f"in-memory model's")
+    log(f"  batch-renorm reference pickle: default_norm {loaded_cfg.default_norm!r} from the "
+        f"running statistics, {len(state)} tensors bit for bit; log-probs on the card "
+        f"{err:.2e} from the in-memory model's")
 
 
 def check_awmc_run(cfg, launches, routes, wer, detail, recorder):
@@ -2085,6 +2224,266 @@ def drive(label, cfg, kernel_modules, expect, card, check_model):
     return launches, routes, model_launches, profile
 
 
+# ---------------------------------------------------------------------------
+# phases 17 and 18: entropy augmentation, the NeMo preset
+# ---------------------------------------------------------------------------
+
+
+def entropy_plan(n_layers):
+    """Phase 17's launches per adapted window: the entropy pass (a batch-1
+    forward and backward, the backward with gx) and the adaptation step (a
+    batch-2 forward and backward)."""
+    return {"attention": (2 * n_layers, 2 * n_layers), "subsample": (2, 2), "softdtw": (0, 0),
+            "gx": 1}
+
+
+# rel_pos is plain attention in both packages
+NEMO_PLAN = {"attention": (0, 0), "subsample": (1, 1), "softdtw": (0, 0), "gx": 0}
+
+
+def check_path_launches(what, launches, routes, gx, plan, windows=N_WINDOWS, acts=None,
+                        act=None):
+    """Exact per-window launches (``plan``: module → (fwd, bwd), and ``gx``
+    the backwards with gx), every launch on the bf16 route, and with
+    ``act`` every subsampling launch of that activation."""
+    check_launches(launches, {k: v for k, v in plan.items() if k != "gx"}, windows, exact=True)
+    check_routes(what, launches, routes)
+    if gx != plan["gx"] * windows:
+        raise AssertionError(f"{what}: {gx} subsampling backwards with gx, expected "
+                             f"{plan['gx'] * windows}")
+    if act is not None and any(tuple(c) != (tuple(launches["subsample"]) if a == act else (0, 0))
+                               for a, c in acts.items()):
+        raise AssertionError(f"{what}: subsampling launches by activation {acts}, expected "
+                             f"{act} only")
+
+
+def check_profile_trace(directory):
+    """``--profile``'s Chrome trace of repeat 0: it exists and holds CUDA
+    kernels; kept gzipped (Perfetto reads it so).  Returns (events, CUDA
+    kernel events, bytes)."""
+    import gzip
+    import shutil
+
+    from dynamic_asr_eval_tpu_torch.evals.common import PROFILE_TRACE
+
+    path = os.path.join(directory, PROFILE_TRACE)
+    if not os.path.isfile(path):
+        raise AssertionError(f"--profile wrote no trace: {os.listdir(directory)}")
+    nbytes = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError("--profile's trace holds no CUDA kernel")
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
+    return len(events), kernels, nbytes
+
+
+def entropy_delta(recorder):
+    """The entropy perturbation of the recording's first window, f32, from
+    the pristine weights: (max |δ|, max |augmented window|)."""
+    import numpy as np
+
+    engine, ((params, spec),) = recorder.engine, recorder.calls
+    spec = np.asarray(spec)
+    spec = spec[0] if spec.ndim == 3 else spec
+    engine._load(params)
+    window = torch.as_tensor(spec[:, :SEQ], device=engine.device).float()
+    aug = engine._augment(window[None], engine._generator(0), SEQ)
+    delta = engine._entropy_delta(aug, SEQ)
+    d_max, a_max = delta.abs().max().item(), aug.abs().max().item()
+    if not (torch.isfinite(delta).all() and d_max > 0):
+        raise AssertionError(f"entropy perturbation not finite or zero: max |delta| {d_max}")
+    return d_max, a_max
+
+
+def entropy_path(card, A, S, D, profile_dir):
+    """Phase 17: ``evals.run.main -kwargs entropy_augmentation_enabled=true
+    --profile DIR`` at the flagship, bf16, ``"pallas"`` subsampling."""
+    cfg = flagship_config(subsampling_impl="pallas")
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    wer, wall, launches, routes, detail, recorder = main_path(
+        cfg, {"attention": A, "subsample": S, "softdtw": D}, flags=("--profile", profile_dir),
+        kwargs=("entropy_augmentation_enabled=true",))
+    gx = S.gx_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - start_gb
+    log(f"  WER {wer}; launches {launches}, gx {gx}; by route {routes}; evals.run wall "
+        f"{wall:.3f} s (first run, under the profiler); peak device memory {peak_gb:.2f} GB "
+        f"above the {start_gb:.2f} GB held when the phase began")
+    check_path_launches("entropy NSTI", launches, routes, gx, entropy_plan(cfg.n_layers))
+    check_driver_output(cfg, wer, detail, recorder)
+    n_events, n_kernels, nbytes = check_profile_trace(profile_dir)
+    log(f"  --profile: {n_events} events, {n_kernels} CUDA kernels, {nbytes / 1e6:.1f} MB "
+        f"(kept gzipped in {profile_dir})")
+    d_max, a_max = entropy_delta(recorder)
+    log(f"  first window's perturbation: max |delta| {d_max:.3e} beside max |aug| {a_max:.3e} "
+        f"(f32; in bf16 it may round away inside the model)")
+    log(f"[17b] where entropy NSTI's time goes: the driver's engine, warm, on {card}")
+    profile = profile_engine(recorder, card, "entropy")
+    print(json.dumps({"entropy_path": {
+        "card": card, "launches": launches, "gx_launches": gx, "peak_gb": peak_gb,
+        "start_gb": start_gb,
+        "delta_max": d_max, "aug_max": a_max, "trace_events": n_events,
+        "trace_kernels": n_kernels, "ms_per_window": profile["ms_per_window"],
+        "rtfx": profile["rtfx"]}}))
+    return launches, routes, gx
+
+
+def synthetic_nemo_state(cfg, seed=0):
+    """A NeMo ``ConformerEncoder`` + ``ConvASRDecoder`` state dict with
+    NeMo's names and shapes for ``cfg``, random from ``seed``: kernels
+    lecun-normal, biases and norm offsets ~ N(0, 0.02), norm scales ~ 1 +
+    N(0, 0.02), ``pos_bias_u`` / ``_v`` ~ N(0, 0.02), running statistics
+    mean ~ N(0, 0.1) and var ~ U(0.5, 2)."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def kernel(name, shape, fan_in):
+        sd[name] = torch.randn(shape, generator=g) / math.sqrt(fan_in)
+
+    def small(name, shape, centre=0.0):
+        sd[name] = centre + 0.02 * torch.randn(shape, generator=g)
+
+    def dense(prefix, n_out, n_in, bias=True):
+        kernel(f"{prefix}.weight", (n_out, n_in), n_in)
+        if bias:
+            small(f"{prefix}.bias", (n_out,))
+
+    d, C, H, D, K = (cfg.d_model, cfg.subsampling_conv_channels, cfg.n_heads, cfg.head_dim,
+                     cfg.conv_kernel_size)
+    kernel("encoder.pre_encode.conv.0.weight", (C, 1, 3, 3), 9)
+    small("encoder.pre_encode.conv.0.bias", (C,))
+    for i in range({2: 1, 4: 2, 8: 3}[cfg.subsampling_factor] - 1):
+        kernel(f"encoder.pre_encode.conv.{2 + 3 * i}.weight", (C, 1, 3, 3), 9)
+        small(f"encoder.pre_encode.conv.{2 + 3 * i}.bias", (C,))
+        kernel(f"encoder.pre_encode.conv.{3 + 3 * i}.weight", (C, C, 1, 1), C)
+        small(f"encoder.pre_encode.conv.{3 + 3 * i}.bias", (C,))
+    f_ds = cfg.feat_in
+    for _ in range({2: 1, 4: 2, 8: 3}[cfg.subsampling_factor]):
+        f_ds = -(-f_ds // 2)
+    dense("encoder.pre_encode.out", d, C * f_ds)
+    for n in range(cfg.n_layers):
+        e = f"encoder.layers.{n}"
+        for norm in ("norm_feed_forward1", "norm_self_att", "norm_conv", "norm_feed_forward2",
+                     "norm_out"):
+            small(f"{e}.{norm}.weight", (d,), 1.0)
+            small(f"{e}.{norm}.bias", (d,))
+        for f in (1, 2):
+            dense(f"{e}.feed_forward{f}.linear1", cfg.expansion_factor * d, d)
+            dense(f"{e}.feed_forward{f}.linear2", d, cfg.expansion_factor * d)
+        for x in "qkv":
+            dense(f"{e}.self_attn.linear_{x}", H * D, d)
+        dense(f"{e}.self_attn.linear_out", d, H * D)
+        dense(f"{e}.self_attn.linear_pos", H * D, d, bias=False)
+        small(f"{e}.self_attn.pos_bias_u", (H, D))
+        small(f"{e}.self_attn.pos_bias_v", (H, D))
+        kernel(f"{e}.conv.pointwise_conv1.weight", (2 * d, d, 1), d)
+        small(f"{e}.conv.pointwise_conv1.bias", (2 * d,))
+        kernel(f"{e}.conv.depthwise_conv.weight", (d, 1, K), K)
+        small(f"{e}.conv.depthwise_conv.bias", (d,))
+        small(f"{e}.conv.batch_norm.weight", (d,), 1.0)
+        small(f"{e}.conv.batch_norm.bias", (d,))
+        sd[f"{e}.conv.batch_norm.running_mean"] = 0.1 * torch.randn((d,), generator=g)
+        sd[f"{e}.conv.batch_norm.running_var"] = 0.5 + 1.5 * torch.rand((d,), generator=g)
+        sd[f"{e}.conv.batch_norm.num_batches_tracked"] = torch.tensor(1000)
+        kernel(f"{e}.conv.pointwise_conv2.weight", (d, d, 1), d)
+        small(f"{e}.conv.pointwise_conv2.bias", (d,))
+    kernel("decoder.decoder_layers.0.weight", (cfg.n_classes, d, 1), d)
+    small("decoder.decoder_layers.0.bias", (cfg.n_classes,))
+    return sd
+
+
+def check_nemo_subsample_model(cfg, params, S):
+    """Phase 18, parity: the preset at full depth in f32 with ``"pallas"``
+    subsampling, through the f32 subsampling kernel (relu) against the same
+    model on the plain subsampling version, on lengths [4000, 3000]
+    (multiples of 8), within 1e-3 on valid frames.  Returns the f32 route's
+    (fwd, bwd) launches."""
+    import dataclasses
+
+    import dynamic_asr_eval_tpu_torch.models.conformer as conformer
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+    from dynamic_asr_eval_tpu_torch.models import SCConformer
+
+    model = SCConformer(dataclasses.replace(cfg, compute_dtype=torch.float32)).cuda()
+    model.load_state_dict({k: v.float() for k, v in params.items()})
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, cfg.feat_in, 4000, generator=g, device="cuda")
+    lengths = torch.tensor([4000, 3000], device="cuda")
+    route = S.ROUTES[torch.float32]
+    S.reset_counters()
+    with deterministic_cudnn(), torch.no_grad():
+        a = model(x, lengths)
+        torch.cuda.synchronize()
+        launches, relu = tuple(S.route_launches[route]), tuple(S.act_launches["relu"])
+        kernel_entry = conformer.fused_subsample
+        conformer.fused_subsample = S.fused_subsample_reference
+        try:
+            b = model(x, lengths)
+        finally:
+            conformer.fused_subsample = kernel_entry
+    err = valid_frame_err(a, b)
+    if not (err <= 1e-3 and launches == (1, 0) and relu == (1, 0)
+            and torch.isfinite(a["final_posteriors"]).all()):
+        raise AssertionError(f"NeMo preset f32: subsampling kernel vs plain {err:.3e} (> 1e-3?); "
+                             f"f32 launches {launches}, relu {relu}")
+    log(f"  full-depth f32 NeMo preset, subsampling kernel (relu, {route}) vs plain version on "
+        f"valid frames: {err:.2e}")
+    return launches
+
+
+def nemo_path(tmp, card, A, S, D):
+    """Phase 18: the NeMo preset at full width (17 x 512, 8 x 64 heads,
+    vocab 1024, ``rel_pos``, relu subsampling, ``"pallas"``, bf16) from a
+    synthetic NeMo state dict, saved as DAE1 and driven through
+    ``evals.run.main --checkpoint`` with a 1024-piece vocabulary."""
+    import dataclasses
+
+    from dynamic_asr_eval_tpu_torch.models.checkpoint import save_checkpoint
+    from dynamic_asr_eval_tpu_torch.models.nemo_convert import (
+        convert_nemo_state_dict,
+        load_default_instance,
+    )
+
+    cfg = dataclasses.replace(load_default_instance(), subsampling_impl="pallas")
+    t0 = time.time()
+    state = convert_nemo_state_dict(synthetic_nemo_state(cfg), cfg)
+    dae = os.path.join(tmp, "nemo.dae")
+    save_checkpoint(dae, state, cfg)
+    vocab_dir = os.path.join(tmp, "nemo_vocab")
+    os.makedirs(vocab_dir, exist_ok=True)
+    vocab = write_vocab(vocab_dir, cfg.vocab_size)
+    log(f"  synthetic NeMo state dict converted and saved ({os.path.getsize(dae) / 1e6:.1f} MB "
+        f"DAE1) in {time.time() - t0:.2f} s")
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    wer, wall, launches, routes, detail, recorder = main_path(
+        None, {"attention": A, "subsample": S, "softdtw": D},
+        flags=("--checkpoint", dae, "--tokenizer", vocab))
+    gx, acts = S.gx_launches, {a: tuple(c) for a, c in S.act_launches.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - start_gb
+    log(f"  WER {wer}; launches {launches}, gx {gx}; by route {routes}; by activation {acts}; "
+        f"evals.run wall {wall:.3f} s (first run); peak device memory {peak_gb:.2f} GB above "
+        f"the {start_gb:.2f} GB held when the phase began")
+    run_cfg = recorder.engine.model.config
+    if run_cfg != cfg:
+        raise AssertionError(f"the driver ran {run_cfg}, not the preset {cfg}")
+    check_path_launches("NeMo NSTI", launches, routes, gx, NEMO_PLAN, acts=acts, act="relu")
+    params = check_driver_output(cfg, wer, detail, recorder)
+    parity = check_nemo_subsample_model(cfg, params, S)
+    log(f"[18b] where the NeMo preset's time goes: the driver's engine, warm, on {card}")
+    profile = profile_engine(recorder, card, "nemo")
+    print(json.dumps({"nemo_path": {
+        "card": card, "launches": launches, "gx_launches": gx, "act_launches": acts,
+        "peak_gb": peak_gb, "start_gb": start_gb, "ms_per_window": profile["ms_per_window"],
+        "rtfx": profile["rtfx"],
+        "engine_walls_ms": profile["engine_walls_ms"]}}))
+    return launches, routes, gx, parity
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2135,6 +2534,7 @@ def main() -> int:
         check_subsample(S, SUB_RAGGED, dtype)
     for batch in (1, 4):  # AWMC's windows; the evaluation engine's batches
         check_subsample(S, (batch,) + SUB_FLAGSHIP[1:], torch.bfloat16)
+    errs[("sub_relu", torch.bfloat16)] = check_subsample(S, SUB_FLAGSHIP, torch.bfloat16, "relu")
     for shape, bandwidth in SDTW_CASES:
         e = check_softdtw(D, shape, bandwidth)
         if shape == SDTW_BENCH:
@@ -2240,6 +2640,22 @@ def main() -> int:
 
     protocol_runs = protocol_phases(card, A, S, D)
 
+    log(f"[17] entropy augmentation: evals.run.main -kwargs entropy_augmentation_enabled=true "
+        f"--profile, NSTI on the {N_FRAMES}-frame recording, flagship, bf16, "
+        f"subsampling_impl='pallas', on {card}")
+    profile_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profiles",
+                               "phase17")
+    if os.path.isdir(profile_dir):  # this script's own output of an earlier run
+        import shutil
+
+        shutil.rmtree(profile_dir)
+    entropy_counts, entropy_routes, entropy_gx = entropy_path(card, A, S, D, profile_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[18] the NeMo preset: stt_en_fastconformer_ctc_large at full width from a synthetic "
+            f"NeMo state dict, evals.run.main --checkpoint (DAE1), NSTI on the {N_FRAMES}-frame "
+            f"recording, bf16, subsampling_impl='pallas', on {card}")
+        nemo_counts, nemo_routes, nemo_gx, nemo_parity = nemo_path(tmp, card, A, S, D)
+
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
                "fused_subsample": "fused_subsample_bf16.cu",
@@ -2278,6 +2694,8 @@ def main() -> int:
     lm_launches = by_kernel(lm_routes, lm_counts)
     tlm_launches = by_kernel(tlm_routes, tlm_counts)
     consistency_launches = by_kernel(cons_routes, cons_counts)
+    entropy_launches = by_kernel(entropy_routes, entropy_counts)
+    nemo_launches = by_kernel(nemo_routes, nemo_counts)
     protocol_launches = {}  # phases 16, 16b and 16c together
     for counts_, routes_ in protocol_runs:
         for name, counts in by_kernel(routes_, counts_).items():
@@ -2293,6 +2711,9 @@ def main() -> int:
         ("flash_attention_f32", "fwd"): (errs[("attn", torch.float32)], ("out",)),
         ("flash_attention_f32", "bwd"): (errs[("attn", torch.float32)], ("dq", "dk", "dv")),
         ("fused_subsample", "fwd"): (errs[("sub", torch.bfloat16)], ("out",)),
+        ("fused_subsample_relu", "fwd"): (errs[("sub_relu", torch.bfloat16)], ("out",)),
+        ("fused_subsample_relu", "bwd"): (errs[("sub_relu", torch.bfloat16)],
+                                          ("gx",) + S.WEIGHT_NAMES),
         ("fused_subsample", "bwd"): (errs[("sub", torch.bfloat16)], ("gx",) + S.WEIGHT_NAMES),
         ("fused_subsample_f32", "fwd"): (errs[("sub", torch.float32)], ("out",)),
         ("fused_subsample_f32", "bwd"): (errs[("sub", torch.float32)], ("gx",) + S.WEIGHT_NAMES),
@@ -2316,6 +2737,21 @@ def main() -> int:
                 extra.update(library_kernels=library_kernels[kind])
             if name == "softdtw":
                 extra.update(chain_floor_ms=bnd[f"{kind}_chain"][0])
+            if name == "fused_subsample_f32":
+                extra.update(nemo_parity_launches=nemo_parity[i])
+            if name == "fused_subsample":  # phase 3's relu case, phase 4's relu forward
+                relu_e, relu_keys = err_keys[("fused_subsample_relu", kind)]
+                extra.update(relu_max_abs_err=max(relu_e[k] for k in relu_keys),
+                             relu_ms=t["fwd_relu"] if kind == "fwd" else None)
+            if name.startswith("fused_subsample") and kind == "bwd":
+                # the backward with gx (the entropy pass's): its launches on the
+                # entropy and NeMo paths (all bf16), its times and bound
+                bf16 = name == "fused_subsample"
+                extra.update(entropy_gx_launches=entropy_gx if bf16 else 0,
+                             nemo_gx_launches=nemo_gx if bf16 else 0,
+                             gx_ms=t["bwd_gx"], gx_plain_ms=t["bwd_gx_plain"],
+                             gx_library_ms=t["bwd_gx_library"], gx_bound_ms=bnd["bwd_gx"][0],
+                             gx_bound_by=bnd["bwd_gx"][1])
             kernels.append({
                 "name": f"{name}_{kind}",
                 "route": "cuda",
@@ -2327,6 +2763,8 @@ def main() -> int:
                 "tlm_launches": tlm_launches[name][i],
                 "consistency_launches": consistency_launches[name][i],
                 "protocol_launches": protocol_launches[name][i],
+                "entropy_launches": entropy_launches[name][i],
+                "nemo_launches": nemo_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

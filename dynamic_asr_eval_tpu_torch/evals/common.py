@@ -15,6 +15,7 @@ ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -113,18 +114,21 @@ def load_language_model(args, tokenizer):
 
 
 def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_eval",
-                 device=None, lm_adapter=None) -> DynamicEvalEngine:
+                 device=None, lm_adapter=None, tokenizer=None) -> DynamicEvalEngine:
     """The ``engine_kind`` engine (``"dynamic_eval"``: NSTI; ``"awmc"``;
     ``"consistency"``).  ``lm_adapter`` gives the NSTI engine LM-fused
     pseudo-labels when ``lm_tta_beams > 0``; AWMC and consistency keep
-    greedy teachers, as in the JAX package."""
+    greedy teachers, as in the JAX package.  ``tokenizer`` goes to the NSTI
+    engine only (``pseudo_label_retokenize``, ``print_pseudo_labels``)."""
     tta = TTAConfig.from_args(args)
     if getattr(args, "dp", False) or getattr(args, "dp_records", False):
         raise NotImplementedError(
             "--dp / --dp_records are not ported yet (ROADMAP queue 1 item 19)")
     kwargs = {}
+    if tokenizer is not None and engine_kind == "dynamic_eval":
+        kwargs["tokenizer"] = tokenizer
     if lm_adapter is not None and engine_kind == "dynamic_eval" and tta.lm_tta_beams > 0:
-        kwargs = {"lm_adapter": lm_adapter, "lm_beam_kwargs": lm_kwargs(args)}
+        kwargs.update(lm_adapter=lm_adapter, lm_beam_kwargs=lm_kwargs(args))
     transfer = torch.float32
     if cfg.compute_dtype == torch.bfloat16 and not bool(vars(args).get("f32_transfer", False)):
         # the model casts its input to bf16 anyway; the window copy is half
@@ -253,7 +257,8 @@ def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
     decode (greedy, or the LM beam with ``--beams`` above 1; with
     ``--decode_batch`` N above 1 too, N records are adapted before their
     decodes, as the JAX package groups them), normalizer, corpus WER, a log
-    line, the result pickle.  Returns the mean WER."""
+    line, the result pickle.  With ``--profile DIR``, repeat 0 runs under
+    :func:`profile_to`.  Returns the mean WER."""
     wers = []
     repeats = getattr(args, "repeats", 1)
     seed = getattr(args, "seed", None)
@@ -283,11 +288,14 @@ def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
             return [(normalize(decode_output(out, tokenizer, beam_search_fn, beams)), gold)
                     for out, gold in outs]
 
-        if beam_search_fn is not None and beams > 1 and decode_batch > 1:
-            wer, detail = evaluate_records_grouped(records, run_group, decode_batch,
-                                                   verbose=verbose)
-        else:
-            wer, detail = evaluate_records(records, run_one, verbose=verbose)
+        profile_dir = getattr(args, "profile", "")
+        with (profile_to(profile_dir) if profile_dir and repeat == 0
+              else contextlib.nullcontext()):
+            if beam_search_fn is not None and beams > 1 and decode_batch > 1:
+                wer, detail = evaluate_records_grouped(records, run_group, decode_batch,
+                                                       verbose=verbose)
+            else:
+                wer, detail = evaluate_records(records, run_one, verbose=verbose)
         print(f"WER: {wer}")
         append_log(getattr(args, "log", ""), log_line(wer))
         if getattr(args, "save_path", ""):
@@ -296,6 +304,24 @@ def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
     mean_wer = sum(wers) / len(wers)
     print(f"Average WER: {mean_wer}")
     return mean_wer
+
+
+PROFILE_TRACE = "repeat_0.pt.trace.json"
+
+
+@contextlib.contextmanager
+def profile_to(directory: str):
+    """A ``torch.profiler`` trace of the enclosed work (host ops, and CUDA
+    kernels where there is a card) written into ``directory`` as the Chrome
+    trace :data:`PROFILE_TRACE` (TensorBoard's profiler plugin and Perfetto
+    read it): the port's form of JAX's ``jax.profiler.trace``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(directory, PROFILE_TRACE))
 
 
 def save_result_pickle(save_path: str, detail: Dict, args, repeat: int, repeats: int) -> str:

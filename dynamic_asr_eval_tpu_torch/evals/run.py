@@ -6,8 +6,9 @@ torch pickle), decode the stitched posteriors (greedy; with ``-lm
 <file>.arpa --beams N`` the LM-fused beam search, which with ``lm_tta_beams
 > 0``, the default, also gives the NSTI pseudo-labels; ``--decode_batch N``
 adapts N records before their decodes), normalize, corpus WER, log and result
-pickle, repeated ``-r`` times with a distinct seed per repeat.  ``--tp`` is
-accepted and means something only with ``--dp``, not ported yet.  Runs on
+pickle, repeated ``-r`` times with a distinct seed per repeat; ``--profile
+DIR`` writes a ``torch.profiler`` Chrome trace of repeat 0 into DIR.  ``--tp``
+is accepted and means something only with ``--dp``, not ported yet.  Runs on
 ``cuda`` unless ``--device cpu`` is given.
 
 CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run -d synthetic -kwargs
@@ -32,7 +33,6 @@ from dynamic_asr_eval_tpu_torch.models import ConformerConfig
 _NOT_PORTED = {
     "dp": "--dp (data-parallel windowed inference, ROADMAP queue 1 item 19)",
     "dp_records": "--dp_records (records-level data parallelism, ROADMAP queue 1 item 19)",
-    "profile": "--profile",
 }
 
 
@@ -53,7 +53,8 @@ def main(args, model_config: Optional[ConformerConfig] = None,
         args, config=model_config, jax_params=jax_params)
     records = get_dataset(args.dataset, args.split)
     lm_adapter, beam_search_fn = load_language_model(args, tokenizer)
-    engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter)
+    engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter,
+                          tokenizer=tokenizer)
     return evaluate_repeats(
         args, engine, params, tokenizer, records,
         lambda wer: (f"{getattr(args, 'checkpoint', '')}\t overlap: {args.overlap}\t "
@@ -76,7 +77,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--decode_batch", type=int, default=1,
                         help="with -lm, adapt this many records before decoding them")
     parser.add_argument("--tokenizer", type=str, default="")
-    parser.add_argument("--profile", type=str, default="", help="not ported yet")
+    parser.add_argument("--profile", type=str, default="",
+                        help="write a torch.profiler trace of repeat 0 to this dir")
     parser.add_argument("--quiet", action="store_true")
     return apply_args(parser, argv)
 

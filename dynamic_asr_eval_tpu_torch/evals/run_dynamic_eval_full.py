@@ -49,7 +49,8 @@ def main(args, model_config: Optional[ConformerConfig] = None,
     model, params, tokenizer, cfg = load_model_and_tokenizer(
         args, config=model_config, jax_params=jax_params)
     lm_adapter, beam_search_fn = load_language_model(args, tokenizer)
-    engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter)
+    engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter,
+                          tokenizer=tokenizer)
     records = get_dataset(args.dataset, args.split)
     name = ENGINES[engine_kind].__name__
     return evaluate_repeats(args, engine, params, tokenizer, records,

@@ -33,8 +33,10 @@ whose valid length is not a multiple of 8.
 - :func:`fused_subsample_reference` is the plain PyTorch version
   (``F.conv2d``), rounding to the compute dtype where the TPU kernel does.
 - ``fwd_launches`` / ``bwd_launches`` count kernel launches of either route,
-  ``route_launches[route]`` = [forward, backward] per route (the plain path
-  does not count).
+  ``route_launches[route]`` = [forward, backward] per route,
+  ``act_launches[act]`` = [forward, backward] per activation, and
+  ``gx_launches`` the backward launches that also computed the input
+  gradient (the plain path does not count).
 
 Bound on the H100 and what each design does about it: see the headers of the
 two sources.
@@ -63,14 +65,17 @@ WEIGHT_NAMES = ("k9", "b0", "dw1", "bdw1", "pw1", "bpw1", "dw2", "bdw2", "pw2", 
 # several kernels, one after another)
 fwd_launches = 0
 bwd_launches = 0
+gx_launches = 0
 route_launches = {route: [0, 0] for route in ROUTES.values()}
+act_launches = {act: [0, 0] for act in _ACT_CODES}
 
 
 def reset_counters() -> None:
-    global fwd_launches, bwd_launches
+    global fwd_launches, bwd_launches, gx_launches
     fwd_launches = 0
     bwd_launches = 0
-    for counts in route_launches.values():
+    gx_launches = 0
+    for counts in (*route_launches.values(), *act_launches.values()):
         counts[:] = [0, 0]
 
 
@@ -194,12 +199,13 @@ def _kernel_fwd(x, weights, act_name):
     library.check(code, f"fused subsampling forward ({route})")
     fwd_launches += 1
     route_launches[route][0] += 1
+    act_launches[act_name][0] += 1
     return out
 
 
 def _kernel_bwd(x, weights, g, act_name, need_gx):
     """(gx or None, [10 weight gradients in f32])."""
-    global bwd_launches
+    global bwd_launches, gx_launches
     route = ROUTES[x.dtype]
     library = LIBRARIES[route]
     lib = library.load()
@@ -218,7 +224,9 @@ def _kernel_bwd(x, weights, g, act_name, need_gx):
                                        work.data_ptr(), stream)
     library.check(code, f"fused subsampling backward ({route})")
     bwd_launches += 1
+    gx_launches += int(need_gx)
     route_launches[route][1] += 1
+    act_launches[act_name][1] += 1
     grads = list(torch.split(gw, [wt.numel() for wt in weights]))
     return gx, [gr.view(wt.shape) for gr, wt in zip(grads, weights)]
 

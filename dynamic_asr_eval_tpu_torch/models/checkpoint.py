@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``models/checkpoint.py`` for the conformer
 - :func:`save_checkpoint` / :func:`load_checkpoint` — the DAE1 container:
   magic ``b"DAE1"``, a ``<I`` header length, a JSON header ``{"config",
   "extra"}`` (``compute_dtype`` as a dtype name), then the variables tree
-  ``{"params": ...}`` in flax's MessagePack layout, written and read by
+  ``{"params": ...}`` (and ``"batch_stats"``, the running statistics of
+  batch-renorm mid-norms) in flax's MessagePack layout, written and read by
   :mod:`.msgpack_codec` (no flax, no msgpack).  The weights cross between
   the port's names and the flax paths through :mod:`.convert`, so a file
   either package writes loads in the other.  The header carries the whole
@@ -19,14 +20,15 @@ Counterpart of the JAX package's ``models/checkpoint.py`` for the conformer
   then a strict=False overlay onto a fresh :func:`init_conformer`: init values
   kept for missing keys, extras dropped, any shape mismatch raises.  The
   port's model carries the lcasr names, so this is a ``load_state_dict``,
-  with no conversion.  A reference file's config names no kernel, so it runs
+  with no conversion (mid-norms with running statistics load into a
+  batch-renorm model; their ``num_batches_tracked`` is dropped, as JAX's
+  rules drop it).  A reference file's config names no kernel, so it runs
   the defaults (``"xla"`` attention, ``"conv"`` subsampling), as in JAX.
 - :func:`load_any_checkpoint` — sniffs the format.
 
 Each loader returns ``(model, params, config)``: an ``SCConformer`` on the
-CPU, its state dict, and its ``ConformerConfig``.  Options the port has not
-ported (batch-renorm mid-norms, ``rel_pos``, a ``batch_stats`` collection,
-...) raise ``NotImplementedError``.
+CPU, its state dict (running statistics included), and its
+``ConformerConfig``.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from dynamic_asr_eval_tpu_torch.models.conformer import (
     SCConformer,
     init_conformer,
 )
-from dynamic_asr_eval_tpu_torch.models.convert import params_from_jax, params_to_jax
+from dynamic_asr_eval_tpu_torch.models.convert import params_from_jax, variables_to_jax
 
 _MAGIC = b"DAE1"
 
@@ -72,7 +74,7 @@ def save_checkpoint(path: str, params: Union[Mapping[str, torch.Tensor], torch.n
     cfg_d = dataclasses.asdict(config)
     cfg_d["compute_dtype"] = _dtype_name(config.compute_dtype)
     header = json.dumps({"config": cfg_d, "extra": extra or {}}).encode("utf-8")
-    payload = msgpack_codec.packb(_sorted_tree({"params": params_to_jax(params)}))
+    payload = msgpack_codec.packb(_sorted_tree(variables_to_jax(params)))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(_MAGIC)
@@ -97,15 +99,12 @@ def load_checkpoint(path: str):
     cfg_d = dict(header["config"])
     cfg_d["compute_dtype"] = cfg_d.get("compute_dtype", "bfloat16")
     config = ConformerConfig.from_dict(cfg_d)
-    model = SCConformer(config)  # raises on options not ported yet
+    model = SCConformer(config)  # raises on options not ported
     variables = msgpack_codec.unpackb(payload)
-    if "batch_stats" in variables:
-        raise NotImplementedError(
-            f"{path}: a batch_stats collection (batch-renorm mid-norms) is not ported "
-            "yet (ROADMAP queue 1 item 15)")
-    if set(variables) != {"params"}:
-        raise ValueError(f"{path}: variables {sorted(variables)}, expected only 'params'")
-    model.load_state_dict(params_from_jax(variables["params"]), strict=True)
+    if "params" not in variables or not set(variables) <= {"params", "batch_stats"}:
+        raise ValueError(f"{path}: variables {sorted(variables)}, expected 'params' "
+                         "(and 'batch_stats')")
+    model.load_state_dict(params_from_jax(variables), strict=True)
     return model, _loaded(model), config
 
 
@@ -320,6 +319,8 @@ def load_reference_torch_checkpoint(path: str, compute_dtype: Any = None, verbos
     if compute_dtype is not None:
         merged["compute_dtype"] = compute_dtype
     config = ConformerConfig.from_dict(merged)
+    if config.default_norm in ("batch_renorm", "batch_norm"):
+        state = {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
     model, missing, extra = _overlay_on_init(config, state)
     if verbose:
         for w in warns:

@@ -14,12 +14,29 @@ weights drives both.  Semantics followed line by line:
   between stages, as the JAX package's fused kernel (the two differ on a
   window whose length is not a multiple of 8); other shapes take the conv
   path, as in JAX;
+  the ``"xla"``, ``"hybrid"`` and ``"conv_tapbwd"`` lowerings are TPU
+  formulations of the ``"conv"`` math (same parameters, same per-stage
+  masks) and run the conv path here; ``subsampling_norm_out`` adds a
+  LayerNorm after ``out`` on every lowering; ``input_xscale`` scales the
+  embedding by √d_model;
 - macaron blocks: ½-FF → MHSA → conv module → ½-FF → ``norm_out``;
 - rotary embedding on half-split pairs, cos/sin in f32;
 - attention: ``attention_impl="pallas_flash"`` runs the Hopper kernel of
   :mod:`..kernels.attention` (segment semantics); ``"xla"`` runs plain
-  PyTorch attention with a −1e30 key-mask bias;
-- conv module: pw1 → GLU → mask → depthwise K → mid LayerNorm → SiLU → pw2;
+  PyTorch attention with a −1e30 key-mask bias; ``position_encoding=
+  "rel_pos"`` (NeMo's Transformer-XL attention: ``pos_bias_u`` /
+  ``pos_bias_v``, ``linear_pos`` over sinusoidal relative embeddings, the
+  pad-reshape relative shift) is plain PyTorch whatever ``attention_impl``
+  says, as in JAX, where it is plain XLA; ``bias_in_attn`` puts a bias on
+  ``qkv`` (``out`` always has one);
+- conv module: pw1 → GLU → mask → depthwise K → mid norm → SiLU → pw2; the
+  mid norm is a LayerNorm, or with ``default_norm`` ``"batch_renorm"`` /
+  ``"batch_norm"`` a :class:`BatchRenorm` (running statistics as buffers;
+  the engines read them, ``use_running_average=False`` renormalises by the
+  masked batch statistics and updates them);
+- dropout (``dropout_ff``, ``dropout_attn``, ``dropout_conv``) only when
+  ``forward`` is given ``deterministic=False`` and a ``torch.Generator``;
+  the engines never do, as JAX's never pass ``deterministic=False``;
 - shared ``decoder_norm`` + ``decoder`` CTC head, fp32 log-softmax;
   self-conditioning adds a re-embedding of ``exp(lp)`` after every block but
   the last, then re-masks;
@@ -27,9 +44,9 @@ weights drives both.  Semantics followed line by line:
   casts its input and weights to it), LayerNorm in f32 returned in the
   input's dtype (eps 1e-5), the head in f32 unless ``head_in_compute_dtype``.
 
-Not ported yet (raise ``NotImplementedError``): the ``"xla"``, ``"hybrid"``
-and ``"conv_tapbwd"`` subsampling lowerings, relative-position attention, batch-renorm mid-norms, ``input_xscale``, ``subsampling_norm_out``,
-biases in the attention projections, dropout.
+Not ported (raise ``NotImplementedError``): a subsampling other than
+``"dw_striding"``, ``seq_shard_axes`` (sequence parallelism) and an
+``attention_impl`` other than ``"xla"`` / ``"pallas_flash"``.
 """
 
 from __future__ import annotations
@@ -82,10 +99,10 @@ class ConformerConfig:
     use_rotary: bool = True
     rotary_base_freq: float = 1_500_000.0
     rotary_interpolation_factor: float = 1.0
-    position_encoding: Optional[str] = None  # "rotary" | "none" ("rel_pos" not ported)
+    position_encoding: Optional[str] = None  # "rotary" | "rel_pos" | "none"
     input_xscale: bool = False
     bias_in_attn: bool = False
-    default_norm: str = "layer_norm"
+    default_norm: str = "layer_norm"  # or "batch_renorm" / "batch_norm"
     bias_in_ff: bool = False
     checkpoint_every_n_layers: int = 0
     dropout_ff: float = 0.0
@@ -95,7 +112,9 @@ class ConformerConfig:
     attention_impl: str = "xla"  # "xla" | "pallas_flash" (kernels.attention)
     attention_logits_in_compute_dtype: bool = False
     head_in_compute_dtype: bool = False
-    subsampling_impl: str = "conv"  # "conv" | "pallas" (kernels.subsample)
+    # "conv" | "pallas" (kernels.subsample); "xla" | "hybrid" | "conv_tapbwd"
+    # run the "conv" path
+    subsampling_impl: str = "conv"
     remat_subsampling: bool = False
     seq_shard_axes: Optional[Any] = None
 
@@ -122,23 +141,25 @@ class ConformerConfig:
         return cls(**{k: v for k, v in d.items() if k in fields})
 
 
+_SUBSAMPLING_IMPLS = ("conv", "pallas", "xla", "hybrid", "conv_tapbwd")
+_BATCH_NORMS = ("batch_renorm", "batch_norm")
+
+
 def _check_supported(cfg: ConformerConfig) -> None:
     unsupported = {
         "subsampling": cfg.subsampling != "dw_striding",
-        "subsampling_impl": cfg.subsampling_impl not in ("conv", "pallas"),
-        "subsampling_norm_out": cfg.subsampling_norm_out,
-        "position_encoding": cfg.pos_encoding not in ("rotary", "none"),
-        "input_xscale": cfg.input_xscale,
-        "bias_in_attn": cfg.bias_in_attn,
-        "default_norm": cfg.default_norm != "layer_norm",
-        "dropout": bool(cfg.dropout_ff or cfg.dropout_attn or cfg.dropout_conv),
         "seq_shard_axes": cfg.seq_shard_axes is not None,
         "attention_impl": cfg.attention_impl not in ("xla", "pallas_flash"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        raise NotImplementedError(
-            f"conformer options not ported yet: {bad} (ROADMAP queue 1)")
+        raise NotImplementedError(f"conformer options not ported: {bad}")
+    if cfg.subsampling_impl not in _SUBSAMPLING_IMPLS:
+        raise ValueError(f"unknown subsampling_impl {cfg.subsampling_impl!r}")
+    if cfg.pos_encoding not in ("rotary", "rel_pos", "none"):
+        raise ValueError(f"unknown position encoding {cfg.pos_encoding!r}")
+    if cfg.default_norm not in ("layer_norm",) + _BATCH_NORMS:
+        raise ValueError(f"unknown norm kind {cfg.default_norm}")
 
 
 def _act(name: str):
@@ -191,6 +212,100 @@ def plain_attention(q, k, v, mask, compute_dtype, logits_in_compute_dtype: bool)
     return torch.einsum("bhts,bshd->bthd", attn, v.to(compute_dtype))
 
 
+def relpos_encoding(d_model: int, T: int, device=None) -> torch.Tensor:
+    """Sinusoidal embeddings of relative positions T-1 … -(T-1), [2T-1,
+    d_model] f32: index 0 is the most distant past key (NeMo's
+    ``RelPositionalEncoding`` layout); sin on even features, cos on odd."""
+    pos = torch.arange(T - 1, -T, -1, dtype=torch.float32, device=device)
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d_model))
+    ang = pos[:, None] * div[None, :]
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(2 * T - 1, d_model)
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """Transformer-XL relative shift: x [B, H, T, 2T-1] (last axis indexed
+    by embedding position k, relative distance T-1-k) → [B, H, T, T] whose
+    (i, j) is x[..., i, j - i + T - 1]; the pad-reshape trick, no gather."""
+    B, H, T, _ = x.shape
+    x = F.pad(x, (1, 0)).reshape(B, H, 2 * T, T)[:, :, 1:]
+    return x.reshape(B, H, T, 2 * T - 1)[..., :T]
+
+
+def relpos_attention(q, k, v, mask, pos, pos_bias_u, pos_bias_v, compute_dtype):
+    """The JAX package's ``rel_pos`` attention: content scores (q + u)·k and
+    relatively shifted position scores (q + v)·pos in f32, their sum over
+    √D, a −1e30 bias on padding keys, softmax in f32, probabilities in the
+    compute dtype times v.  q, k, v [B, T, H, D]; pos [2T-1, H, D]."""
+    D = q.shape[-1]
+    qf = q.float()
+    ac = torch.einsum("bthd,bshd->bhts", qf + pos_bias_u, k.float())
+    bd = torch.einsum("bthd,khd->bhtk", qf + pos_bias_v, pos.float())
+    logits = (ac + rel_shift(bd)) / math.sqrt(D)
+    bias = torch.where(mask[:, None, None, :], 0.0, -1e30)
+    attn = torch.softmax(logits + bias, dim=-1).to(compute_dtype)
+    return torch.einsum("bhts,bshd->bthd", attn, v.to(compute_dtype))
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate); the identity when ``deterministic`` or the
+    rate is 0.  Random only through an explicit ``generator``."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class BatchRenorm(nn.Module):
+    """Batch renormalisation over the feature axis of [B, T, C] inputs with
+    a time mask (the JAX package's ``BatchRenorm``; ``default_norm``
+    ``"batch_renorm"`` and ``"batch_norm"`` share it).  ``weight`` / ``bias``
+    are the affine parameters (flax ``scale`` / ``bias``), ``running_mean``
+    / ``running_var`` buffers (flax ``batch_stats`` ``mean`` / ``var``).
+    With ``use_running_average`` (what the engines run) it normalises by the
+    running statistics.  Without, by the masked batch statistics,
+    renormalised by r = std / running std clipped to [1/rmax, rmax] and d =
+    (mean - running mean) / running std clipped to [-dmax, dmax], both
+    detached, and the buffers move by ``momentum`` towards the batch's.  In
+    f32, returned in the input's dtype."""
+
+    def __init__(self, features: int, momentum: float = 0.001, eps: float = 1e-5,
+                 rmax: float = 3.0, dmax: float = 5.0):
+        super().__init__()
+        self.momentum, self.eps, self.rmax, self.dmax = momentum, eps, rmax, dmax
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                use_running_average: bool = True) -> torch.Tensor:
+        xf = x.float()
+        if use_running_average:
+            xn = (xf - self.running_mean) / torch.sqrt(self.running_var + self.eps)
+        else:
+            m = (torch.ones(x.shape[:2], device=x.device) if mask is None
+                 else mask.float())[..., None]
+            cnt = torch.clamp(m.sum((0, 1)), min=1.0)
+            mean = (xf * m).sum((0, 1)) / cnt
+            var = ((xf - mean) ** 2 * m).sum((0, 1)) / cnt
+            std = torch.sqrt(var + self.eps)
+            r_std = torch.sqrt(self.running_var + self.eps)
+            r = torch.clamp(std / r_std, 1.0 / self.rmax, self.rmax).detach()
+            d = torch.clamp((mean - self.running_mean) / r_std, -self.dmax, self.dmax).detach()
+            xn = (xf - mean) / std * r + d
+            with torch.no_grad():
+                self.running_mean.copy_((1 - self.momentum) * self.running_mean
+                                        + self.momentum * mean)
+                self.running_var.copy_((1 - self.momentum) * self.running_var
+                                       + self.momentum * var)
+        return (xn * self.weight + self.bias).to(x.dtype)
+
+
 class DWStridingSubsampling(nn.Module):
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
@@ -205,6 +320,7 @@ class DWStridingSubsampling(nn.Module):
         for _ in range(n_stages):
             f_ds = -(-f_ds // 2)
         self.out = nn.Linear(f_ds * C, cfg.d_model)
+        self.norm_out = nn.LayerNorm(cfg.d_model, eps=LN_EPS) if cfg.subsampling_norm_out else None
 
     def uses_fused_kernel(self, feat: int) -> bool:
         """The JAX module's dispatch: the fused kernel for ×8 and F % 8 == 0."""
@@ -230,7 +346,15 @@ class DWStridingSubsampling(nn.Module):
         """x [B, T, F] in the compute dtype → [B, ceil(T/factor), d_model]."""
         cd = self.cfg.compute_dtype
         if self.uses_fused_kernel(x.shape[-1]):
-            return _dense(self._fused(x.to(cd)), self.out.weight, self.out.bias, cd)
+            h = self._fused(x.to(cd))
+        else:
+            h = self._conv(x, length)
+        h = _dense(h, self.out.weight, self.out.bias, cd)
+        return h if self.norm_out is None else _layer_norm(h, self.norm_out)
+
+    def _conv(self, x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+        """The masked conv path → [B, T_ds, F_ds·C], feature-major."""
+        cd = self.cfg.compute_dtype
         act = _act(self.cfg.subsampling_act)
 
         def conv(h, layer, stride, padding, groups=1):
@@ -248,8 +372,7 @@ class DWStridingSubsampling(nn.Module):
             h = conv(h, dw, 2, 1, groups=h.shape[1])
             h = stage_mask(act(conv(h, pw, 1, 0)), i + 1)
         B, C, T_ds, F_ds = h.shape
-        h = h.permute(0, 2, 3, 1).reshape(B, T_ds, F_ds * C)  # feature-major
-        return _dense(h, self.out.weight, self.out.bias, cd)
+        return h.permute(0, 2, 3, 1).reshape(B, T_ds, F_ds * C)  # feature-major
 
 
 class FeedForward(nn.Module):
@@ -261,10 +384,12 @@ class FeedForward(nn.Module):
         self.in_proj = nn.Linear(d, d * cfg.expansion_factor, bias=cfg.bias_in_ff)
         self.out_proj = nn.Linear(d * cfg.expansion_factor, d, bias=cfg.bias_in_ff)
 
-    def forward(self, x):
-        cd = self.cfg.compute_dtype
+    def forward(self, x, deterministic=True, generator=None):
+        cd, rate = self.cfg.compute_dtype, self.cfg.dropout_ff
         h = _dense(_layer_norm(x, self.norm), self.in_proj.weight, self.in_proj.bias, cd)
-        return _dense(F.silu(h), self.out_proj.weight, self.out_proj.bias, cd)
+        h = dropout(F.silu(h), rate, deterministic, generator)
+        h = _dense(h, self.out_proj.weight, self.out_proj.bias, cd)
+        return dropout(h, rate, deterministic, generator)
 
 
 class MHSA(nn.Module):
@@ -273,24 +398,33 @@ class MHSA(nn.Module):
         self.cfg = cfg
         HD = cfg.n_heads * cfg.head_dim
         self.norm = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.qkv = nn.Linear(cfg.d_model, 3 * HD, bias=False)
+        self.qkv = nn.Linear(cfg.d_model, 3 * HD, bias=cfg.bias_in_attn)
+        if cfg.pos_encoding == "rel_pos":
+            self.pos_bias_u = nn.Parameter(torch.zeros(cfg.n_heads, cfg.head_dim))
+            self.pos_bias_v = nn.Parameter(torch.zeros(cfg.n_heads, cfg.head_dim))
+            self.linear_pos = nn.Linear(cfg.d_model, HD, bias=False)
         self.out = nn.Linear(HD, cfg.d_model)
 
-    def forward(self, x, mask, cos, sin):
+    def forward(self, x, mask, cos, sin, deterministic=True, generator=None):
         cfg = self.cfg
         cd = cfg.compute_dtype
         H, D = cfg.n_heads, cfg.head_dim
         B, T, _ = x.shape
-        qkv = _dense(_layer_norm(x, self.norm), self.qkv.weight, None, cd)
+        qkv = _dense(_layer_norm(x, self.norm), self.qkv.weight, self.qkv.bias, cd)
         q, k, v = qkv.view(B, T, 3, H, D).unbind(2)  # strided [B, T, H, D] views
         if cfg.pos_encoding == "rotary":
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
-        if cfg.attention_impl == "pallas_flash":
+        if cfg.pos_encoding == "rel_pos":  # plain in both packages, whatever attention_impl says
+            pe = relpos_encoding(cfg.d_model, T, x.device)
+            pos = _dense(pe, self.linear_pos.weight, None, cd).view(2 * T - 1, H, D)
+            out = relpos_attention(q, k, v, mask, pos, self.pos_bias_u, self.pos_bias_v, cd)
+        elif cfg.attention_impl == "pallas_flash":
             out = flash_attention(q, k, v, mask)
         else:
             out = plain_attention(q, k, v, mask, cd, cfg.attention_logits_in_compute_dtype)
-        return _dense(out.reshape(B, T, H * D), self.out.weight, self.out.bias, cd)
+        out = _dense(out.reshape(B, T, H * D), self.out.weight, self.out.bias, cd)
+        return dropout(out, cfg.dropout_attn, deterministic, generator)
 
 
 class ConvModule(nn.Module):
@@ -301,10 +435,13 @@ class ConvModule(nn.Module):
         self.norm = nn.LayerNorm(d, eps=LN_EPS)
         self.pw1 = nn.Conv1d(d, 2 * d, 1)
         self.dw = nn.Conv1d(d, d, K, groups=d)
-        self.norm_mid = nn.LayerNorm(d, eps=LN_EPS)
+        if cfg.default_norm in _BATCH_NORMS:
+            self.norm_mid = BatchRenorm(d)
+        else:
+            self.norm_mid = nn.LayerNorm(d, eps=LN_EPS)
         self.pw2 = nn.Conv1d(d, d, 1)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, deterministic=True, generator=None, use_running_average=True):
         cd = self.cfg.compute_dtype
         K = self.cfg.conv_kernel_size
         h = _dense(_layer_norm(x, self.norm), self.pw1.weight[:, :, 0], self.pw1.bias, cd)
@@ -314,8 +451,13 @@ class ConvModule(nn.Module):
         pad_l = (K - 1) // 2
         hp = F.pad(h.transpose(1, 2), (pad_l, K - 1 - pad_l))  # [B, d, T + K - 1]
         h = F.conv1d(hp, self.dw.weight.to(cd), self.dw.bias.to(cd), groups=h.shape[-1])
-        h = F.silu(_layer_norm(h.transpose(1, 2), self.norm_mid))
-        return _dense(h, self.pw2.weight[:, :, 0], self.pw2.bias, cd)
+        h = h.transpose(1, 2)
+        if isinstance(self.norm_mid, BatchRenorm):
+            h = self.norm_mid(h, mask, use_running_average)
+        else:
+            h = _layer_norm(h, self.norm_mid)
+        h = _dense(F.silu(h), self.pw2.weight[:, :, 0], self.pw2.bias, cd)
+        return dropout(h, self.cfg.dropout_conv, deterministic, generator)
 
 
 class ConformerBlock(nn.Module):
@@ -327,18 +469,23 @@ class ConformerBlock(nn.Module):
         self.ff2 = FeedForward(cfg)
         self.norm_out = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
 
-    def forward(self, x, mask, cos, sin):
-        x = x + 0.5 * self.ff1(x)
-        x = x + self.attn(x, mask, cos, sin)
-        x = x + self.conv(x, mask)
-        x = x + 0.5 * self.ff2(x)
+    def forward(self, x, mask, cos, sin, deterministic=True, generator=None,
+                use_running_average=True):
+        drop = (deterministic, generator)
+        x = x + 0.5 * self.ff1(x, *drop)
+        x = x + self.attn(x, mask, cos, sin, *drop)
+        x = x + self.conv(x, mask, *drop, use_running_average)
+        x = x + 0.5 * self.ff2(x, *drop)
         return _layer_norm(x, self.norm_out)
 
 
 class SCConformer(nn.Module):
     """``forward(audio_signal [B, feat_in, T], length [B]) -> {
     'final_posteriors' [B, T_ds, vocab+1] f32 log-probs, 'length' [B]
-    downsampled lengths, 'a_hidden' [B, T_ds, d_model]}``."""
+    downsampled lengths, 'a_hidden' [B, T_ds, d_model]}``.
+    ``deterministic=False`` with a ``generator`` applies dropout;
+    ``use_running_average=False`` runs the batch-renorm mid-norms on batch
+    statistics (and updates their running statistics)."""
 
     def __init__(self, config: ConformerConfig):
         super().__init__()
@@ -361,8 +508,9 @@ class SCConformer(nn.Module):
         logits = _dense(z, self.decoder.weight, self.decoder.bias, head_dtype)
         return torch.log_softmax(logits.float(), dim=-1)
 
-    def forward(self, audio_signal: torch.Tensor,
-                length: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, audio_signal: torch.Tensor, length: Optional[torch.Tensor] = None,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                use_running_average: bool = True) -> Dict[str, torch.Tensor]:
         cfg = self.config
         cd = cfg.compute_dtype
         x = audio_signal.transpose(1, 2)  # [B, T, F]
@@ -374,6 +522,8 @@ class SCConformer(nn.Module):
         x = torch.where(lengths_to_mask(length, T)[..., None], x, zero).to(cd)
 
         h = self.subsampling(x, length)
+        if cfg.input_xscale:  # NeMo scales the embedding by √d_model
+            h = h * torch.sqrt(torch.tensor(float(cfg.d_model))).to(h.dtype)
         T_ds = h.shape[1]
         f = cfg.subsampling_factor
         ds_length = (length + f - 1) // f
@@ -385,7 +535,7 @@ class SCConformer(nn.Module):
 
         n = len(self.layers)
         for i, block in enumerate(self.layers):
-            h = block(h, mask, cos, sin)
+            h = block(h, mask, cos, sin, deterministic, generator, use_running_average)
             if self.self_condition_reembed is not None and i < n - 1:
                 lp = self._ctc_logits(h)
                 h = h + _dense(torch.exp(lp), self.self_condition_reembed.weight, None, cd)
@@ -402,14 +552,15 @@ class SCConformer(nn.Module):
 def init_conformer(config: ConformerConfig, seed: int = 0,
                    device: Optional[torch.device] = None) -> SCConformer:
     """Random weights from ``seed`` (drawn on the CPU, so every device gets
-    the same numbers): lecun-normal kernels (std 1/√fan_in), zero biases,
-    unit LayerNorm scales."""
+    the same numbers): lecun-normal kernels (std 1/√fan_in), zero biases and
+    relative-position biases, unit norm scales, running statistics at mean
+    0 and variance 1."""
     model = SCConformer(config)
     g = torch.Generator().manual_seed(int(seed))
     for name, p in model.named_parameters():
-        if isinstance(_owner(model, name), nn.LayerNorm):
+        if isinstance(_owner(model, name), (nn.LayerNorm, BatchRenorm)):
             p.fill_(1.0 if name.endswith("weight") else 0.0)
-        elif name.endswith("bias"):
+        elif name.endswith("bias") or name.endswith(("pos_bias_u", "pos_bias_v")):
             p.zero_()
         else:
             fan_in = p[0].numel()

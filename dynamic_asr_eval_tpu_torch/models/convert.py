@@ -4,10 +4,14 @@ The port's ``SCConformer`` carries the lcasr torch parameter names, the names
 the JAX package's ``models/convert.py`` (``DEFAULT_RULES``) maps to its flax
 paths.  This module keeps its own copy of that table, in both directions:
 
-- :func:`params_from_jax` — flax ``params`` (nested dict of numpy arrays) →
-  the port's ``state_dict``; raises on any key it cannot place.
-- :func:`params_to_jax` — the inverse: the port's ``state_dict`` → the flax
-  ``params`` tree of numpy arrays in the JAX package's layouts.
+- :func:`params_from_jax` — flax ``params`` (nested dict of numpy arrays),
+  or a variables dict with ``params`` and ``batch_stats`` → the port's
+  ``state_dict``, running statistics included; raises on any key it cannot
+  place.
+- :func:`variables_to_jax` — the inverse: the port's ``state_dict`` → the
+  flax variables, ``{"params": ...}`` and, for batch-renorm mid-norms,
+  ``"batch_stats"`` (their running statistics), numpy arrays in the JAX
+  package's layouts; :func:`params_to_jax` is its ``params``.
 - :func:`jax_path` — the flax path of an lcasr name (used by the freeze
   policies, which the JAX package states on flax paths);
 - :func:`lm_params_from_jax` / :func:`lm_params_to_jax` — the same two
@@ -56,11 +60,17 @@ _TABLE: List[Tuple[str, str, str]] = [
     ("subsampling.pw_conv.{n}.bias", "subsampling/pw_conv_{n}/bias", "identity"),
     ("subsampling.out.weight", "subsampling/out/kernel", "dense"),
     ("subsampling.out.bias", "subsampling/out/bias", "identity"),
-    ("layers.{n}.ff1.in_proj.weight", "layer_{n}/ff1/in/kernel", "dense"),
-    ("layers.{n}.ff1.out_proj.weight", "layer_{n}/ff1/out/kernel", "dense"),
-    ("layers.{n}.ff2.in_proj.weight", "layer_{n}/ff2/in/kernel", "dense"),
-    ("layers.{n}.ff2.out_proj.weight", "layer_{n}/ff2/out/kernel", "dense"),
+    ("subsampling.norm_out.weight", "subsampling/norm_out/scale", "identity"),
+    ("subsampling.norm_out.bias", "subsampling/norm_out/bias", "identity"),
+    ("layers.{n}.{f}.in_proj.weight", "layer_{n}/{f}/in/kernel", "dense"),
+    ("layers.{n}.{f}.in_proj.bias", "layer_{n}/{f}/in/bias", "identity"),
+    ("layers.{n}.{f}.out_proj.weight", "layer_{n}/{f}/out/kernel", "dense"),
+    ("layers.{n}.{f}.out_proj.bias", "layer_{n}/{f}/out/bias", "identity"),
     ("layers.{n}.attn.qkv.weight", "layer_{n}/attn/qkv/kernel", "dense"),
+    ("layers.{n}.attn.qkv.bias", "layer_{n}/attn/qkv/bias", "identity"),
+    ("layers.{n}.attn.pos_bias_u", "layer_{n}/attn/pos_bias_u", "identity"),
+    ("layers.{n}.attn.pos_bias_v", "layer_{n}/attn/pos_bias_v", "identity"),
+    ("layers.{n}.attn.linear_pos.weight", "layer_{n}/attn/linear_pos/kernel", "dense"),
     ("layers.{n}.attn.out.weight", "layer_{n}/attn/out/kernel", "dense"),
     ("layers.{n}.attn.out.bias", "layer_{n}/attn/out/bias", "identity"),
     ("layers.{n}.conv.pw1.weight", "layer_{n}/conv/pw1/kernel", "conv1d_pw"),
@@ -80,6 +90,21 @@ _TABLE: List[Tuple[str, str, str]] = [
     ("decoder.weight", "decoder/kernel", "dense"),
     ("decoder.bias", "decoder/bias", "identity"),
     ("self_condition_reembed.weight", "self_condition_reembed/kernel", "dense"),
+]
+
+# batch-renorm mid-norms (``default_norm`` "batch_renorm" / "batch_norm"):
+# the affine parameters under ``BatchRenorm_0`` in ``params``, the running
+# statistics in the ``batch_stats`` collection (the JAX package's
+# ``BATCH_RENORM_RULES``)
+_BATCH_RENORM_TABLE: List[Tuple[str, str, str]] = [
+    ("layers.{n}.conv.norm_mid.weight", "layer_{n}/conv/norm/BatchRenorm_0/scale", "identity"),
+    ("layers.{n}.conv.norm_mid.bias", "layer_{n}/conv/norm/BatchRenorm_0/bias", "identity"),
+]
+_STATS_TABLE: List[Tuple[str, str, str]] = [
+    ("layers.{n}.conv.norm_mid.running_mean", "layer_{n}/conv/norm/BatchRenorm_0/mean",
+     "identity"),
+    ("layers.{n}.conv.norm_mid.running_var", "layer_{n}/conv/norm/BatchRenorm_0/var",
+     "identity"),
 ]
 
 # the transformer LM (lm/transformer_lm.py): the lming torch names that the
@@ -102,7 +127,7 @@ _LM_TABLE: List[Tuple[str, str, str]] = [
     ("head.bias", "head/bias", "identity"),
 ]
 
-_GROUPS = {"n": r"(?P<n>\d+)", "m": r"(?P<m>ff1|ff2|attn|conv)"}
+_GROUPS = {"n": r"(?P<n>\d+)", "m": r"(?P<m>ff1|ff2|attn|conv)", "f": r"(?P<f>ff1|ff2)"}
 
 
 def _regex(template: str) -> "re.Pattern":
@@ -117,6 +142,8 @@ def _compile(table):
 
 
 _COMPILED = _compile(_TABLE)
+_BATCH_RENORM_COMPILED = _compile(_BATCH_RENORM_TABLE) + _COMPILED
+_STATS_COMPILED = _compile(_STATS_TABLE)
 _LM_COMPILED = _compile(_LM_TABLE)
 
 
@@ -140,9 +167,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _from_jax(params_np: Mapping, compiled) -> Dict[str, torch.Tensor]:
-    if set(params_np) == {"params"}:
-        params_np = params_np["params"]
+def _from_jax(params_np: Mapping, compiled, what="params") -> Dict[str, torch.Tensor]:
     state, unmatched = {}, []
     for path, value in _flatten(params_np).items():
         for _, j_re, t, _, kind in compiled:
@@ -154,7 +179,7 @@ def _from_jax(params_np: Mapping, compiled) -> Dict[str, torch.Tensor]:
         else:
             unmatched.append(path)
     if unmatched:
-        raise KeyError(f"flax params with no port counterpart: {unmatched}")
+        raise KeyError(f"flax {what} with no port counterpart: {unmatched}")
     return state
 
 
@@ -180,23 +205,44 @@ def _to_jax(state: Mapping[str, torch.Tensor], compiled) -> Dict:
 
 
 def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's flax ``params`` tree (numpy leaves; a ``{'params':
-    ...}`` variables dict is accepted too) → the port's ``state_dict`` (f32
-    tensors on the CPU).  Raises on any flax path the table does not place."""
-    return _from_jax(params_np, _COMPILED)
+    """The JAX package's flax ``params`` tree (numpy leaves), or a variables
+    dict ``{'params': ..., 'batch_stats': ...}`` (``batch_stats`` optional)
+    → the port's ``state_dict`` (f32 tensors on the CPU), the running
+    statistics of batch-renorm mid-norms included.  Raises on any flax path
+    the tables do not place."""
+    if set(params_np) <= {"params", "batch_stats"} and "params" in params_np:
+        state = _from_jax(params_np["params"], _BATCH_RENORM_COMPILED)
+        if "batch_stats" in params_np:
+            state.update(_from_jax(params_np["batch_stats"], _STATS_COMPILED, "batch_stats"))
+        return state
+    return _from_jax(params_np, _BATCH_RENORM_COMPILED)
+
+
+def variables_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``state_dict`` → the JAX package's flax variables:
+    ``{"params": ...}``, plus ``"batch_stats"`` when the state carries
+    running statistics (batch-renorm mid-norms, whose affine parameters
+    then go under ``BatchRenorm_0``); nested dicts of C-contiguous f32 numpy
+    arrays.  Raises on any name the tables do not place."""
+    stat_names = {n for n in state if any(t_re.fullmatch(n) for t_re, *_ in _STATS_COMPILED)}
+    if not stat_names:
+        return {"params": _to_jax(state, _COMPILED)}
+    params = {n: v for n, v in state.items() if n not in stat_names}
+    return {"params": _to_jax(params, _BATCH_RENORM_COMPILED),
+            "batch_stats": _to_jax({n: state[n] for n in stat_names}, _STATS_COMPILED)}
 
 
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's ``state_dict`` → the JAX package's flax ``params`` tree
-    (nested dicts of C-contiguous f32 numpy arrays).  Raises on any name the
-    table does not place."""
-    return _to_jax(state, _COMPILED)
+    """The ``params`` collection of :func:`variables_to_jax`."""
+    return variables_to_jax(state)["params"]
 
 
 def lm_params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     """:func:`params_from_jax` for the transformer LM (the JAX package's
     ``convert_lm_torch_state`` inverted: kernels transposed, the rest as
     they are)."""
+    if set(params_np) == {"params"}:
+        params_np = params_np["params"]
     return _from_jax(params_np, _LM_COMPILED)
 
 

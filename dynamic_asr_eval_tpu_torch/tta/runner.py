@@ -20,10 +20,21 @@ Counterpart of the JAX package's ``tta/runner.py`` (``DynamicEvalEngine``,
 
 With an LM adapter and ``lm_tta_beams > 0`` the pseudo-labels are the top
 beam of the LM-fused beam search over the clean window
-(:func:`..ops.beam_search.beam_search_device`) instead of greedy.
+(:func:`..ops.beam_search.beam_search_device`) instead of greedy.  Options
+of ``TTAConfig``, as in the JAX engine:
 
-Not ported yet (raise ``NotImplementedError``): ``pseudo_label_retokenize``,
-entropy augmentation, the per-chunk debug print, a device mesh and the
+- ``entropy_augmentation``: after the augmentation pipeline, the augmented
+  copies move by 1e-3 · ∂ mean_entropy / ∂ copies, where mean_entropy is
+  the mean over all ``num_negatives × T_ds(W)`` frames of the padded window
+  (padding frames included, as JAX computes it) of the model's output
+  entropy; the pass runs on detached weights;
+- ``pseudo_label_retokenize``: each window's labels go through the host
+  round trip ``tokenizer.encode(tokenizer.decode(ids))``
+  (:func:`.retokenize.retokenize_labels`); needs ``tokenizer=``;
+- ``print_pseudo_labels``: per window, the pseudo-labels and the first
+  noisy stream's greedy decode, through the tokenizer when there is one.
+
+Not ported (raise ``NotImplementedError``): a device mesh and the
 records-batched ``batched()``.
 """
 
@@ -44,6 +55,7 @@ from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths, pad_n
 from dynamic_asr_eval_tpu_torch.ops.ctc import ctc_loss, greedy_labels
 from dynamic_asr_eval_tpu_torch.optim.madgrad import MADGRAD
 from dynamic_asr_eval_tpu_torch.optim.masks import param_labels
+from dynamic_asr_eval_tpu_torch.tta.retokenize import retokenize_labels
 
 
 def _ds_ceil(x, factor):
@@ -88,7 +100,9 @@ class DynamicEvalEngine:
     augmentation pipeline (tests inject the same masks on both sides with
     it).  ``lm_adapter`` and ``lm_beam_kwargs`` (alpha, beta,
     prune_less_than_val, top_am_threshold) give LM-fused pseudo-labels when
-    ``config.lm_tta_beams > 0``.  ``device`` defaults to ``cuda``."""
+    ``config.lm_tta_beams > 0``.  ``tokenizer`` serves
+    ``pseudo_label_retokenize`` (required there) and the
+    ``print_pseudo_labels`` text.  ``device`` defaults to ``cuda``."""
 
     def __init__(
         self,
@@ -106,15 +120,13 @@ class DynamicEvalEngine:
         lm_adapter=None,
         lm_beam_kwargs: Optional[Dict] = None,
         mesh=None,
+        tokenizer=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1)")
-        if config.pseudo_label_retokenize:
-            raise NotImplementedError("pseudo_label_retokenize is not ported yet (ROADMAP queue 1)")
-        if config.entropy_augmentation or config.print_pseudo_labels:
-            raise NotImplementedError(
-                "entropy augmentation and print_pseudo_labels are not ported yet")
+        if config.pseudo_label_retokenize and tokenizer is None:
+            raise ValueError("pseudo_label_retokenize=True needs tokenizer= on the engine")
         self.device = resolve_device(device)
         self.model = model
         self.blank_id = blank_id
@@ -129,6 +141,7 @@ class DynamicEvalEngine:
         self.n_classes = n_classes if n_classes is not None else blank_id + 1
         self.lm_adapter = lm_adapter
         self.lm_beam_kwargs = dict(lm_beam_kwargs or {})
+        self.tokenizer = tokenizer
         opt_args = dict(config.optim_args)
         self.lr = opt_args.pop("lr", 9e-5)
         self.opt_args = opt_args
@@ -214,14 +227,41 @@ class DynamicEvalEngine:
     def _pseudo_labels(self, clean_lp, ds_len: int, max_tokens: int):
         """``(labels [max_tokens], length)`` of the clean window: greedy, or
         the top beam of the LM-fused beam search when ``lm_tta_beams`` is
-        on."""
+        on; then, with ``pseudo_label_retokenize``, the host round trip."""
         beams = int(getattr(self.config, "lm_tta_beams", 0) or 0)
         if self.lm_adapter is None or beams <= 0:
-            return greedy_labels(clean_lp, ds_len, self.blank_id, max_tokens)
-        toks, lens, _ = beam_search_device(
-            clean_lp, self.lm_adapter, beam_width=beams, blank_id=self.blank_id,
-            valid_frames=ds_len, max_tokens=max_tokens, **self.lm_beam_kwargs)
-        return toks[0], torch.clamp(lens[0], max=max_tokens)
+            labels, lab_len = greedy_labels(clean_lp, ds_len, self.blank_id, max_tokens)
+        else:
+            toks, lens, _ = beam_search_device(
+                clean_lp, self.lm_adapter, beam_width=beams, blank_id=self.blank_id,
+                valid_frames=ds_len, max_tokens=max_tokens, **self.lm_beam_kwargs)
+            labels, lab_len = toks[0], torch.clamp(lens[0], max=max_tokens)
+        if self.config.pseudo_label_retokenize:
+            labels, lab_len = retokenize_labels(labels, lab_len, self.tokenizer, max_tokens)
+        return labels, lab_len
+
+    def _print_pseudo_labels(self, labels, lab_len, noisy, noisy_len) -> None:
+        """The per-window debug print (``print_pseudo_labels``)."""
+        ids, nids = labels[: int(lab_len)].tolist(), noisy[: int(noisy_len)].tolist()
+        if self.tokenizer is not None:
+            ids, nids = self.tokenizer.decode(ids), self.tokenizer.decode(nids)
+        print(f"Pseudo targets: {ids}")
+        print(f"Noisy predictions: {nids}")
+        print("\n--\n")
+
+    def _entropy_delta(self, aug: torch.Tensor, w_len: int) -> torch.Tensor:
+        """The entropy augmentation's perturbation ``1e-3 · ∂
+        mean_entropy(aug) / ∂ aug``: the mean over every frame of the padded
+        window (padding frames included) of the output entropy, on detached
+        weights (no weight gradients; the kernels' own backward still
+        computes theirs)."""
+        aug = aug.detach().requires_grad_(True)
+        lengths = torch.full((aug.shape[0],), w_len, dtype=torch.int64, device=self.device)
+        weights = {n: p.detach() for n, p in self._work.named_parameters()}
+        lp = torch.func.functional_call(self._work, weights, (aug, lengths))["final_posteriors"]
+        entropy = torch.mean(-torch.sum(torch.exp(lp) * lp, dim=-1))
+        (grad,) = torch.autograd.grad(entropy, aug)
+        return 1e-3 * grad
 
     def _adapt_step(self, opt, spec_dev, start: int, w_len: int, W: int,
                     max_tokens: int, gen: torch.Generator):
@@ -229,6 +269,8 @@ class DynamicEvalEngine:
         nn = self.num_negatives
         window = spec_dev[:, start : start + W].float()
         aug = self._augment(window[None].repeat(nn, 1, 1), gen, w_len)
+        if self.config.entropy_augmentation:
+            aug = (aug + self._entropy_delta(aug, w_len)).detach()
         batch = torch.cat([aug, window[None]], dim=0)  # [nn + 1, F, W]
         lengths = torch.full((nn + 1,), w_len, dtype=torch.int64, device=self.device)
         ds_len = self.out_len_fn(w_len)
@@ -244,6 +286,9 @@ class DynamicEvalEngine:
             lab_len.expand(nn),
             blank_id=self.blank_id,
         ) / (max(ds_len, 1) * nn)
+        if self.config.print_pseudo_labels:
+            noisy, noisy_len = greedy_labels(lp[0].detach(), ds_len, self.blank_id, max_tokens)
+            self._print_pseudo_labels(labels, lab_len, noisy, noisy_len)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
@@ -348,6 +393,14 @@ class DynamicEvalEngine:
         return EngineOutput(log_avg, counts, adapted, elapsed, self.blank_id)
 
     def batched(self, *args, **kwargs):
+        if self.config.pseudo_label_retokenize:
+            raise ValueError(
+                "pseudo_label_retokenize (host callback per window) is not "
+                "supported under --dp_records; run serially for exact mode")
+        if self.config.print_pseudo_labels:
+            raise ValueError(
+                "print_pseudo_labels (per-chunk host debug print) is not "
+                "supported under --dp_records; run serially to debug")
         raise NotImplementedError(
             "records-batched adaptation (--dp_records) is not ported yet (ROADMAP queue 1)")
 

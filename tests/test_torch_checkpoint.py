@@ -10,8 +10,8 @@
 - Reference torch pickles: the cases of
   ``tests/test_checkpoint_load.py::TestLoadReferenceCheckpoint``, mirrored:
   the port's state dict equals ``params_from_jax`` of what the JAX loader
-  gives for the same file (batch-renorm raises ``NotImplementedError`` in
-  the port, which has not ported it).
+  gives for the same file, batch-renorm mid-norms and their running
+  statistics included.
 """
 
 import dataclasses
@@ -142,10 +142,12 @@ def test_both_packages_write_the_same_bytes(tmp_path):
     assert (tmp_path / "port.dae").read_bytes() == (tmp_path / "jax.dae").read_bytes()
 
 
-@pytest.mark.parametrize("option", ["rel_pos", "batch_renorm"])
+@pytest.mark.parametrize("option", ["seq_shard_axes", "subsampling"])
 def test_options_not_ported_raise(tmp_path, option):
-    extra = ({"position_encoding": "rel_pos"} if option == "rel_pos"
-             else {"default_norm": "batch_renorm"})
+    """A DAE1 header naming an option the port does not run (rel_pos and
+    batch renorm load: tests/test_torch_nemo.py)."""
+    extra = ({"seq_shard_axes": ("dp", "sp")} if option == "seq_shard_axes"
+             else {"subsampling": "striding"})
     cfg, _, variables = _jax_model(IMPLS[0], **extra)
     path = str(tmp_path / f"{option}.dae")
     jax_ckpt.save_checkpoint(path, variables, cfg)
@@ -154,6 +156,7 @@ def test_options_not_ported_raise(tmp_path, option):
 
 
 def test_a_batch_stats_collection_raises(tmp_path):
+    """Running statistics the layer-norm model has no place for."""
     cfg = _port_config(IMPLS[0])
     params = params_to_jax(init_conformer(cfg).state_dict())
     stats = {"layer_0": {"conv": {"mean": np.zeros(4, np.float32)}}}
@@ -162,7 +165,7 @@ def test_a_batch_stats_collection_raises(tmp_path):
     raw = path.read_bytes()
     head = 8 + int.from_bytes(raw[4:8], "little")
     path.write_bytes(raw[:head] + msgpack_codec.packb({"params": params, "batch_stats": stats}))
-    with pytest.raises(NotImplementedError, match="batch_stats"):
+    with pytest.raises(KeyError, match="batch_stats"):
         ckpt.load_checkpoint(str(path))
 
 
@@ -317,15 +320,31 @@ def test_reference_ddp_prefixes(tmp_path):
 
 
 def test_reference_batch_renorm_detection_raises_in_the_port(tmp_path):
+    """Mid-norms with running statistics under a config that says
+    layer_norm: both packages detect batch renorm, load the statistics and
+    drop ``num_batches_tracked``, and give the same forward."""
     torch.manual_seed(2)
     tm = TorchSCConformer(default_norm="batch_renorm", **DIMS).eval()
+    with torch.no_grad():
+        for layer in tm.layers:
+            layer.conv.norm_mid.running_mean.normal_(0, 0.1)
+            layer.conv.norm_mid.running_var.uniform_(0.5, 2.0)
     state = {f"module.{k}": v for k, v in tm.state_dict().items()}
+    state.update({f"module.layers.{n}.conv.norm_mid.num_batches_tracked": torch.tensor(7)
+                  for n in range(DIMS["n_layers"])})
     path = _torch_ckpt(tmp_path, state, _ref_yaml_config(default_norm="layer_norm"))
-    _, _, jcfg = jax_ckpt.load_reference_torch_checkpoint(path, compute_dtype=jnp.float32,
-                                                          verbose=False)
-    assert jcfg.default_norm == "batch_renorm"
-    with pytest.raises(NotImplementedError, match="default_norm"):
-        ckpt.load_reference_torch_checkpoint(path, compute_dtype="float32", verbose=False)
+    ours, theirs = _both(path, verbose=False)
+    assert ours[2].default_norm == theirs[2].default_norm == "batch_renorm"
+    _same_config(ours[2], theirs[2])
+    ref = params_from_jax(jax.tree.map(np.asarray, dict(theirs[1])))
+    assert ours[1].keys() == ref.keys()
+    assert all(torch.equal(ours[1][k], ref[k]) for k in ref)
+    assert torch.equal(ours[1]["layers.1.conv.norm_mid.running_var"],
+                       tm.layers[1].conv.norm_mid.running_var)
+    x, lengths = _inputs(DIMS["feat_in"], seed=2)
+    (a, la), (b, _) = _jax_forward(theirs[0], theirs[1], x, lengths), _port_forward(ours[0], x,
+                                                                                     lengths)
+    _assert_same_valid_frames(b, a, la)
 
 
 def test_reference_omegaconf_pickled_config(tmp_path):

@@ -143,7 +143,7 @@ def test_check_checkpoints_round_trips_at_a_small_width(monkeypatch, tmp_path):
     small = dict(n_layers=2, d_model=64, n_heads=2, head_dim=32, vocab_size=30,
                  subsampling_conv_channels=16, conv_kernel_size=5)
     monkeypatch.setattr(chip_smoke, "flagship_config", lambda **kw: flagship(**{**small, **kw}))
-    path = chip_smoke.check_checkpoints(str(tmp_path))
+    path = chip_smoke.check_checkpoints(str(tmp_path), device="cpu")
     with open(path, "rb") as f:
         assert f.read(4) == b"DAE1"
 
@@ -520,3 +520,135 @@ def test_softdtw_chain_floor_is_the_steps_at_one_steps_latency(monkeypatch, caps
     strip = line["single_strip"]
     assert strip["steps"] == 8 * 544
     assert strip["step_ns"] == pytest.approx({"fwd": 0.8704e6 / 4352, "bwd": 0.4352e6 / 4352})
+
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: entropy augmentation and the NeMo preset
+# ---------------------------------------------------------------------------
+
+
+def test_phases_17_and_18_are_listed_and_driven():
+    doc = chip_smoke.__doc__
+    assert "\n17. entropy augmentation" in doc and "\n18. the NeMo preset" in doc
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    assert "entropy_path(card, A, S, D" in main and "nemo_path(tmp, card, A, S, D)" in main
+
+
+def _routes(launches):
+    return {k: {"tensor_core": v, "tf32x3": (0, 0)} for k, v in launches.items()
+            if k != "softdtw"}
+
+
+def test_entropy_plan_is_12_12_2_2_with_one_gx_per_window():
+    """Per adapted window at the flagship's 6 layers: 12 attention forwards
+    and backwards (the batch-1 entropy pass and the batch-2 step), 2
+    subsampling forwards and backwards, exactly one of them with gx."""
+    n = chip_smoke.N_WINDOWS
+    plan = chip_smoke.entropy_plan(chip_smoke.flagship_config().n_layers)
+    assert plan == {"attention": (12, 12), "subsample": (2, 2), "softdtw": (0, 0), "gx": 1}
+    good = {"attention": (12 * n, 12 * n), "subsample": (2 * n, 2 * n), "softdtw": (0, 0)}
+    chip_smoke.check_path_launches("entropy", good, _routes(good), n, plan)
+    with pytest.raises(AssertionError, match="gx"):
+        chip_smoke.check_path_launches("entropy", good, _routes(good), 2 * n, plan)
+    nsti_like = dict(good, attention=(6 * n, 6 * n))
+    with pytest.raises(AssertionError, match="expected"):
+        chip_smoke.check_path_launches("entropy", nsti_like, _routes(nsti_like), n, plan)
+    f32 = _routes(good)
+    f32["subsample"] = {"tensor_core": (2 * n - 1, 2 * n), "tf32x3": (1, 0)}
+    with pytest.raises(AssertionError, match="route"):
+        chip_smoke.check_path_launches("entropy", good, f32, n, plan)
+
+
+def test_nemo_plan_is_no_attention_and_one_relu_subsampling_pair():
+    n = chip_smoke.N_WINDOWS
+    plan = chip_smoke.NEMO_PLAN
+    good = {"attention": (0, 0), "subsample": (n, n), "softdtw": (0, 0)}
+    acts = {"silu": (0, 0), "relu": (n, n), "gelu": (0, 0)}
+    chip_smoke.check_path_launches("nemo", good, _routes(good), 0, plan, acts=acts, act="relu")
+    with pytest.raises(AssertionError, match="activation"):
+        chip_smoke.check_path_launches("nemo", good, _routes(good), 0, plan,
+                                       acts=dict(acts, relu=(0, 0), silu=(n, n)), act="relu")
+    flash = dict(good, attention=(6 * n, 6 * n))
+    with pytest.raises(AssertionError, match="expected"):
+        chip_smoke.check_path_launches("nemo", flash, _routes(flash), 0, plan, acts=acts,
+                                       act="relu")
+    with pytest.raises(AssertionError, match="gx"):
+        chip_smoke.check_path_launches("nemo", good, _routes(good), 1, plan, acts=acts,
+                                       act="relu")
+
+
+def test_synthetic_nemo_state_converts_shape_complete_with_moved_statistics():
+    """Phase 18's state dict (NeMo names) through the port's converter at a
+    small width loads strictly, running statistics as drawn."""
+    import dataclasses
+
+    from dynamic_asr_eval_tpu_torch.models import SCConformer
+    from dynamic_asr_eval_tpu_torch.models.nemo_convert import (
+        convert_nemo_state_dict,
+        load_default_instance,
+    )
+
+    cfg = dataclasses.replace(load_default_instance(), n_layers=2, d_model=32, n_heads=2,
+                              head_dim=16, vocab_size=20, subsampling_conv_channels=8)
+    sd = chip_smoke.synthetic_nemo_state(cfg)
+    model = SCConformer(cfg)
+    model.load_state_dict(convert_nemo_state_dict(sd, cfg), strict=True)
+    var = model.layers[1].conv.norm_mid.running_var
+    assert torch.equal(var, sd["encoder.layers.1.conv.batch_norm.running_var"])
+    assert 0.5 <= var.min() and var.max() <= 2.0 and var.std() > 0.1
+
+
+def test_subsample_bound_with_gx_adds_stage_zeros_operations_and_gx_bytes():
+    B, T, F, C = chip_smoke.SUB_FLAGSHIP
+    work = chip_smoke.subsample_work(B, T, F, C, torch.bfloat16)
+    T0 = S.ceil_chain(T)[0]
+    stage0 = 18 * B * T0 * F // 2 * C
+    assert work["bwd_gx"][0] == work["bwd"][0] + stage0
+    assert work["bwd_gx"][1] == work["bwd"][1] + B * T * F * 2
+    assert work["bwd_gx"][2] == work["bwd"][2]
+
+
+@pytest.mark.parametrize("plain_rounds", [True, False])
+def test_check_subsample_relu_rounding_holds_the_rounding_points(monkeypatch, plain_rounds):
+    """Phase 3's relu case: the plain version on the bf16 tensors passes;
+    the plain version in f32, rounded once at the end, fails (out's
+    elements differ)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    x, ws, gout = _subsample_case()
+    if plain_rounds:
+        out = S.fused_subsample_reference(x, *ws, act_name="relu")
+        gx, gws = S.fused_subsample_reference_bwd(x, ws, gout, "relu", True)
+    else:
+        out = S.fused_subsample_reference(x.float(), *ws, act_name="relu").bfloat16()
+        gx, gws = S.fused_subsample_reference_bwd(x.float(), ws, gout.float(), "relu", True)
+        gx = gx.bfloat16()
+    args = ("case", x, ws, gout, out, gx, gws)
+    if plain_rounds:
+        errs = chip_smoke.check_subsample_relu_rounding(S, *args)
+        assert errs["gx"] == 0 and set(errs) == {"gx", *S.WEIGHT_NAMES}
+    else:
+        with pytest.raises(AssertionError, match="differ"):
+            chip_smoke.check_subsample_relu_rounding(S, *args)
+
+
+def test_relu_gx_bars_hold_the_norm_and_the_share_beyond_tolerance(monkeypatch):
+    """A kink flip (one of 64000 gx elements off by a fifth of gx's max)
+    passes; gx off everywhere by 2 % fails the L2 bar."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    g = torch.Generator().manual_seed(2)
+    C = 16
+    x = torch.randn(1, 2000, 32, generator=g).bfloat16()
+    shapes = {"k9": (9, C), "dw1": (9, C), "dw2": (9, C), "pw1": (C, C), "pw2": (C, C)}
+    ws = [torch.randn(shapes.get(n, (C,)), generator=g) * 0.3 for n in S.WEIGHT_NAMES]
+    gout = torch.randn(1, S.ceil_chain(2000)[2], 4, C, generator=g).bfloat16()
+    out = S.fused_subsample_reference(x, *ws, act_name="relu")
+    gx, gws = S.fused_subsample_reference_bwd(x, ws, gout, "relu", True)
+    flipped = gx.clone().reshape(-1)
+    flipped[7] += 0.2 * gx.abs().max()
+    chip_smoke.check_subsample_relu_rounding(S, "case", x, ws, gout, out,
+                                             flipped.reshape(gx.shape), gws)
+    with pytest.raises(AssertionError, match="relative L2"):
+        chip_smoke.check_subsample_relu_rounding(S, "case", x, ws, gout, out,
+                                                 (gx.float() * 1.02).bfloat16(), gws)

@@ -81,6 +81,22 @@ def test_the_transformer_lm_and_consistency_modules_import_alone(module):
     assert proc.stdout.strip() == ""
 
 
+OPTION_MODULES = ("models.surgery", "models.nemo_convert", "tta.retokenize", "models.conformer",
+                  "models.checkpoint", "tta.runner", "evals.common")
+
+
+@pytest.mark.parametrize("module", OPTION_MODULES)
+def test_the_options_slice_modules_import_alone(module):
+    """Each module the options slice added or extended (NeMo conversion,
+    surgery, re-tokenisation, batch renorm and rel_pos, the engine's options,
+    ``--profile``), imported on its own, pulls in no JAX, no module of the
+    JAX package, and no PyYAML, wandb or matplotlib."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
 @pytest.mark.parametrize("module", PROTOCOL_MODULES)
 def test_the_protocol_modules_import_alone(module):
     """Each module of the protocol slice (drivers, sweep, TPE, analysis),
@@ -236,8 +252,8 @@ def test_protocol_clis_without_device_raise_without_cuda(module, no_cuda, tmp_pa
         driver.cli(argv)
 
 
-@pytest.mark.parametrize("flags", [["--profile", "DIR"], ["--dp"], ["--dp_records"]],
-                         ids=["--profile", "--dp", "--dp_records"])
+@pytest.mark.parametrize("flags", [["--dp", "--tp", "2"], ["--dp"], ["--dp_records"]],
+                         ids=["--dp --tp", "--dp", "--dp_records"])
 def test_driver_rejects_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError):
         run.cli(["-d", "synthetic", "--quiet", "--device", "cpu"] + flags)
