@@ -42,6 +42,10 @@ Phases (each raises on failure; the script then exits non-zero):
      4 windows (phases 16-16c), with the same checks: attention [4, 2048,
      6, 128] with lengths [2048, 2048, 2048, 1792] (a recording's last
      window) and [2048, 2048, 2048, 1100], subsampling [4, 16384, 80];
+   - both bf16 kernels at phase 19's utterances (a clean and an augmented
+     copy), with the same checks: attention [2, 64, 6, 128] (one query
+     tile) and [2, 512, 6, 128], unpadded, subsampling [2, 512, 80] and
+     [2, 4096, 80];
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
@@ -238,15 +242,44 @@ Phases (each raises on failure; the script then exits non-zero):
    subsampling kernel against the plain subsampling version on lengths
    [4000, 3000], within 1e-3 on valid frames (``nemo_parity_launches``);
    18b its profile (``"path": "nemo"``: ms per window, RTFx, warm, 3 runs)
-   and a ``{"nemo_path": ...}`` line.
+   and a ``{"nemo_path": ...}`` line;
+19. the utterance path: ``evals/run_utterance_eval.py`` ``main
+   --segment_frames 512`` on phase 5's recording (60 utterances, T_ds 64;
+   online, 1 epoch, lr 9e-5), flagship, bf16, ``"pallas"`` subsampling: per
+   utterance exactly 6 attention forwards and 6 backwards and 1 subsampling
+   forward and 1 backward, all bf16, no soft-DTW launch and no final pass;
+   transcript and WER finite, every utterance's log-probs finite, weights
+   moved; warm ms per utterance over the 60, device busy and idle share over
+   the first 10 under torch.profiler.  19b: ``UtteranceTTAEngine(soft_dtw_weight=0.1)`` on 8 utterances
+   of 512 frames and 2 of 4096 cut from that recording, a fixed perturbation
+   as its ``augment_fn``: per utterance the same launches and exactly 1 R
+   and 1 E soft-DTW kernel; the D of the first utterance of each length,
+   taken where the engine hands it to ``kernels.softdtw.soft_dtw``, must be
+   asymmetric (max |D - D^T| above 1e-3 of max |D|), holds both kernels
+   against the plain version as phase 3 does (R 1e-4 relative, E from the
+   kernel's R within 1e-4 of max |E|, bit-for-bit repeats), and through
+   ``soft_dtw`` gives the R kernel's value and the E kernel's gradient bit
+   for bit; warm ms per utterance at each length with and without the
+   soft-DTW term, the soft-DTW kernels' ms and their share of the step, peak
+   memory above what the phase began with; a ``{"utterance_path": ...}``
+   line;
+20. wav2vec2-base (``evals/run_wav2vec2.py --full_size``, f32): the chunked
+   mode on a 60 s synthetic wave at 48000 / 16000 samples (30 windows),
+   stitched log-probs finite over ``feat_extract_output_lengths``' frames,
+   weights moved, its profile (``"path": "wav2vec2"``); 20b
+   ``--per_utterance`` (``ctc_mean``, clip 10) on the driver's own two 4 s
+   records, finite log-probs, weights moved; 0 attention, subsampling and
+   soft-DTW launches in both; a ``{"wav2vec2_path": ...}`` line.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
 ``lm_launches`` on the ``-lm`` path, ``tlm_launches`` on the transformer-LM
 path, ``consistency_launches`` on the consistency path,
 ``protocol_launches`` over the first runs of phases 16-16c,
-``entropy_launches`` (phase 17) and ``nemo_launches`` (phase 18), each read
-from its own runs; ``f32_path_launches`` for the f32 attention and
+``entropy_launches`` (phase 17), ``nemo_launches`` (phase 18),
+``utterance_launches`` and ``utterance_softdtw_launches`` (phases 19 and
+19b) and ``wav2vec2_launches`` (phases 20 and 20b), each read from its own
+runs; ``f32_path_launches`` for the f32 attention and
 subsampling, from phase 5c; the subsampling backwards' ``entropy_gx_launches``
 and ``nemo_gx_launches``, its ``gx_ms`` / ``gx_bound_ms`` /
 ``gx_library_ms``, and the bf16 forward's ``relu_ms``), and last
@@ -270,6 +303,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+START = time.time()  # the phase headings' clock
 FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16 kernels against the plain version that rounds as they do (phase 3
 # prints both numbers); a plain version that does not round fails the share
@@ -346,6 +380,10 @@ FAMILIES = (
 
 
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's heading (``[n] ...``) with the seconds since
+    the script began."""
+    if msg.startswith("["):
+        msg = f"{msg} (at {time.time() - START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -772,15 +810,20 @@ def softdtw_inputs(D, shape, bandwidth, seed=0):
     return D._apply_band(D.pairwise_sq_dist(x, y), bandwidth)
 
 
-def check_softdtw(D, shape, bandwidth, gamma=1.0):
-    Db = softdtw_inputs(D, shape, bandwidth)
+def check_softdtw(D, shape, bandwidth, gamma=1.0, Db=None, what="soft-DTW"):
+    """Both kernels against the plain version at ``shape``, on ``Db`` (band
+    applied) or on :func:`softdtw_inputs`: R within 1e-4 relative (to
+    max(|R|, 1)), E (from the kernel's R) within 1e-4 of max |E|, each
+    kernel repeating bit for bit."""
+    if Db is None:
+        Db = softdtw_inputs(D, shape, bandwidth)
     R = D.softdtw_R(Db, gamma)
     E = D.softdtw_E(Db, R, gamma)
     R2, E2 = D.softdtw_R(Db, gamma), D.softdtw_E(Db, R, gamma)
     ref_R = D.forward_R_reference(Db, gamma)
     ref_E = D.backward_E_reference(Db, R, gamma)  # E's inputs: the same D and R
     torch.cuda.synchronize()
-    what = f"soft-DTW {shape} bandwidth {bandwidth}"
+    what = f"{what} {shape} bandwidth {bandwidth}"
     if not (torch.equal(R, R2) and torch.equal(E, E2)):
         raise AssertionError(f"{what}: the kernels do not repeat bit for bit")
     r_err = ((R - ref_R).abs() / ref_R.abs().clamp_min(1.0)).max().item()
@@ -791,7 +834,8 @@ def check_softdtw(D, shape, bandwidth, gamma=1.0):
                              f"{e_scale:.3e}")
     log(f"  {what}: R rel {r_err:.2e}, E {e_err:.2e} (max |E| {e_scale:.3e}, loss "
         f"{R[0, shape[1], shape[2]].item():.6g}); both repeat bit for bit")
-    return {"R": (R - ref_R).abs().max().item(), "E": e_err}
+    return {"R": (R - ref_R).abs().max().item(), "E": e_err, "R_rel": r_err, "E_max": e_scale,
+            "value": R[:, shape[1], shape[2]].tolist()}
 
 
 def softdtw_work(B, N, M):
@@ -892,6 +936,19 @@ class EngineRecorder:
         return out
 
 
+def counted(modules, fn):
+    """``fn()`` with every count at 0 before it; (its result, {module: (fwd,
+    bwd)}, {module: {route: (fwd, bwd)}}), read after the card is done."""
+    for mod in modules.values():
+        mod.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: (m.fwd_launches, m.bwd_launches) for k, m in modules.items()}
+    routes = {k: {r: tuple(c) for r, c in m.route_launches.items()}
+              for k, m in modules.items() if hasattr(m, "route_launches")}
+    return out, launches, routes
+
+
 def main_path(cfg, kernel_modules, driver=None, flags=(), kwargs=(), frames=N_FRAMES):
     """A driver (default ``evals.run``) on a ``frames``-frame recording (the
     flagship one by default), its ``main`` given ``cfg`` (None: the
@@ -913,15 +970,10 @@ def main_path(cfg, kernel_modules, driver=None, flags=(), kwargs=(), frames=N_FR
             "-seq", str(SEQ), "-o", str(OVERLAP), *flags, *RUN_KWARGS, *kwargs])
         driver.build_engine = recorder.wrap(build_engine)
         try:
-            for mod in kernel_modules.values():
-                mod.reset_counters()
             t0 = time.time()
-            wer = driver.main(args, model_config=cfg)
-            torch.cuda.synchronize()
+            wer, launches, routes = counted(kernel_modules,
+                                            lambda: driver.main(args, model_config=cfg))
             wall = time.time() - t0
-            launches = {k: (m.fwd_launches, m.bwd_launches) for k, m in kernel_modules.items()}
-            routes = {k: {r: tuple(c) for r, c in m.route_launches.items()}
-                      for k, m in kernel_modules.items() if hasattr(m, "route_launches")}
         finally:
             driver.build_engine = build_engine
         with open(os.path.join(tmp, "r_1.pkl"), "rb") as f:
@@ -2066,15 +2118,23 @@ def family(name: str) -> str:
     return "other"
 
 
-def warm_run_ms(recorder) -> float:
-    """One run of the driver's engine on its recording and weights (warm
-    after the driver's own run), in ms of wall time."""
-    engine, ((params, spec),) = recorder.engine, recorder.calls
+def wall_ms(fn) -> float:
+    """``fn()`` once, in ms of wall time between two synchronisations of the
+    card."""
     torch.cuda.synchronize()
     t0 = time.time()
-    engine(params, spec, SEQ, OVERLAP, rng=0)
+    fn()
     torch.cuda.synchronize()
     return (time.time() - t0) * 1e3
+
+
+def warm_run_ms(recorder, seq=None, overlap=None) -> float:
+    """One run of the driver's engine on its recording and weights (warm
+    after the driver's own run), in ms of wall time; windows of ``seq`` /
+    ``overlap`` (default SEQ / OVERLAP)."""
+    engine, ((params, spec),) = recorder.engine, recorder.calls
+    return wall_ms(lambda: engine(params, spec, SEQ if seq is None else seq,
+                                  OVERLAP if overlap is None else overlap, rng=0))
 
 
 # phase 5c's driver runs: (attention_impl, subsampling_impl), f32
@@ -2162,19 +2222,15 @@ def f32_path(card, A, S):
             "fused_subsample_f32": fused_routes["subsample"][sub_route]}
 
 
-def profile_engine(recorder, card, path):
-    """Where the time of one recording goes: the driver's engine, warm, on
-    the same recording and weights, timed TIMED_RUNS times, then once under
-    torch.profiler.  Device busy time is the sum of kernel times (ranges
-    that annotate kernels are left out); the idle share is ``1 - busy /
-    wall`` against the fastest timed run."""
+def kernel_ms(fn):
+    """``fn()`` once under torch.profiler: {kernel name: device ms}.  Ranges
+    that annotate kernels are left out; empty where the profiler sees no
+    device time."""
     from collections import defaultdict
 
-    walls_ms = [warm_run_ms(recorder) for _ in range(TIMED_RUNS)]
-    wall_ms = min(walls_ms)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        warm_run_ms(recorder)
+        fn()
     by_kernel = defaultdict(float)
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
@@ -2184,10 +2240,28 @@ def profile_engine(recorder, card, path):
             continue  # a range around kernels (Optimizer.step#...), not a kernel
         if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[evt.key] += dev_us / 1e3
+    return dict(by_kernel)
+
+
+def profile_engine(recorder, card, path, seq=None, overlap=None, windows=N_WINDOWS,
+                   frames=N_FRAMES, frame_rate=100.0):
+    """Where the time of one recording goes: the driver's engine, warm, on
+    the same recording and weights, timed TIMED_RUNS times, then once under
+    torch.profiler.  Device busy time is the sum of kernel times (ranges
+    that annotate kernels are left out); the idle share is ``1 - busy /
+    wall`` against the fastest timed run.  ``seq`` / ``overlap`` / ``windows``
+    give the recording's window plan (default the flagship's), ``frames``
+    its length at ``frame_rate`` a second (default N_FRAMES at a 10 ms hop;
+    samples at 16000 for a waveform)."""
+    from collections import defaultdict
+
+    walls_ms = [warm_run_ms(recorder, seq, overlap) for _ in range(TIMED_RUNS)]
+    wall_ms = min(walls_ms)
+    by_kernel = kernel_ms(lambda: warm_run_ms(recorder, seq, overlap))
     busy_ms = sum(by_kernel.values())
-    result = {"path": path, "card": card, "frames": N_FRAMES, "windows": N_WINDOWS,
-              "engine_walls_ms": walls_ms, "ms_per_window": wall_ms / N_WINDOWS,
-              "rtfx": N_FRAMES / 100.0 / (wall_ms / 1e3)}  # 10 ms hop
+    result = {"path": path, "card": card, "frames": frames, "windows": windows,
+              "engine_walls_ms": walls_ms, "ms_per_window": wall_ms / windows,
+              "rtfx": frames / frame_rate / (wall_ms / 1e3)}
     if busy_ms <= 0:
         result.update(device_busy_ms="not measured", idle_share="not measured")
     else:
@@ -2484,6 +2558,375 @@ def nemo_path(tmp, card, A, S, D):
     return launches, routes, gx, parity
 
 
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the utterance path, wav2vec2-base
+# ---------------------------------------------------------------------------
+
+UTT_SEGMENT = 512  # phase 19: --segment_frames (T_ds 64); phase 5's recording gives 60
+# phase 19: utterances whose run torch.profiler traces (its cost grows with
+# the run's events; 19b traces its 10)
+UTT_PROFILED = 10
+UTT_SDTW = ((512, 8), (4096, 2))  # phase 19b: (frames, utterances) cut from that recording
+SOFT_DTW_WEIGHT = 0.1
+ASYMMETRY_MIN = 1e-3  # phase 19b: max |D - D^T| / max |D| of the engine's D, at least
+SAMPLE_RATE = 16000
+W2V_SAMPLES = 60 * SAMPLE_RATE  # phase 20: the chunked mode's synthetic recording, 60 s
+W2V_SEQ, W2V_OVERLAP = 48000, 16000  # run_wav2vec2's remap of SEQ / OVERLAP
+W2V_UTTERANCES = (64000, 64000)  # phase 20b: run_wav2vec2's own two 4 s records
+W2V_PLAN = {"attention": (0, 0), "subsample": (0, 0), "softdtw": (0, 0), "gx": 0}
+SOFTDTW_KERNEL = re.compile(r"namespace\)::(fwd|bwd)_kernel\(")  # csrc/softdtw.cu's R and E
+
+
+def utterance_plan(n_layers, soft_dtw=False):
+    """Launches per utterance of the utterance engine (online, 1 epoch): one
+    batch-2 forward and backward, no final pass; with a soft-DTW weight one
+    R and one E kernel."""
+    return {"attention": (n_layers, n_layers), "subsample": (1, 1),
+            "softdtw": (1, 1) if soft_dtw else (0, 0), "gx": 0}
+
+
+def fixed_perturbation(batch, generator, length):
+    """Phase 19b's ``augment_fn``: a fixed perturbation of half the batch's
+    standard deviation, seeded by its width, so that the augmented and the
+    clean posteriors differ and the engine's D is not symmetric."""
+    g = torch.Generator(device=batch.device).manual_seed(batch.shape[-1])
+    return batch + 0.5 * batch.std() * torch.randn(batch.shape, generator=g, device=batch.device)
+
+
+def check_utterance_outputs(what, outs, lengths, out_len, n_classes, adapted, params):
+    """One finite [out_len(T), n_classes] log-prob matrix per utterance of
+    length T; weights that moved.  Returns the largest weight change."""
+    import numpy as np
+
+    if len(outs) != len(lengths):
+        raise AssertionError(f"{what}: {len(outs)} outputs for {len(lengths)} utterances")
+    for i, (out, T) in enumerate(zip(outs, lengths)):
+        if out.shape != (out_len(T), n_classes) or not np.isfinite(out).all():
+            raise AssertionError(f"{what}: utterance {i} log-probs {out.shape} (expected "
+                                 f"{(out_len(T), n_classes)}), finite {np.isfinite(out).all()}")
+    moved = weight_change(adapted, params)
+    if not moved > 0:
+        raise AssertionError(f"{what}: adaptation did not move the weights")
+    return moved
+
+
+def check_utterance_run(what, wer, detail, recorder, lengths, out_len, n_classes):
+    """A driver's run of the utterance engine on one recording: one finite
+    WER and transcript, one engine call over ``lengths``, its outputs as
+    :func:`check_utterance_outputs` holds them."""
+    if len(detail["model_output"]) != 1 or not math.isfinite(wer):
+        raise AssertionError(f"{what}: driver result malformed: wer {wer}, "
+                             f"{detail.get('model_output')}")
+    if len(recorder.outputs) != 1:
+        raise AssertionError(f"{what}: {len(recorder.outputs)} engine calls, not 1")
+    (params, utts), (outs, adapted, _) = recorder.calls[0], recorder.outputs[0]
+    got = [u["spectrogram"].shape[-1] for u in utts]
+    if got != list(lengths):
+        raise AssertionError(f"{what}: utterances of {got} frames, expected {list(lengths)}")
+    return check_utterance_outputs(what, outs, lengths, out_len, n_classes, adapted, params)
+
+
+def cut_utterances(recording, plan):
+    """Utterances of ``plan``'s (frames, count) cut one after another from
+    the start of a [F, T] recording."""
+    utts, start = [], 0
+    for frames, count in plan:
+        for _ in range(count):
+            utts.append({"spectrogram": recording[:, start:start + frames]})
+            start += frames
+    if start > recording.shape[1]:
+        raise AssertionError(f"the plan {plan} needs {start} frames, the recording has "
+                             f"{recording.shape[1]}")
+    return utts
+
+
+def check_engine_softdtw(D, Dmat, gamma=1.0):
+    """The engine's own D: both kernels against the plain version as phase 3
+    holds them (:func:`check_softdtw`), and the autograd wrapper the engine
+    calls (``soft_dtw``) giving the R kernel's value and the E kernel's
+    gradient bit for bit."""
+    B, N, M = Dmat.shape
+    errs = check_softdtw(D, (B, N, M), 0, gamma, Db=Dmat, what="the engine's soft-DTW")
+    x = Dmat.detach().clone().requires_grad_(True)
+    loss = D.soft_dtw(x, gamma, 0, True)
+    (g,) = torch.autograd.grad(loss.sum(), x)
+    R = D.softdtw_R(Dmat, gamma)
+    E = D.softdtw_E(Dmat, R, gamma)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss.detach(), R[:, N, M]) and torch.equal(g, E)):
+        raise AssertionError(f"the engine's soft-DTW {(B, N, M)}: soft_dtw's value or gradient "
+                             f"is not the kernels' R and E")
+    return dict(errs, shape=[B, N, M])
+
+
+def asymmetry(Dmat):
+    """max |D - D^T| over max |D|: near 0 when the augmented and the clean
+    posteriors are the same sequence."""
+    return ((Dmat - Dmat.transpose(1, 2)).abs().max() / Dmat.abs().max()).item()
+
+
+def softdtw_step_ms(D, Dmat, gamma=1.0):
+    """ms of the soft-DTW term's kernels (value and D-gradient) at the
+    engine's D: the R and the E kernel."""
+    def step():
+        x = Dmat.detach().requires_grad_(True)
+        torch.autograd.grad(D.soft_dtw(x, gamma, 0, True).sum(), x)
+    return cuda_ms(step, iters=10)
+
+
+def warm_utterance_ms(engine, params, utts):
+    """The fastest of TIMED_RUNS warm runs of ``engine`` over ``utts``, in
+    ms per utterance."""
+    return min(wall_ms(lambda: engine(params, utts)) for _ in range(TIMED_RUNS)) / len(utts)
+
+
+def utterance_busy_ms(engine, params, utts):
+    """One warm run of ``engine`` over ``utts`` under torch.profiler:
+    {"ms_per_utterance": device busy ms an utterance, "idle_share": 1 - busy
+    / the fastest of TIMED_RUNS warm walls, "softdtw_ms": the soft-DTW
+    kernels' share of busy}, or "not measured" where the profiler sees no
+    device time."""
+    wall = warm_utterance_ms(engine, params, utts) * len(utts)
+    by_kernel = kernel_ms(lambda: engine(params, utts))
+    busy = sum(by_kernel.values())
+    if busy <= 0:
+        return "not measured"
+    sdtw = sum(ms for k, ms in by_kernel.items() if SOFTDTW_KERNEL.search(k))
+    return {"ms_per_utterance": busy / len(utts), "idle_share": max(0.0, 1.0 - busy / wall),
+            "softdtw_ms_per_utterance": sdtw / len(utts)}
+
+
+def utterance_path(card, A, S, D):
+    """Phase 19: the utterance engine at the flagship (bf16,
+    ``"pallas_flash"``, ``"pallas"`` subsampling).  (a)
+    ``evals.run_utterance_eval.main --segment_frames 512`` on phase 5's
+    recording; (b) ``UtteranceTTAEngine(soft_dtw_weight=0.1)`` on 8
+    utterances of 512 frames and 2 of 4096 cut from it, and the engine's own
+    D of the first utterance of each length through the kernels against the
+    plain version.  Returns (a)'s and (b)'s (launches, routes)."""
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.evals import run_utterance_eval
+    from dynamic_asr_eval_tpu_torch.tta.utterance import UtteranceTTAEngine
+
+    cfg = flagship_config(subsampling_impl="pallas")
+    modules = {"attention": A, "subsample": S, "softdtw": D}
+    f = cfg.subsampling_factor
+
+    def out_len(T):
+        return -(-T // f)
+
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    wer, wall, launches, routes, detail, recorder = main_path(
+        cfg, modules, run_utterance_eval, ("--segment_frames", str(UTT_SEGMENT)))
+    n_utts = N_FRAMES // UTT_SEGMENT
+    log(f"  WER {wer}; launches {launches}, gx {S.gx_launches}; by route {routes}; driver wall "
+        f"{wall:.3f} s (first run) for {n_utts} utterances of {UTT_SEGMENT} frames")
+    check_path_launches("utterance", launches, routes, S.gx_launches,
+                        utterance_plan(cfg.n_layers), windows=n_utts)
+    moved = check_utterance_run("utterance", wer, detail, recorder, [UTT_SEGMENT] * n_utts,
+                                out_len, cfg.n_classes)
+    params, utts = recorder.calls[0]
+    plain_engine = recorder.engine
+    ms_512 = warm_utterance_ms(plain_engine, params, utts)
+    busy_512 = utterance_busy_ms(plain_engine, params, utts[:UTT_PROFILED])
+    log(f"  {n_utts} utterances, finite log-probs, max weight change {moved:.3e}; warm "
+        f"{ms_512:.3f} ms per utterance at {UTT_SEGMENT} frames, device busy (the first "
+        f"{UTT_PROFILED}) {busy_512}")
+
+    log(f"[19b] UtteranceTTAEngine(soft_dtw_weight={SOFT_DTW_WEIGHT}) on "
+        f"{', '.join(f'{c} x {n}' for n, c in UTT_SDTW)} frames of the same recording")
+    recording = np.concatenate([u["spectrogram"] for u in utts], axis=1)
+    sdtw_utts = cut_utterances(recording, UTT_SDTW)
+    lengths = [u["spectrogram"].shape[-1] for u in sdtw_utts]
+
+    def perturbed_engine(weight):
+        return UtteranceTTAEngine(plain_engine.model, cfg.blank_id, f, plain_engine.config,
+                                  augment_fn=fixed_perturbation, soft_dtw_weight=weight,
+                                  device=plain_engine.device)
+
+    engine, no_sdtw = perturbed_engine(SOFT_DTW_WEIGHT), perturbed_engine(0.0)
+    seen = []
+    soft_dtw = D.soft_dtw
+
+    def spy(Dmat, gamma=1.0, bandwidth=0, use_pallas=False):
+        seen.append(Dmat.detach().clone())
+        return soft_dtw(Dmat, gamma, bandwidth, use_pallas)
+
+    D.soft_dtw = spy
+    try:
+        t0 = time.time()
+        (outs, adapted, _), sdtw_launches, sdtw_routes = counted(
+            modules, lambda: engine(params, sdtw_utts, return_params=True))
+        first_wall = time.time() - t0
+    finally:
+        D.soft_dtw = soft_dtw
+    log(f"  launches {sdtw_launches}, gx {S.gx_launches}; by route {sdtw_routes}; first wall "
+        f"{first_wall:.3f} s")
+    check_path_launches("utterance soft-DTW", sdtw_launches, sdtw_routes, S.gx_launches,
+                        utterance_plan(cfg.n_layers, soft_dtw=True), windows=len(sdtw_utts))
+    sdtw_moved = check_utterance_outputs("utterance soft-DTW", outs, lengths, out_len,
+                                         cfg.n_classes, adapted, params)
+    if [tuple(x.shape) for x in seen] != [(1, out_len(n), out_len(n)) for n in lengths]:
+        raise AssertionError(f"soft-DTW D shapes {[tuple(x.shape) for x in seen]}")
+    firsts, buckets = {}, {}
+    for i, (n, x) in enumerate(zip(lengths, seen)):
+        firsts.setdefault(n, x)
+        buckets.setdefault(n, []).append(sdtw_utts[i])
+    parity = {}
+    for n, x in firsts.items():
+        skew = asymmetry(x)
+        if not skew > ASYMMETRY_MIN:
+            raise AssertionError(f"the engine's D at {n} frames is symmetric (max |D - D^T| "
+                                 f"{skew:.3e} of max |D|): the perturbation did not reach it")
+        parity[n] = dict(check_engine_softdtw(D, x), asymmetry=skew)
+        log(f"  the engine's D at {n} frames: max |D - D^T| {skew:.3e} of max |D|; soft_dtw "
+            f"gives the kernels' R and E bit for bit")
+    per_bucket = {}
+    for n, subset in buckets.items():
+        with_ms = warm_utterance_ms(engine, params, subset)
+        without_ms = warm_utterance_ms(no_sdtw, params, subset)
+        sdtw_ms = softdtw_step_ms(D, firsts[n])
+        per_bucket[n] = {"utterances": len(subset), "ms_per_utterance": with_ms,
+                         "ms_per_utterance_without_softdtw": without_ms,
+                         "softdtw_ms": sdtw_ms, "softdtw_share": sdtw_ms / with_ms}
+        log(f"  {n} frames: {with_ms:.3f} ms per utterance with soft-DTW, {without_ms:.3f} "
+            f"without; the soft-DTW kernels {sdtw_ms:.4f} ms ({sdtw_ms / with_ms:.1%} of the "
+            f"step)")
+    sdtw_busy = utterance_busy_ms(engine, params, sdtw_utts)
+    log(f"  the {len(sdtw_utts)} utterances with soft-DTW: device busy {sdtw_busy}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - start_gb
+    print(json.dumps({"utterance_path": {
+        "card": card, "frames": N_FRAMES, "segment_frames": UTT_SEGMENT, "utterances": n_utts,
+        "driver_wall_s": wall, "warm_ms_per_utterance": ms_512, "device_busy": busy_512,
+        "profiled_utterances": UTT_PROFILED,
+        "softdtw_device_busy": sdtw_busy, "launches": launches,
+        "softdtw_plan": [list(p) for p in UTT_SDTW], "softdtw_first_wall_s": first_wall,
+        "softdtw_launches": sdtw_launches, "softdtw_weight_change": sdtw_moved,
+        "softdtw_parity": {str(n): p for n, p in parity.items()},
+        "per_bucket": {str(n): b for n, b in per_bucket.items()},
+        "peak_gb": peak_gb, "start_gb": start_gb}}))
+    return (launches, routes), (sdtw_launches, sdtw_routes)
+
+
+def long_wave_record(samples):
+    """``run_wav2vec2``'s synthetic wave (its first record's sine plus
+    noise), ``samples`` long."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    wave = (0.1 * np.sin(2 * np.pi * 180 * np.arange(samples) / SAMPLE_RATE)
+            + 0.01 * rng.standard_normal(samples)).astype(np.float32)
+    return {"id": "synthetic_long", "text": "the quick brown fox", "wave": wave}
+
+
+def stitched_frames(cfg, samples, seq=W2V_SEQ, overlap=W2V_OVERLAP):
+    """Frames the windowed wav2vec2 engine's stitch covers: the furthest
+    window start (in frames) plus that window's encoder output."""
+    from dynamic_asr_eval_tpu_torch.models.wav2vec2 import feat_extract_output_lengths
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+
+    starts, lens = chunk_starts_and_lengths(samples, seq, overlap)
+    ds = cfg.downsampling_factor
+    return max(int(s) // ds + feat_extract_output_lengths(cfg, int(n))
+               for s, n in zip(starts, lens))
+
+
+def check_wav2vec2_config(cfg):
+    """The driver ran wav2vec2-base (``--full_size``) in f32."""
+    base = dict(hidden=768, n_layers=12, n_heads=12, ff_dim=3072, conv_dim=512,
+                pos_conv_kernel=128, pos_conv_groups=16, compute_dtype=torch.float32)
+    got = {k: getattr(cfg, k) for k in base}
+    if got != base:
+        raise AssertionError(f"the driver ran {got}, not wav2vec2-base {base}")
+
+
+def wav2vec2_path(card, A, S, D):
+    """Phase 20: wav2vec2-base (``--full_size``, f32) through
+    ``evals.run_wav2vec2.main``: (a) the chunked mode on a 60 s synthetic
+    wave at 48000 / 16000 samples, its profile; (b) ``--per_utterance``
+    (``ctc_mean``, clip 10) on the driver's own two 4 s records.  No kernel
+    of the repository runs: 0 launches.  Returns (launches, routes) of (a)
+    and (b) together."""
+    from dynamic_asr_eval_tpu_torch.evals import run_wav2vec2
+    from dynamic_asr_eval_tpu_torch.models.wav2vec2 import feat_extract_output_lengths
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+
+    modules = {"attention": A, "subsample": S, "softdtw": D}
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    records = run_wav2vec2._wave_records
+    run_wav2vec2._wave_records = lambda args: [long_wave_record(W2V_SAMPLES)]
+    try:
+        wer, wall, launches, routes, detail, recorder = main_path(
+            None, modules, run_wav2vec2, ("-d", "synthetic", "--full_size"))
+    finally:
+        run_wav2vec2._wave_records = records
+    cfg = recorder.engine.model.config
+    windows = len(chunk_starts_and_lengths(W2V_SAMPLES, W2V_SEQ, W2V_OVERLAP)[0])
+    log(f"  WER {wer}; launches {launches}; driver wall {wall:.3f} s (first run) for "
+        f"{W2V_SAMPLES / SAMPLE_RATE:.0f} s of audio in {windows} windows")
+    check_wav2vec2_config(cfg)
+    check_path_launches("wav2vec2", launches, routes, S.gx_launches, W2V_PLAN, windows=windows)
+    if len(detail["model_output"]) != 1 or not math.isfinite(wer) or len(recorder.outputs) != 1:
+        raise AssertionError(f"wav2vec2: driver result malformed: wer {wer}, "
+                             f"{detail.get('model_output')}, {len(recorder.outputs)} calls")
+    (out,), ((params, _),) = recorder.outputs, recorder.calls
+    lp = out.numpy_logits()
+    expect = (stitched_frames(cfg, W2V_SAMPLES), cfg.vocab_size)
+    if lp.shape != expect or not torch.isfinite(torch.from_numpy(lp)).all():
+        raise AssertionError(f"wav2vec2: stitched log-probs {lp.shape} (expected {expect}), "
+                             f"finite {torch.isfinite(torch.from_numpy(lp)).all()}")
+    moved = weight_change(out.params, params)
+    if not moved > 0:
+        raise AssertionError("wav2vec2: adaptation did not move the weights")
+    log(f"  stitched {lp.shape}, finite; max weight change {moved:.3e}")
+    log(f"[20a] where wav2vec2's time goes: the driver's engine, warm, on {card}")
+    profile = profile_engine(recorder, card, "wav2vec2", W2V_SEQ, W2V_OVERLAP, windows,
+                             W2V_SAMPLES, SAMPLE_RATE)
+    del recorder
+
+    log(f"[20b] evals.run_wav2vec2.main --full_size --per_utterance (ctc_mean, clip 10) on the "
+        f"driver's own records ({len(W2V_UTTERANCES)} x {W2V_UTTERANCES[0]} samples)")
+    u_wer, u_wall, u_launches, u_routes, u_detail, u_recorder = main_path(
+        None, modules, run_wav2vec2, ("-d", "synthetic", "--full_size", "--per_utterance"))
+    log(f"  WER {u_wer}; launches {u_launches}; driver wall {u_wall:.3f} s (first run)")
+    check_path_launches("wav2vec2 per utterance", u_launches, u_routes, S.gx_launches, W2V_PLAN,
+                        windows=len(W2V_UTTERANCES))
+    engine = u_recorder.engine
+    if (engine.loss_norm, engine.clip_norm) != ("ctc_mean", 10.0):
+        raise AssertionError(f"per utterance: loss_norm {engine.loss_norm}, clip "
+                             f"{engine.clip_norm}")
+    if len(u_detail["model_output"]) != len(W2V_UTTERANCES) or not math.isfinite(u_wer):
+        raise AssertionError(f"per utterance: driver result malformed: wer {u_wer}")
+    u_moved = []
+    for (params, utts), (outs, adapted, _) in zip(u_recorder.calls, u_recorder.outputs):
+        lengths = [u["spectrogram"].shape[-1] for u in utts]
+        u_moved.append(check_utterance_outputs(
+            "wav2vec2 per utterance", outs, lengths,
+            lambda T: feat_extract_output_lengths(cfg, T), cfg.vocab_size, adapted, params))
+    if len(u_moved) != len(W2V_UTTERANCES):
+        raise AssertionError(f"per utterance: {len(u_moved)} engine calls")
+    warm_ms = warm_utterance_ms(engine, *u_recorder.calls[0])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - start_gb
+    log(f"  finite log-probs, weights moved ({min(u_moved):.3e}); warm per utterance "
+        f"{warm_ms:.3f} ms; peak device memory {peak_gb:.2f} GB above the {start_gb:.2f} GB "
+        f"held when the phase began")
+    print(json.dumps({"wav2vec2_path": {
+        "card": card, "samples": W2V_SAMPLES, "windows": windows, "seq": W2V_SEQ,
+        "overlap": W2V_OVERLAP, "driver_wall_s": wall, "launches": launches,
+        "weight_change": moved, "ms_per_window": profile["ms_per_window"],
+        "rtfx": profile["rtfx"], "engine_walls_ms": profile["engine_walls_ms"],
+        "per_utterance_driver_wall_s": u_wall, "per_utterance_launches": u_launches,
+        "per_utterance_warm_ms": warm_ms, "per_utterance_samples": list(W2V_UTTERANCES),
+        "peak_gb": peak_gb, "start_gb": start_gb}}))
+    total = {k: tuple(a + b for a, b in zip(launches[k], u_launches[k])) for k in launches}
+    total_routes = {k: {r: tuple(a + b for a, b in zip(c, u_routes[k][r]))
+                        for r, c in by.items()} for k, by in routes.items()}
+    return total, total_routes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2529,11 +2972,16 @@ def main() -> int:
     # windows, the last of a recording 14336 frames, and a ragged batch
     for lengths in ([2048, 2048, 2048, 1792], [2048, 2048, 2048, 1100]):
         check_attention(A, 4, 2048, 6, 128, lengths, torch.bfloat16)
+    for frames, _ in UTT_SDTW:  # phase 19's utterances: T_ds 64 (one tile) and 512
+        T = frames // 8
+        check_attention(A, 2, T, 6, 128, [T, T], torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32):
         errs[("sub", dtype)] = check_subsample(S, SUB_FLAGSHIP, dtype)
         check_subsample(S, SUB_RAGGED, dtype)
     for batch in (1, 4):  # AWMC's windows; the evaluation engine's batches
         check_subsample(S, (batch,) + SUB_FLAGSHIP[1:], torch.bfloat16)
+    for frames, _ in UTT_SDTW:  # phase 19's utterances
+        check_subsample(S, (2, frames) + SUB_FLAGSHIP[2:], torch.bfloat16)
     errs[("sub_relu", torch.bfloat16)] = check_subsample(S, SUB_FLAGSHIP, torch.bfloat16, "relu")
     for shape, bandwidth in SDTW_CASES:
         e = check_softdtw(D, shape, bandwidth)
@@ -2655,6 +3103,14 @@ def main() -> int:
             f"NeMo state dict, evals.run.main --checkpoint (DAE1), NSTI on the {N_FRAMES}-frame "
             f"recording, bf16, subsampling_impl='pallas', on {card}")
         nemo_counts, nemo_routes, nemo_gx, nemo_parity = nemo_path(tmp, card, A, S, D)
+    log(f"[19] the utterance path: evals.run_utterance_eval.main --segment_frames {UTT_SEGMENT} "
+        f"on the {N_FRAMES}-frame recording, flagship, bf16, subsampling_impl='pallas', on "
+        f"{card}")
+    (utt_counts, utt_routes), (sdtw_counts, sdtw_routes) = utterance_path(card, A, S, D)
+    log(f"[20] wav2vec2-base: evals.run_wav2vec2.main --full_size, f32, the chunked mode on "
+        f"{W2V_SAMPLES // SAMPLE_RATE} s of synthetic audio at {W2V_SEQ} / {W2V_OVERLAP} "
+        f"samples, on {card}")
+    w2v_counts, w2v_routes = wav2vec2_path(card, A, S, D)
 
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
@@ -2696,6 +3152,9 @@ def main() -> int:
     consistency_launches = by_kernel(cons_routes, cons_counts)
     entropy_launches = by_kernel(entropy_routes, entropy_counts)
     nemo_launches = by_kernel(nemo_routes, nemo_counts)
+    utterance_launches = by_kernel(utt_routes, utt_counts)
+    utterance_softdtw_launches = by_kernel(sdtw_routes, sdtw_counts)
+    wav2vec2_launches = by_kernel(w2v_routes, w2v_counts)
     protocol_launches = {}  # phases 16, 16b and 16c together
     for counts_, routes_ in protocol_runs:
         for name, counts in by_kernel(routes_, counts_).items():
@@ -2765,6 +3224,9 @@ def main() -> int:
                 "protocol_launches": protocol_launches[name][i],
                 "entropy_launches": entropy_launches[name][i],
                 "nemo_launches": nemo_launches[name][i],
+                "utterance_launches": utterance_launches[name][i],
+                "utterance_softdtw_launches": utterance_softdtw_launches[name][i],
+                "wav2vec2_launches": wav2vec2_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

@@ -652,3 +652,165 @@ def test_relu_gx_bars_hold_the_norm_and_the_share_beyond_tolerance(monkeypatch):
     with pytest.raises(AssertionError, match="relative L2"):
         chip_smoke.check_subsample_relu_rounding(S, "case", x, ws, gout, out,
                                                  (gx.float() * 1.02).bfloat16(), gws)
+
+
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the utterance path and wav2vec2-base
+# ---------------------------------------------------------------------------
+
+
+def test_phases_19_and_20_are_listed_and_driven():
+    doc = chip_smoke.__doc__
+    assert "\n19. the utterance path" in doc and "\n20. wav2vec2-base" in doc
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    assert "utterance_path(card, A, S, D)" in main and "wav2vec2_path(card, A, S, D)" in main
+    for key in ("utterance_launches", "utterance_softdtw_launches", "wav2vec2_launches"):
+        assert f'"{key}": {key}[name][i]' in main
+
+
+def test_utterance_plans_per_utterance_at_the_flagship():
+    """Phase 19: 60 utterances of 512 frames, each one batch-2 forward and
+    backward (6 / 6 attention, 1 / 1 subsampling, no gx), no final pass; with
+    the soft-DTW weight one R and one E each as well."""
+    n = chip_smoke.N_FRAMES // chip_smoke.UTT_SEGMENT
+    assert n == 60
+    layers = chip_smoke.flagship_config().n_layers
+    plan = chip_smoke.utterance_plan(layers)
+    assert plan == {"attention": (6, 6), "subsample": (1, 1), "softdtw": (0, 0), "gx": 0}
+    assert chip_smoke.utterance_plan(layers, soft_dtw=True)["softdtw"] == (1, 1)
+    good = {"attention": (6 * n, 6 * n), "subsample": (n, n), "softdtw": (0, 0)}
+    chip_smoke.check_path_launches("utterance", good, _routes(good), 0, plan, windows=n)
+    final_pass = dict(good, attention=(12 * n, 6 * n), subsample=(2 * n, n))
+    with pytest.raises(AssertionError, match="expected"):
+        chip_smoke.check_path_launches("utterance", final_pass, _routes(final_pass), 0, plan,
+                                       windows=n)
+    sdtw_plan = chip_smoke.utterance_plan(layers, soft_dtw=True)
+    m = sum(c for _, c in chip_smoke.UTT_SDTW)
+    with_sdtw = {"attention": (6 * m, 6 * m), "subsample": (m, m), "softdtw": (m, m)}
+    chip_smoke.check_path_launches("soft-DTW", with_sdtw, _routes(with_sdtw), 0, sdtw_plan,
+                                   windows=m)
+    for missing in ((m - 1, m), (m, 0)):
+        bad = dict(with_sdtw, softdtw=missing)
+        with pytest.raises(AssertionError, match="softdtw"):
+            chip_smoke.check_path_launches("soft-DTW", bad, _routes(bad), 0, sdtw_plan, windows=m)
+
+
+def test_wav2vec2_plan_runs_no_kernel_of_the_repository():
+    plan = chip_smoke.W2V_PLAN
+    zero = {"attention": (0, 0), "subsample": (0, 0), "softdtw": (0, 0)}
+    chip_smoke.check_path_launches("wav2vec2", zero, _routes(zero), 0, plan, windows=30)
+    flash = dict(zero, attention=(1, 0))
+    with pytest.raises(AssertionError, match="attention"):
+        chip_smoke.check_path_launches("wav2vec2", flash, _routes(flash), 0, plan, windows=30)
+
+
+def test_phase_20_recording_is_a_minute_in_thirty_windows():
+    from dynamic_asr_eval_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    rec = chip_smoke.long_wave_record(chip_smoke.W2V_SAMPLES)
+    assert rec["wave"].shape == (960000,) and rec["wave"].dtype.name == "float32"
+    assert chip_smoke.stitched_frames(Wav2Vec2Config(), chip_smoke.W2V_SAMPLES) == 2999
+    chip_smoke.check_wav2vec2_config(Wav2Vec2Config())
+    with pytest.raises(AssertionError, match="wav2vec2-base"):
+        chip_smoke.check_wav2vec2_config(Wav2Vec2Config(hidden=64, n_layers=2))
+
+
+def test_cut_utterances_follows_the_plan_and_refuses_a_short_recording():
+    import numpy as np
+
+    rec = np.arange(2 * 100).reshape(2, 100)
+    utts = chip_smoke.cut_utterances(rec, ((10, 3), (40, 1)))
+    assert [u["spectrogram"].shape for u in utts] == [(2, 10)] * 3 + [(2, 40)]
+    assert utts[3]["spectrogram"][0, 0] == 30
+    with pytest.raises(AssertionError, match="needs"):
+        chip_smoke.cut_utterances(rec, ((60, 2),))
+
+
+def test_check_engine_softdtw_holds_value_and_gradient(monkeypatch):
+    """Phase 19b's check of the engine's D: both kernels against the plain
+    version as phase 3 holds them, and ``soft_dtw`` giving their R and E
+    bit for bit; a wrong E or a wrapper off by 1e-3 fails."""
+    from dynamic_asr_eval_tpu_torch.kernels import softdtw as D
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    Dmat = torch.rand(1, 12, 9, generator=torch.Generator().manual_seed(0)) * 2
+    out = chip_smoke.check_engine_softdtw(D, Dmat)
+    assert out["R_rel"] == 0.0 and out["E"] == 0.0 and out["E_max"] > 0
+    assert out["shape"] == [1, 12, 9] and len(out["value"]) == 1
+    real_sdtw, real_E = D.soft_dtw, D.softdtw_E
+    monkeypatch.setattr(D, "soft_dtw", lambda x, g, b, p: real_sdtw(x, g, b, p) * 1.001)
+    with pytest.raises(AssertionError, match="not the kernels' R and E"):
+        chip_smoke.check_engine_softdtw(D, Dmat)
+    monkeypatch.setattr(D, "soft_dtw", real_sdtw)
+    monkeypatch.setattr(D, "softdtw_E", lambda *a: real_E(*a) * 1.001)
+    with pytest.raises(AssertionError, match="E err"):
+        chip_smoke.check_engine_softdtw(D, Dmat)
+
+
+def test_fixed_perturbation_makes_the_engines_D_asymmetric():
+    """Phase 19b's ``augment_fn``: the same perturbation for the same width,
+    and with it the augmented-against-clean D is asymmetric where the clean
+    copy against itself is not."""
+    from dynamic_asr_eval_tpu_torch.kernels import softdtw as D
+
+    batch = torch.randn(1, 8, 64, generator=torch.Generator().manual_seed(0))
+    aug = chip_smoke.fixed_perturbation(batch, None, 64)
+    assert torch.equal(aug, chip_smoke.fixed_perturbation(batch, None, 64))
+    assert not torch.equal(aug, batch)
+    p_clean, p_aug = batch.softmax(1).transpose(1, 2), aug.softmax(1).transpose(1, 2)
+    assert chip_smoke.asymmetry(D.pairwise_sq_dist(p_clean, p_clean)) <= 1e-6
+    assert chip_smoke.asymmetry(D.pairwise_sq_dist(p_aug, p_clean)) > chip_smoke.ASYMMETRY_MIN
+
+
+def test_utterance_checks_hold_the_driver_run(monkeypatch):
+    """Phase 19a's machinery on the CPU at a tiny size: the driver's run
+    passes ``check_utterance_run``; a non-finite output, a missing utterance
+    or unmoved weights fail."""
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.evals import run_utterance_eval as driver
+
+    cfg = _tiny_protocol(monkeypatch, driver)
+    wer, _, launches, _, detail, recorder = chip_smoke.main_path(
+        cfg, {"attention": A}, driver, ("--segment_frames", "256"), frames=1024)
+    assert launches == {"attention": (0, 0)}  # nothing counts on the CPU
+
+    def out_len(T):
+        return -(-T // 8)
+
+    def check():
+        return chip_smoke.check_utterance_run("u", wer, detail, recorder, [256] * 4, out_len,
+                                              cfg.n_classes)
+    assert check() > 0
+    with pytest.raises(AssertionError, match="expected"):
+        chip_smoke.check_utterance_run("u", wer, detail, recorder, [256] * 5, out_len,
+                                       cfg.n_classes)
+    outs, adapted, elapsed = recorder.outputs[0]
+    outs[1] = np.full_like(outs[1], np.nan)
+    with pytest.raises(AssertionError, match="finite False"):
+        check()
+    outs[1] = np.zeros_like(outs[1])
+    recorder.outputs[0] = (outs, recorder.calls[0][0], elapsed)
+    with pytest.raises(AssertionError, match="did not move"):
+        check()
+
+
+@pytest.mark.parametrize("name,hit", [
+    ("(anonymous namespace)::fwd_kernel(float const*, float*, int, int, float)", True),
+    ("(anonymous namespace)::bwd_kernel(float const*, float const*, float*, int, int, int, float)",
+     True),
+    ("void (anonymous namespace)::dw_bwd_kernel<true>((anonymous namespace)::DwBwdArgs)", False),
+    ("void at::native::vectorized_elementwise_kernel<4, fwd_kernel>", False),
+])
+def test_softdtw_kernel_names_are_told_apart(name, hit):
+    assert bool(chip_smoke.SOFTDTW_KERNEL.search(name)) == hit
+
+
+def test_softdtw_kernels_are_the_named_globals():
+    from dynamic_asr_eval_tpu_torch.kernels import softdtw as D
+
+    src = D.SOURCE.read_text()
+    assert "namespace {" in src
+    assert " fwd_kernel(" in src and " bwd_kernel(" in src

@@ -67,7 +67,8 @@ import importlib, sys
 importlib.import_module("dynamic_asr_eval_tpu_torch." + sys.argv[1])
 print(",".join(sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
-                                             "wandb", "matplotlib", "dynamic_asr_eval_tpu"))))
+                                             "wandb", "matplotlib", "transformers",
+                                             "dynamic_asr_eval_tpu"))))
 """
 
 
@@ -103,6 +104,21 @@ def test_the_protocol_modules_import_alone(module):
     imported on its own, pulls in no JAX, no module of the JAX package, and
     no PyYAML, wandb or matplotlib: those are imported inside the functions
     that use them."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+UTTERANCE_MODULES = ("tta.utterance", "evals.run_utterance_eval", "augment.waveform",
+                     "models.wav2vec2", "evals.run_wav2vec2")
+
+
+@pytest.mark.parametrize("module", UTTERANCE_MODULES)
+def test_the_utterance_and_wav2vec2_modules_import_alone(module):
+    """Each module of the utterance and wav2vec2 slice, imported on its own,
+    pulls in no JAX, flax, optax, no module of the JAX package, and no
+    ``transformers`` (the HF layout is read by name, not through HF)."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -250,6 +266,29 @@ def test_protocol_clis_without_device_raise_without_cuda(module, no_cuda, tmp_pa
     driver = importlib.import_module("dynamic_asr_eval_tpu_torch." + module)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.cli(argv)
+
+
+def test_utterance_engine_without_device_raises_without_cuda(no_cuda):
+    from dynamic_asr_eval_tpu_torch.tta import UtteranceTTAEngine
+
+    cfg = ConformerConfig(feat_in=16, n_layers=1, d_model=32, n_heads=2, head_dim=16,
+                          vocab_size=10, subsampling_conv_channels=4, compute_dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        UtteranceTTAEngine(SCConformer(cfg), cfg.blank_id, 8, TTAConfig())
+
+
+@pytest.mark.parametrize("module,flags", [
+    ("evals.run_utterance_eval", []),
+    ("evals.run_wav2vec2", []),
+    ("evals.run_wav2vec2", ["--per_utterance"]),
+], ids=["run_utterance_eval", "run_wav2vec2", "run_wav2vec2 --per_utterance"])
+def test_utterance_and_wav2vec2_clis_without_device_raise_without_cuda(module, flags, no_cuda):
+    """With ``--device cpu`` they run (tests/test_torch_utterance_drivers.py)."""
+    import importlib
+
+    driver = importlib.import_module("dynamic_asr_eval_tpu_torch." + module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.cli(["-d", "synthetic", "--quiet"] + flags)
 
 
 @pytest.mark.parametrize("flags", [["--dp", "--tp", "2"], ["--dp"], ["--dp_records"]],
