@@ -46,6 +46,10 @@ Phases (each raises on failure; the script then exits non-zero):
      copy), with the same checks: attention [2, 64, 6, 128] (one query
      tile) and [2, 512, 6, 128], unpadded, subsampling [2, 512, 80] and
      [2, 4096, 80];
+   - both bf16 kernels at phase 21's chunks (T_ds 256), with the same
+     checks: attention [1, 256, 6, 128] at length 256 and a ragged 200, and
+     [4, 256, 6, 128] (grpo's batch-4 step), subsampling [1, 2048, 80] and
+     [4, 2048, 80];
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
@@ -93,9 +97,12 @@ Phases (each raises on failure; the script then exits non-zero):
    launches of the f32 route (``"tf32x3"``) are its ``parity_launches`` in
    the kernels line (its ``launches``, the main path's, are 0);
 7. where the time goes: the driver's engine, warm, on the same recording:
-   engine wall of 3 runs, ms per window and RTFx at the fastest, then one
-   run under torch.profiler for device busy time, idle share, device time
-   by kernel family and the top kernels (a ``{"profile": ...}`` line);
+   engine wall of 3 runs, ms per window and RTFx at the fastest; then, on
+   the recording's first 3 windows (seq + stride frames), one untraced run
+   and one under torch.profiler for device busy time, idle share against
+   that untraced wall, device time by kernel family and the top kernels (a
+   ``{"profile": ...}`` line; phases 7b, 11, 15b, 17b, 18b and 20a trace
+   their 3 windows alike);
 5b-7b. the same for ``subsampling_impl="pallas"`` (the fused subsampling
    kernels on the path; every subsampling launch must have taken the bf16
    route too); 6b also holds the full-depth f32 model through the f32
@@ -269,7 +276,40 @@ Phases (each raises on failure; the script then exits non-zero):
    weights moved, its profile (``"path": "wav2vec2"``); 20b
    ``--per_utterance`` (``ctc_mean``, clip 10) on the driver's own two 4 s
    records, finite log-probs, weights moved; 0 attention, subsampling and
-   soft-DTW launches in both; a ``{"wav2vec2_path": ...}`` line.
+   soft-DTW launches in both; a ``{"wav2vec2_path": ...}`` line;
+21. the encoder-decoder path: ``evals/enc_dec_dynamic_eval_test.py``
+   ``main`` with the flagship encoder (bf16, ``"pallas_flash"``,
+   ``"pallas"`` subsampling) and ``EncDecConfig``'s default decoder (4 x
+   512, 8 heads x 64, f32 as in JAX), random from seed 0, a 4095-piece
+   vocabulary as ``--tokenizer``, on a 16384-frame recording with
+   ``launch_scripts/eval_list_encdec_deval.sh``'s settings (``-seq 2048 -o
+   0 -kwargs optim_lr=9e-6 epochs=1``: 8 chunks), three times: ``grpo`` with
+   no filter, ``grpo`` with the ``quality_plus_decode_agreement`` stack,
+   ``teacher_ce``.  Each run's branches are read by wrapping
+   ``tta.encdec_rl`` for the run (:class:`BranchLog`), and its launches
+   must be exactly what they derive: per encoder pass (a teacher decode,
+   the rollouts' decode, a teacher-forced pass, an update's forward, a
+   final decode) one attention forward per layer and one subsampling
+   forward, per update one backward of each, all bf16; a teacher and a
+   final decode per chunk, updates at batch 4 (``grpo``) or 1
+   (``teacher_ce``); finite WER and a transcript, finite adapted weights
+   that moved where a chunk updated, ``pos_enc`` unchanged bit for bit.
+   21a: the first run's engine warm: ms per decode step of the teacher
+   (batch 1) and of the rollouts (batch 4); over the recording's first 2
+   chunks, ms per chunk (untraced) and, under torch.profiler (the device's
+   activity alone), device busy time, idle share and the attention and
+   subsampling kernels' share; peak memory; an ``{"encdec_path": ...}``
+   line.  21b:
+   ``evals/enc_dec_inference_test.py`` ``-mode default`` (exactly 6 / 0
+   attention and 1 / 0 subsampling launches a chunk) and
+   ``evals/enc_dec_ctc_beam_inference_test.py -beams 10`` (one encoder pass
+   over the recording) on the same recording and model, all bf16; the
+   card's beam equal to the CPU's on the first 512 frames of the CTC
+   branch's log-probs (an ``{"encdec_inference": ...}`` line).  21c: the
+   enc-dec at full depth in f32 through the f32 kernels against the plain
+   path (``"xla"``, ``"conv"``), teacher-forced on a batch of 2 at lengths
+   2048 and 1600, cuDNN deterministic: CTC log-probs and decoder logits
+   within 1e-3 on valid frames and positions (``encdec_parity_launches``).
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
@@ -278,14 +318,16 @@ path, ``consistency_launches`` on the consistency path,
 ``protocol_launches`` over the first runs of phases 16-16c,
 ``entropy_launches`` (phase 17), ``nemo_launches`` (phase 18),
 ``utterance_launches`` and ``utterance_softdtw_launches`` (phases 19 and
-19b) and ``wav2vec2_launches`` (phases 20 and 20b), each read from its own
-runs; ``f32_path_launches`` for the f32 attention and
+19b), ``wav2vec2_launches`` (phases 20 and 20b) and ``encdec_launches``
+(phases 21 and 21b), each read from its own runs; ``encdec_parity_launches``
+(21c) beside the other parity counts; ``f32_path_launches`` for the f32
+attention and
 subsampling, from phase 5c; the subsampling backwards' ``entropy_gx_launches``
 and ``nemo_gx_launches``, its ``gx_ms`` / ``gx_bound_ms`` /
 ``gx_library_ms``, and the bf16 forward's ``relu_ms``), and last
 ``{"ok": true, "device": {...}}``.  TF32 stays off throughout for PyTorch's
 matmuls and convolutions; cuDNN's deterministic algorithms are on only
-inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c), so the timed
+inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c, 21c), so the timed
 phases keep cuDNN's own choice.
 """
 
@@ -2128,11 +2170,14 @@ def wall_ms(fn) -> float:
     return (time.time() - t0) * 1e3
 
 
-def warm_run_ms(recorder, seq=None, overlap=None) -> float:
-    """One run of the driver's engine on its recording and weights (warm
-    after the driver's own run), in ms of wall time; windows of ``seq`` /
-    ``overlap`` (default SEQ / OVERLAP)."""
+def warm_run_ms(recorder, seq=None, overlap=None, frames=None) -> float:
+    """One run of the driver's engine on its recording (its first ``frames``
+    frames or samples when given) and weights (warm after the driver's own
+    run), in ms of wall time; windows of ``seq`` / ``overlap`` (default SEQ
+    / OVERLAP)."""
     engine, ((params, spec),) = recorder.engine, recorder.calls
+    if frames is not None:
+        spec = spec[..., :frames]
     return wall_ms(lambda: engine(params, spec, SEQ if seq is None else seq,
                                   OVERLAP if overlap is None else overlap, rng=0))
 
@@ -2222,13 +2267,16 @@ def f32_path(card, A, S):
             "fused_subsample_f32": fused_routes["subsample"][sub_route]}
 
 
-def kernel_ms(fn):
+def kernel_ms(fn, cpu=True):
     """``fn()`` once under torch.profiler: {kernel name: device ms}.  Ranges
     that annotate kernels are left out; empty where the profiler sees no
-    device time."""
+    device time.  ``cpu=False`` records the device's activity alone (fewer
+    events for a run of many small launches)."""
     from collections import defaultdict
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         fn()
     by_kernel = defaultdict(float)
@@ -2246,22 +2294,30 @@ def kernel_ms(fn):
 def profile_engine(recorder, card, path, seq=None, overlap=None, windows=N_WINDOWS,
                    frames=N_FRAMES, frame_rate=100.0):
     """Where the time of one recording goes: the driver's engine, warm, on
-    the same recording and weights, timed TIMED_RUNS times, then once under
-    torch.profiler.  Device busy time is the sum of kernel times (ranges
-    that annotate kernels are left out); the idle share is ``1 - busy /
-    wall`` against the fastest timed run.  ``seq`` / ``overlap`` / ``windows``
-    give the recording's window plan (default the flagship's), ``frames``
-    its length at ``frame_rate`` a second (default N_FRAMES at a 10 ms hop;
-    samples at 16000 for a waveform)."""
+    the same recording and weights, timed TIMED_RUNS times; then, on the
+    recording's first ``seq + (seq - overlap)`` frames (3 windows from the
+    chunker: two whole and a ragged tail), one untraced run and one under
+    torch.profiler.  Device busy time is the sum of kernel times over the
+    traced windows (ranges that annotate kernels are left out); the idle
+    share is ``1 - busy / wall`` of that cut recording's untraced run.
+    ``seq`` / ``overlap`` / ``windows`` give the recording's window plan
+    (default the flagship's), ``frames`` its length at ``frame_rate`` a
+    second (default N_FRAMES at a 10 ms hop; samples at 16000 for a
+    waveform)."""
     from collections import defaultdict
 
     walls_ms = [warm_run_ms(recorder, seq, overlap) for _ in range(TIMED_RUNS)]
     wall_ms = min(walls_ms)
-    by_kernel = kernel_ms(lambda: warm_run_ms(recorder, seq, overlap))
+    seq_ = SEQ if seq is None else seq
+    cut = 2 * seq_ - (OVERLAP if overlap is None else overlap)
+    traced = n_windows(cut, seq_, OVERLAP if overlap is None else overlap)
+    cut_wall_ms = warm_run_ms(recorder, seq, overlap, frames=cut)
+    by_kernel = kernel_ms(lambda: warm_run_ms(recorder, seq, overlap, frames=cut))
     busy_ms = sum(by_kernel.values())
     result = {"path": path, "card": card, "frames": frames, "windows": windows,
               "engine_walls_ms": walls_ms, "ms_per_window": wall_ms / windows,
-              "rtfx": frames / frame_rate / (wall_ms / 1e3)}
+              "rtfx": frames / frame_rate / (wall_ms / 1e3), "traced_frames": cut,
+              "traced_windows": traced, "traced_wall_ms": cut_wall_ms}
     if busy_ms <= 0:
         result.update(device_busy_ms="not measured", idle_share="not measured")
     else:
@@ -2269,7 +2325,8 @@ def profile_engine(recorder, card, path, seq=None, overlap=None, windows=N_WINDO
         for k, ms in by_kernel.items():
             fams[family(k)] += ms
         result.update(
-            device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+            device_busy_ms=busy_ms, device_busy_ms_per_window=busy_ms / traced,
+            idle_share=max(0.0, 1.0 - busy_ms / cut_wall_ms),
             families_ms=dict(sorted(fams.items(), key=lambda kv: -kv[1])),
             top_kernels_ms=[[k[:90], ms] for k, ms in
                             sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]])
@@ -2927,6 +2984,394 @@ def wav2vec2_path(card, A, S, D):
     return total, total_routes
 
 
+# ---------------------------------------------------------------------------
+# phases 21-21c: the encoder-decoder path
+# ---------------------------------------------------------------------------
+
+# launch_scripts/eval_list_encdec_deval.sh: -seq 2048 -o 0 -kwargs
+# optim_lr=9e-6 epochs=1, on a 16384-frame recording (8 chunks)
+ENCDEC_FRAMES, ENCDEC_SEQ = 16384, 2048
+ENCDEC_CHUNKS = ENCDEC_FRAMES // ENCDEC_SEQ
+ENCDEC_KWARGS = ["-kwargs", "optim_lr=9e-6", "epochs=1"]
+# the launch script's filter stacks: "baseline" and "quality_plus_decode_agreement"
+QUALITY_PLUS_DECODE_AGREEMENT = (
+    "--teacher_filter_max_length", "--teacher_filter_max_consecutive_token_repeat",
+    "--teacher_filter_repeated_token_ngrams", "--teacher_filter_repeated_words",
+    "--teacher_filter_low_confidence", "--teacher_filter_ctc_agreement",
+    "--teacher_filter_decode_agreement")
+ENCDEC_RUNS = (("grpo", ("--training_mode", "grpo")),
+               ("grpo_quality_plus_decode_agreement",
+                ("--training_mode", "grpo") + QUALITY_PLUS_DECODE_AGREEMENT),
+               ("teacher_ce", ("--training_mode", "teacher_ce")))
+ENCDEC_PROFILED_CHUNKS = 2  # phase 21's trace: the recording's first 2 chunks
+ENCDEC_BEAMS = 10  # phase 21b's joint CTC beam
+ENCDEC_PARITY_LENGTHS = (2048, 1600)  # phase 21c: frames (multiples of 8), text 64 / 40
+ENCDEC_PARITY_TEXT = (64, 40)
+
+
+def encdec_config(**overrides):
+    """The flagship encoder (``"pallas"`` subsampling unless overridden) with
+    ``EncDecConfig``'s default decoder (4 x 512, 8 heads x 64, ff x4,
+    ``max_text_len`` 256; f32 whatever the encoder's dtype, as in JAX)."""
+    from dynamic_asr_eval_tpu_torch.models.encdec import EncDecConfig
+
+    return EncDecConfig(encoder=flagship_config(**{"subsampling_impl": "pallas", **overrides}))
+
+
+class BranchLog:
+    """The branches of an enc-dec run, read by wrapping ``tta.encdec_rl`` for
+    the run's length: every ``generate_encdec`` call (its sample count and
+    whether it ran the encoder: the teacher, the rollouts and the final
+    decode do; the agreement decode reuses the teacher's encoder output),
+    every teacher-forced pass, and every update with its batch."""
+
+    def __init__(self):
+        self.generates, self.teacher_forced, self.updates = [], 0, []
+
+    def __enter__(self):
+        from dynamic_asr_eval_tpu_torch.tta import encdec_rl as R
+
+        E = R.EncDecDynamicEvalEngine
+        self._saved = (R.generate_encdec, E._teacher_forced, E._policy_loss, E._teacher_ce_loss)
+        gen, tf, policy, ce = self._saved
+        log_ = self
+
+        def generate(model, audio, cfg, *args, encoder_out=None, **kwargs):
+            log_.generates.append((kwargs.get("sample", 1), encoder_out is None))
+            return gen(model, audio, cfg, *args, encoder_out=encoder_out, **kwargs)
+
+        def teacher_forced(self, *args, **kwargs):
+            log_.teacher_forced += 1
+            return tf(self, *args, **kwargs)
+
+        def policy_loss(self, audio, a_len, hyp_tokens, *args, **kwargs):
+            log_.updates.append(hyp_tokens.shape[0])
+            return policy(self, audio, a_len, hyp_tokens, *args, **kwargs)
+
+        def teacher_ce_loss(self, audio, *args, **kwargs):
+            log_.updates.append(audio.shape[0])
+            return ce(self, audio, *args, **kwargs)
+
+        R.generate_encdec = generate
+        E._teacher_forced, E._policy_loss, E._teacher_ce_loss = (teacher_forced, policy_loss,
+                                                                 teacher_ce_loss)
+        return self
+
+    def __exit__(self, *exc):
+        from dynamic_asr_eval_tpu_torch.tta import encdec_rl as R
+
+        E = R.EncDecDynamicEvalEngine
+        R.generate_encdec, E._teacher_forced, E._policy_loss, E._teacher_ce_loss = self._saved
+        return False
+
+    @property
+    def encodes(self):
+        return sum(1 for _, encoded in self.generates if encoded)
+
+    def rollouts(self, n=4):
+        return sum(1 for sample, _ in self.generates if sample == n)
+
+    def plan(self, n_layers):
+        """The launches these branches make: a forward of every layer's
+        attention and of the subsampling per encoder pass (the encoding
+        generates, the teacher-forced passes, the updates' forwards), a
+        backward of each per update."""
+        fwd, bwd = self.encodes + self.teacher_forced + len(self.updates), len(self.updates)
+        return {"attention": (n_layers * fwd, n_layers * bwd), "subsample": (fwd, bwd),
+                "softdtw": (0, 0), "gx": 0}
+
+
+def encdec_driver_run(driver, cfg, kernel_modules, tmp, vocab, flags=(), frames=ENCDEC_FRAMES):
+    """An enc-dec driver's ``main`` on a ``frames``-frame ``synthetic_spec``
+    recording with the launch script's settings, ``cfg`` its model (random
+    from seed 0) and ``vocab`` its tokenizer, the counts zeroed just before
+    and read just after; returns (wer, wall, launches, routes, detail, the
+    recorder of its engine or None, the branch log)."""
+    import pickle
+
+    os.environ["DAE_SYNTH_SPEC_FRAMES"] = str(frames)
+    args = driver.parse_args(["-d", "synthetic_spec", "--quiet", "-s", os.path.join(tmp, "r.pkl"),
+                              "-seq", str(ENCDEC_SEQ), "-o", "0", "--tokenizer", vocab, *flags,
+                              *ENCDEC_KWARGS])
+    recorder, build = None, getattr(driver, "build_engine", None)
+    if build is not None:
+        recorder = EngineRecorder()
+        driver.build_engine = recorder.wrap(build)
+    try:
+        with BranchLog() as branches:
+            t0 = time.time()
+            wer, launches, routes = counted(kernel_modules,
+                                            lambda: driver.main(args, model_config=cfg))
+            wall = time.time() - t0
+    finally:
+        if build is not None:
+            driver.build_engine = build
+    with open(os.path.join(tmp, "r_1.pkl"), "rb") as f:
+        detail = pickle.load(f)
+    return wer, wall, launches, routes, detail, recorder, branches
+
+
+def check_encdec_run(what, cfg, wer, detail, recorder, branches, filtered):
+    """One enc-dec TTA run: the branches add up (a teacher decode and a
+    final decode of every chunk, a teacher-forced pass of every chunk where
+    the filters need one, ``grpo``'s rollouts and updates at batch 4,
+    ``teacher_ce``'s at batch 1), a finite WER and a transcript, finite
+    adapted weights that moved where a chunk updated (and are the pristine
+    ones where none did), ``pos_enc`` unchanged bit for bit.  Returns the
+    largest weight change."""
+    n, mode = ENCDEC_CHUNKS, recorder.engine.training_mode
+    rollouts = branches.rollouts(recorder.engine.num_rollouts)
+    teachers = sum(1 for s, e in branches.generates if s == 1 and e) - n  # less the final decode
+    agreements = sum(1 for _, e in branches.generates if not e)
+    want_batch = recorder.engine.num_rollouts if mode != "teacher_ce" else 1
+    if not (teachers == n and agreements == (n if filtered else 0)
+            and (0 < branches.teacher_forced <= n if filtered else branches.teacher_forced == 0)
+            and (rollouts == 0 if mode == "teacher_ce" else rollouts <= n)
+            and len(branches.updates) <= (rollouts if mode != "teacher_ce" else n)
+            and all(b == want_batch for b in branches.updates)):
+        raise AssertionError(f"{what}: branches {branches.generates}, {branches.teacher_forced} "
+                             f"teacher-forced passes, updates at batches {branches.updates}")
+    transcript = detail["model_output"]
+    if len(transcript) != 1 or not transcript[0].strip() or not math.isfinite(wer):
+        raise AssertionError(f"{what}: WER {wer}, transcript {transcript}")
+    (params, _), (_, adapted, _) = recorder.calls[0], recorder.outputs[0]
+    if not all(torch.isfinite(v.float()).all() for v in adapted.values()):
+        raise AssertionError(f"{what}: non-finite adapted weights")
+    if not torch.equal(adapted["pos_enc.weight"], params["pos_enc.weight"]):
+        raise AssertionError(f"{what}: the frozen pos_enc moved")
+    moved = weight_change(adapted, params)
+    if (moved > 0) != bool(branches.updates):
+        raise AssertionError(f"{what}: {len(branches.updates)} updates, max weight change "
+                             f"{moved}")
+    return moved
+
+
+def encdec_timing(recorder, vocab_tok, card):
+    """Phase 21's warm numbers on its first run's engine and recording: ms
+    per decode step of the greedy teacher (batch 1) and of the rollouts
+    (batch 4, sampled); the engine's call over the recording's first
+    ENCDEC_PROFILED_CHUNKS chunks once untraced (ms per chunk, their final
+    decode included) and once under torch.profiler: device busy time, idle
+    share against the untraced wall, and the attention and subsampling
+    kernels' share of busy."""
+    from collections import defaultdict
+
+    from dynamic_asr_eval_tpu_torch.models.encdec import generate_encdec
+
+    engine, ((params, spec),) = recorder.engine, recorder.calls
+    run = lambda s: engine(params, s, ENCDEC_SEQ, vocab_tok)  # noqa: E731
+    chunk = torch.as_tensor(spec[..., :ENCDEC_SEQ], device="cuda").float().reshape(
+        1, -1, ENCDEC_SEQ)
+    length = torch.tensor([ENCDEC_SEQ], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    steps = engine.max_generate
+    teacher_ms = min(wall_ms(lambda: generate_encdec(
+        engine._work, chunk, engine.config, max_generate=steps, length=length))
+        for _ in range(3))
+    rollout_ms = min(wall_ms(lambda: generate_encdec(
+        engine._work, chunk, engine.config, generator=g, sample=engine.num_rollouts,
+        greedy=False, max_generate=steps, length=length)) for _ in range(3))
+    cut = spec[..., :ENCDEC_PROFILED_CHUNKS * ENCDEC_SEQ]
+    cut_ms = wall_ms(lambda: run(cut))
+    by_kernel = kernel_ms(lambda: run(cut), cpu=False)
+    busy = sum(by_kernel.values())
+    result = {"card": card, "warm_ms_per_chunk": cut_ms / ENCDEC_PROFILED_CHUNKS,
+              "decode_steps": steps,
+              "teacher_ms_per_decode_step": teacher_ms / steps,
+              "rollout_ms_per_decode_step": rollout_ms / steps,
+              "profiled_chunks": ENCDEC_PROFILED_CHUNKS, "profiled_wall_ms": cut_ms}
+    if busy <= 0:
+        result.update(device_busy_ms="not measured", idle_share="not measured")
+    else:
+        fams = defaultdict(float)
+        for k, ms in by_kernel.items():
+            fams[family(k)] += ms
+        result.update(device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / cut_ms),
+                      attention_share=fams["flash_attention"] / busy,
+                      subsample_share=fams["fused_subsample"] / busy,
+                      families_ms=dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+                      top_kernels_ms=[[k[:90], ms] for k, ms in sorted(
+                          by_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]])
+    return result
+
+
+def encdec_path(tmp, card, A, S, D):
+    """Phase 21: ``evals.enc_dec_dynamic_eval_test.main`` at the flagship
+    encoder (bf16, ``"pallas_flash"``, ``"pallas"``) with the default f32
+    decoder, random from seed 0, on a 16384-frame recording with the launch
+    script's settings, three times: ``grpo`` with no filter, ``grpo`` with
+    the ``quality_plus_decode_agreement`` stack, ``teacher_ce``.  Launches
+    exactly as each run's branches derive them, all bf16; the outputs as
+    :func:`check_encdec_run` holds them; the first run's warm timing and
+    profile.  Returns the three runs' launches and routes together."""
+    from dynamic_asr_eval_tpu_torch.evals import enc_dec_dynamic_eval_test
+    from dynamic_asr_eval_tpu_torch.text import load_tokenizer
+
+    cfg = encdec_config()
+    modules = {"attention": A, "subsample": S, "softdtw": D}
+    vocab = write_vocab(tmp)
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    total, total_routes, runs, timing = None, None, {}, None
+    for name, flags in ENCDEC_RUNS:
+        wer, wall, launches, routes, detail, recorder, branches = encdec_driver_run(
+            enc_dec_dynamic_eval_test, cfg, modules, tmp, vocab, flags)
+        plan = branches.plan(cfg.encoder.n_layers)
+        check_path_launches(f"enc-dec {name}", launches, routes, S.gx_launches, plan, windows=1)
+        moved = check_encdec_run(f"enc-dec {name}", cfg, wer, detail, recorder, branches,
+                                 filtered=name != "grpo" and name != "teacher_ce")
+        runs[name] = {"driver_wall_s": wall, "wer": wer, "launches": launches,
+                      "encoder_passes": plan["subsample"][0], "updates": len(branches.updates),
+                      "update_batch": branches.updates[:1],
+                      "rollouts": branches.rollouts(recorder.engine.num_rollouts),
+                      "teacher_forced": branches.teacher_forced,
+                      "weight_change": moved,
+                      "transcript_words": len(detail["model_output"][0].split())}
+        log(f"  {name}: WER {wer}; driver wall {wall:.3f} s (first run); launches {launches}, "
+            f"all bf16, as the branches derive them: {plan['subsample'][0]} encoder passes, "
+            f"{len(branches.updates)} updates at batch {branches.updates[:1]}, "
+            f"{runs[name]['rollouts']} rollout decodes, {branches.teacher_forced} teacher-forced; "
+            f"max weight change {moved:.3e}, pos_enc unchanged")
+        if timing is None:
+            log(f"[21a] where the enc-dec step's time goes: the first run's engine, warm, on "
+                f"{card}")
+            timing = encdec_timing(recorder, load_tokenizer(vocab), card)
+            for key, val in timing.items():
+                if key != "top_kernels_ms":
+                    log(f"  {key}: {val}")
+            for kname, ms in timing.get("top_kernels_ms", []):
+                log(f"  {ms:9.3f} ms  {kname}")
+        del recorder
+        total = launches if total is None else {
+            k: tuple(a + b for a, b in zip(total[k], launches[k])) for k in launches}
+        total_routes = routes if total_routes is None else {
+            k: {r: tuple(a + b for a, b in zip(c, routes[k][r])) for r, c in by.items()}
+            for k, by in total_routes.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - start_gb
+    log(f"  peak device memory {peak_gb:.2f} GB above the {start_gb:.2f} GB held when the phase "
+        f"began")
+    print(json.dumps({"encdec_path": {
+        "card": card, "frames": ENCDEC_FRAMES, "seq": ENCDEC_SEQ, "chunks": ENCDEC_CHUNKS,
+        "runs": runs, "timing": timing, "peak_gb": peak_gb, "start_gb": start_gb}}))
+    return total, total_routes
+
+
+def encdec_inference_path(tmp, card, A, S, D):
+    """Phase 21b: ``evals.enc_dec_inference_test.main -mode default``
+    (chunked greedy AR decode: exactly 6 / 0 attention and 1 / 0
+    subsampling launches a chunk) and ``evals.enc_dec_ctc_beam_inference_test
+    .main -beams 10`` (the whole recording's CTC branch: exactly one
+    encoder pass) on phase 21's recording and model, all bf16; the card's
+    beam against the CPU's (the same function on the same log-probs) on the
+    first LM_CHECK_FRAMES frames.  Returns both runs' launches and routes
+    together."""
+    from dynamic_asr_eval_tpu_torch.evals import enc_dec_ctc_beam_inference_test
+    from dynamic_asr_eval_tpu_torch.evals import enc_dec_inference_test as ed_inf
+    from dynamic_asr_eval_tpu_torch.ops.beam_search import UniformLMAdapter, beam_search_device
+
+    cfg = encdec_config()
+    L = cfg.encoder.n_layers
+    modules = {"attention": A, "subsample": S, "softdtw": D}
+    vocab = write_vocab(tmp)
+    wer, wall, launches, routes, detail, _, branches = encdec_driver_run(
+        ed_inf, cfg, modules, tmp, vocab, ("-mode", "default"))
+    check_path_launches("enc-dec inference", launches, routes, S.gx_launches,
+                        {"attention": (L, 0), "subsample": (1, 0), "softdtw": (0, 0), "gx": 0},
+                        windows=ENCDEC_CHUNKS)
+    if len(branches.generates) != ENCDEC_CHUNKS or not math.isfinite(wer) \
+            or not detail["model_output"][0].strip():
+        raise AssertionError(f"enc-dec inference: {branches.generates}, WER {wer}, "
+                             f"{detail['model_output']}")
+    log(f"  -mode default: WER {wer}; driver wall {wall:.3f} s; launches {launches}, all bf16, "
+        f"{ENCDEC_CHUNKS} chunks of one encoder pass each")
+
+    seen = []
+
+    def spy(log_probs, *args, **kwargs):
+        seen.append(log_probs.detach().clone())
+        return beam_search_device(log_probs, *args, **kwargs)
+
+    ed_inf.beam_search_device = spy
+    try:
+        j_wer, j_wall, j_launches, j_routes, j_detail, _, _ = encdec_driver_run(
+            enc_dec_ctc_beam_inference_test, cfg, modules, tmp, vocab,
+            ("-beams", str(ENCDEC_BEAMS)))
+    finally:
+        ed_inf.beam_search_device = beam_search_device
+    check_path_launches("enc-dec joint CTC beam", j_launches, j_routes, S.gx_launches,
+                        {"attention": (L, 0), "subsample": (1, 0), "softdtw": (0, 0), "gx": 0},
+                        windows=1)
+    (lp,) = seen
+    if lp.shape != (ENCDEC_FRAMES // cfg.encoder.subsampling_factor, cfg.encoder.n_classes) \
+            or not torch.isfinite(lp).all() or not math.isfinite(j_wer):
+        raise AssertionError(f"enc-dec joint: log-probs {tuple(lp.shape)}, WER {j_wer}")
+    kw = dict(beam_width=ENCDEC_BEAMS, alpha=0.45, beta=1.53, prune_less_than_val=3.17)
+    check = lp[:LM_CHECK_FRAMES]
+    got = beam_search_device(check, UniformLMAdapter(cfg.vocab_size, device="cuda"), **kw)
+    want = beam_search_device(check.cpu(), UniformLMAdapter(cfg.vocab_size, device="cpu"), **kw)
+    diff = check_live_beams("enc-dec joint beam, card against CPU", got, want)
+    log(f"  joint CTC beam (-beams {ENCDEC_BEAMS}): WER {j_wer}; driver wall {j_wall:.3f} s; "
+        f"launches {j_launches}, all bf16; log-probs {tuple(lp.shape)}, finite; the card's beam "
+        f"equals the CPU's on the first {check.shape[0]} frames (scores within {diff:.2e})")
+    print(json.dumps({"encdec_inference": {
+        "card": card, "frames": ENCDEC_FRAMES, "chunks": ENCDEC_CHUNKS,
+        "default_wall_s": wall, "default_wer": wer, "default_launches": launches,
+        "joint_wall_s": j_wall, "joint_wer": j_wer, "joint_launches": j_launches,
+        "beams": ENCDEC_BEAMS, "check_frames": int(check.shape[0]),
+        "check_max_rel_score_diff": diff}}))
+    total = {k: tuple(a + b for a, b in zip(launches[k], j_launches[k])) for k in launches}
+    total_routes = {k: {r: tuple(a + b for a, b in zip(c, j_routes[k][r]))
+                        for r, c in by.items()} for k, by in routes.items()}
+    return total, total_routes
+
+
+def check_encdec_parity(A, S):
+    """Phase 21c: the enc-dec at full depth in f32 through the f32 kernels
+    (``"pallas_flash"``, ``"pallas"``: route ``"tf32x3"``) against the same
+    weights on the plain path (``"xla"``, ``"conv"``), teacher-forced, on a
+    batch of 2 at lengths that are multiples of 8, cuDNN deterministic: CTC
+    log-probs on valid frames and decoder logits on valid text positions
+    within 1e-3.  Returns the f32 routes' launches {module: (fwd, bwd)}."""
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+    from dynamic_asr_eval_tpu_torch.models.encdec import EncDecConformer, init_encdec
+
+    kernel_cfg = encdec_config(compute_dtype=torch.float32)
+    plain_cfg = encdec_config(compute_dtype=torch.float32, attention_impl="xla",
+                              subsampling_impl="conv")
+    kernel = init_encdec(kernel_cfg, seed=0).cuda().eval()
+    plain = EncDecConformer(plain_cfg).cuda().eval()
+    plain.load_state_dict(kernel.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    T = max(ENCDEC_PARITY_LENGTHS)
+    x = torch.randn(len(ENCDEC_PARITY_LENGTHS), 80, T, generator=g, device="cuda")
+    lengths = torch.tensor(ENCDEC_PARITY_LENGTHS, device="cuda")
+    text = torch.randint(0, kernel_cfg.vocab_size, (len(ENCDEC_PARITY_TEXT),
+                                                    max(ENCDEC_PARITY_TEXT)),
+                         generator=g, device="cuda")
+    text_lengths = torch.tensor(ENCDEC_PARITY_TEXT, device="cuda")
+    with deterministic_cudnn(), torch.no_grad():
+        a, launches, routes = counted({"attention": A, "subsample": S}, lambda: kernel(
+            x, text, length=lengths, text_lengths=text_lengths))
+        b = plain(x, text, length=lengths, text_lengths=text_lengths)
+    torch.cuda.synchronize()
+    ctc_err = max((a["final_posteriors_ctc"][i, :n] - b["final_posteriors_ctc"][i, :n])
+                  .abs().max().item() for i, n in enumerate(a["length"].tolist()))
+    lm_err = max((a["final_posteriors_lm"][i, :n] - b["final_posteriors_lm"][i, :n])
+                 .abs().max().item() for i, n in enumerate(ENCDEC_PARITY_TEXT))
+    f32 = {k: tuple(routes[k][m.ROUTES[torch.float32]]) for k, m in (("attention", A),
+                                                                     ("subsample", S))}
+    L = kernel_cfg.encoder.n_layers
+    if not (ctc_err <= 1e-3 and lm_err <= 1e-3 and f32 == {"attention": (L, 0),
+                                                           "subsample": (1, 0)}
+            and launches == f32):
+        raise AssertionError(f"enc-dec f32 parity: CTC {ctc_err:.3e}, decoder logits "
+                             f"{lm_err:.3e} (> 1e-3?); launches {launches}, f32 route {f32}")
+    log(f"  full-depth f32 enc-dec through the f32 kernels against the plain path: CTC "
+        f"log-probs {ctc_err:.2e} on valid frames, decoder logits {lm_err:.2e} on valid "
+        f"positions; f32 launches {f32}")
+    return f32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2975,6 +3420,11 @@ def main() -> int:
     for frames, _ in UTT_SDTW:  # phase 19's utterances: T_ds 64 (one tile) and 512
         T = frames // 8
         check_attention(A, 2, T, 6, 128, [T, T], torch.bfloat16)
+    # phase 21's chunks (T_ds 256): the teacher, the teacher-forced pass, the
+    # final decode and teacher_ce's step at batch 1 (and a ragged chunk of
+    # 1600 frames); grpo's step at batch 4
+    for lengths in ([256], [200], [256] * 4):
+        check_attention(A, len(lengths), ENCDEC_SEQ // 8, 6, 128, lengths, torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32):
         errs[("sub", dtype)] = check_subsample(S, SUB_FLAGSHIP, dtype)
         check_subsample(S, SUB_RAGGED, dtype)
@@ -2982,6 +3432,8 @@ def main() -> int:
         check_subsample(S, (batch,) + SUB_FLAGSHIP[1:], torch.bfloat16)
     for frames, _ in UTT_SDTW:  # phase 19's utterances
         check_subsample(S, (2, frames) + SUB_FLAGSHIP[2:], torch.bfloat16)
+    for batch in (1, 4):  # phase 21's chunks
+        check_subsample(S, (batch, ENCDEC_SEQ) + SUB_FLAGSHIP[2:], torch.bfloat16)
     errs[("sub_relu", torch.bfloat16)] = check_subsample(S, SUB_FLAGSHIP, torch.bfloat16, "relu")
     for shape, bandwidth in SDTW_CASES:
         e = check_softdtw(D, shape, bandwidth)
@@ -3111,6 +3563,21 @@ def main() -> int:
         f"{W2V_SAMPLES // SAMPLE_RATE} s of synthetic audio at {W2V_SEQ} / {W2V_OVERLAP} "
         f"samples, on {card}")
     w2v_counts, w2v_routes = wav2vec2_path(card, A, S, D)
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[21] the encoder-decoder path: evals.enc_dec_dynamic_eval_test.main, the flagship "
+            f"encoder (bf16, subsampling_impl='pallas') and the default f32 decoder, "
+            f"{ENCDEC_FRAMES} frames at -seq {ENCDEC_SEQ} -o 0, on {card}")
+        encdec_counts, encdec_routes = encdec_path(tmp, card, A, S, D)
+        log(f"[21b] evals.enc_dec_inference_test.main -mode default and "
+            f"evals.enc_dec_ctc_beam_inference_test.main -beams {ENCDEC_BEAMS} on the same "
+            f"recording and model, on {card}")
+        inf_counts, inf_routes = encdec_inference_path(tmp, card, A, S, D)
+    log("[21c] enc-dec parity: the full-depth f32 enc-dec, kernels against the plain path")
+    encdec_parity = check_encdec_parity(A, S)
+    encdec_counts = {k: tuple(a + b for a, b in zip(encdec_counts[k], inf_counts[k]))
+                     for k in encdec_counts}
+    encdec_routes = {k: {r: tuple(a + b for a, b in zip(c, inf_routes[k][r]))
+                         for r, c in by.items()} for k, by in encdec_routes.items()}
 
     sources = {"flash_attention": "flash_attention_bf16.cu",
                "flash_attention_f32": "flash_attention.cu",
@@ -3155,6 +3622,7 @@ def main() -> int:
     utterance_launches = by_kernel(utt_routes, utt_counts)
     utterance_softdtw_launches = by_kernel(sdtw_routes, sdtw_counts)
     wav2vec2_launches = by_kernel(w2v_routes, w2v_counts)
+    encdec_launches = by_kernel(encdec_routes, encdec_counts)
     protocol_launches = {}  # phases 16, 16b and 16c together
     for counts_, routes_ in protocol_runs:
         for name, counts in by_kernel(routes_, counts_).items():
@@ -3164,6 +3632,8 @@ def main() -> int:
                    "fused_subsample_f32": awmc_parity_routes["subsample"]}
     consistency_parity = {"flash_attention_f32": cons_parity_routes["attention"],
                           "fused_subsample_f32": cons_parity_routes["subsample"]}
+    encdec_parity = {"flash_attention_f32": encdec_parity["attention"],
+                     "fused_subsample_f32": encdec_parity["subsample"]}
     err_keys = {
         ("flash_attention", "fwd"): (errs[("attn", torch.bfloat16)], ("out",)),
         ("flash_attention", "bwd"): (errs[("attn", torch.bfloat16)], ("dq", "dk", "dv")),
@@ -3187,7 +3657,8 @@ def main() -> int:
             e, keys = err_keys[(name, kind)]
             extra = ({"parity_launches": parity[name][i],
                       "awmc_parity_launches": awmc_parity[name][i],
-                      "consistency_parity_launches": consistency_parity[name][i]}
+                      "consistency_parity_launches": consistency_parity[name][i],
+                      "encdec_parity_launches": encdec_parity[name][i]}
                      if name in parity else {})
             if name in f32_path_launches:
                 extra.update(f32_path_launches=f32_path_launches[name][i],
@@ -3227,6 +3698,7 @@ def main() -> int:
                 "utterance_launches": utterance_launches[name][i],
                 "utterance_softdtw_launches": utterance_softdtw_launches[name][i],
                 "wav2vec2_launches": wav2vec2_launches[name][i],
+                "encdec_launches": encdec_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

@@ -6,10 +6,12 @@ split and reports the driver's WER.  With ``wandb`` importable and no
 ``--no_wandb`` the sweep goes to ``wandb.sweep`` / ``wandb.agent``;
 otherwise it runs here: ``grid`` and ``random`` as lists of overrides,
 ``bayes`` through the TPE sampler of :mod:`.hpo`, each result appended to
-the ``--out`` JSONL.  The run script ``main`` is the port's
-:func:`.run.main`; the encoder-decoder run scripts are not ported yet and
-raise.  PyYAML and wandb are imported inside :func:`main` only.  The runs
-go to ``cuda`` unless ``--device cpu`` is given.
+the ``--out`` JSONL.  The run scripts are the port's :func:`.run.main`
+(``main``) and its encoder-decoder drivers: ``enc_dec_dynamic_eval_test``,
+``enc_dec_inference_test`` and ``enc_dec_ctc_beam_inference_test`` (the
+inference driver pinned to ``mode="joint"``).  PyYAML and wandb are
+imported inside :func:`main` only.  The runs go to ``cuda`` unless
+``--device cpu`` is given.
 
 Sweep YAML schema (wandb-style)::
 
@@ -29,13 +31,32 @@ import argparse
 import itertools
 import json
 import random
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 from dynamic_asr_eval_tpu_torch.config import apply_args, parse_kwarg_value
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
+from dynamic_asr_eval_tpu_torch.models.encdec import EncDecConfig
 
 ENC_DEC_SCRIPTS = ("enc_dec_dynamic_eval_test", "enc_dec_inference_test",
                    "enc_dec_ctc_beam_inference_test")
+
+
+def run_scripts() -> Dict[str, Callable]:
+    """``-run_script`` name → the driver's ``main(args, model_config=...,
+    jax_params=...)``."""
+    from dynamic_asr_eval_tpu_torch.evals import enc_dec_dynamic_eval_test as ed_tta
+    from dynamic_asr_eval_tpu_torch.evals import enc_dec_inference_test as ed_inf
+    from dynamic_asr_eval_tpu_torch.evals import run as run_mod
+
+    def joint_beam_main(args, **kwargs):
+        # the joint-CTC-beam driver is enc_dec_inference_test pinned to
+        # mode="joint": a sweep of it must not run the plain AR decode
+        args.mode = "joint"
+        return ed_inf.main(args, **kwargs)
+
+    return {"main": run_mod.main, "enc_dec_dynamic_eval_test": ed_tta.main,
+            "enc_dec_inference_test": ed_inf.main,
+            "enc_dec_ctc_beam_inference_test": joint_beam_main}
 
 
 def _coerce(v):
@@ -89,24 +110,20 @@ def expand_parameters(params: Dict[str, Any], method: str, n_random: int = 20,
     return out
 
 
-def main(args, model_config: Optional[ConformerConfig] = None,
+def main(args, model_config: Optional[Union[ConformerConfig, EncDecConfig]] = None,
          jax_params: Optional[Mapping] = None):
     """Returns the best ``{"overrides", "WER"}`` of an offline sweep (None
-    after a wandb agent).  ``model_config`` and ``jax_params`` go to
-    :func:`.run.main` in every run."""
-    if args.run_script in ENC_DEC_SCRIPTS:
-        raise NotImplementedError(
-            f"run script {args.run_script!r}: the encoder-decoder drivers are not ported yet "
-            "(ROADMAP queue 1 item 17)")
+    after a wandb agent).  ``model_config`` and ``jax_params`` go to the run
+    script's ``main`` in every run."""
     import yaml
 
-    from dynamic_asr_eval_tpu_torch.evals import run as run_mod
+    script = run_scripts()[args.run_script]
 
     with open(args.sweep_config, "r") as f:
         sweep = yaml.safe_load(f)
 
     def run_fn(run_args):
-        return run_mod.main(run_args, model_config=model_config, jax_params=jax_params)
+        return script(run_args, model_config=model_config, jax_params=jax_params)
 
     method = sweep.get("method", "grid")
 
@@ -179,12 +196,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("-s", "--save_path", type=str, default="")
     parser.add_argument("-r", "--repeats", type=int, default=1)
+    # the encoder-decoder run scripts' own flags
+    parser.add_argument("--training_mode", type=str, default="grpo")
+    parser.add_argument("--breaks", action="store_true")
+    parser.add_argument("-mode", "--mode", type=str, default="default")
     args = apply_args(parser, argv)
     args.base_args = args
     return args
 
 
-def cli(argv=None, model_config: Optional[ConformerConfig] = None,
+def cli(argv=None, model_config: Optional[Union[ConformerConfig, EncDecConfig]] = None,
         jax_params: Optional[Mapping] = None):
     return main(parse_args(argv), model_config=model_config, jax_params=jax_params)
 

@@ -1,7 +1,6 @@
 """Checkpoints: the JAX package's own DAE1 files and reference torch pickles.
 
-Counterpart of the JAX package's ``models/checkpoint.py`` for the conformer
-(its encoder-decoder loaders are not ported yet, ROADMAP queue 1 item 17):
+Counterpart of the JAX package's ``models/checkpoint.py``:
 
 - :func:`save_checkpoint` / :func:`load_checkpoint` — the DAE1 container:
   magic ``b"DAE1"``, a ``<I`` header length, a JSON header ``{"config",
@@ -25,10 +24,17 @@ Counterpart of the JAX package's ``models/checkpoint.py`` for the conformer
   rules drop it).  A reference file's config names no kernel, so it runs
   the defaults (``"xla"`` attention, ``"conv"`` subsampling), as in JAX.
 - :func:`load_any_checkpoint` — sniffs the format.
+- :func:`load_encdec_torch_checkpoint` — a reference encoder-decoder
+  pickle (``encoder.*`` in the lcasr names, the decoder as ``embed``,
+  ``pos_enc``, ``dec_layers.N.*``, ``ln_f``, ``head``): the encoder's
+  configuration as for a conformer pickle, the decoder's dims from
+  :func:`infer_encdec_decoder_dims` (the head split from the config, else
+  head_dim 64 where it divides, with a warning), then a strict=False overlay
+  onto a fresh :func:`..models.encdec.init_encdec`, as above.
 
-Each loader returns ``(model, params, config)``: an ``SCConformer`` on the
-CPU, its state dict (running statistics included), and its
-``ConformerConfig``.
+Each loader returns ``(model, params, config)``: an ``SCConformer`` (or an
+``EncDecConformer``) on the CPU, its state dict (running statistics
+included), and its ``ConformerConfig`` (or ``EncDecConfig``).
 """
 
 from __future__ import annotations
@@ -288,12 +294,12 @@ def _merge_reference_config(model_cfg: Dict[str, Any], dims: Dict[str, Any]) -> 
     return merged, warns
 
 
-def _overlay_on_init(config: ConformerConfig, state: Mapping[str, torch.Tensor]):
-    """strict=False load onto a fresh init (seed 0): checkpoint values where
-    the model has the key, init values for missing keys, extras dropped; any
-    shape mismatch raises (a silently misloaded tensor cannot be caught
-    later)."""
-    model = init_conformer(config, seed=0)
+def _overlay_on_init(config, state: Mapping[str, torch.Tensor], init=init_conformer):
+    """strict=False load onto a fresh ``init`` (seed 0): checkpoint values
+    where the model has the key, init values for missing keys, extras
+    dropped; any shape mismatch raises (a silently misloaded tensor cannot be
+    caught later)."""
+    model = init(config, seed=0)
     template = model.state_dict()
     bad = [f"{k}: checkpoint {tuple(state[k].shape)} vs model {tuple(template[k].shape)}"
            for k in template.keys() & state.keys() if state[k].shape != template[k].shape]
@@ -343,3 +349,73 @@ def load_any_checkpoint(path: str, compute_dtype: Any = None):
     if magic == _MAGIC:
         return load_checkpoint(path)
     return load_reference_torch_checkpoint(path, compute_dtype=compute_dtype)
+
+
+def infer_encdec_decoder_dims(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The structural decoder dims an enc-dec state dict implies
+    (``decoder_layers``, ``decoder_d_model``, ``max_text_len``);
+    ``_self_attn_total`` carries heads·head_dim."""
+    dims: Dict[str, Any] = {}
+    dec_ids = {int(m.group(1)) for k in state for m in [re.match(r"dec_layers\.(\d+)\.", k)] if m}
+    if dec_ids:
+        dims["decoder_layers"] = max(dec_ids) + 1
+    emb = state.get("embed.weight")
+    if emb is not None:
+        dims["decoder_d_model"] = int(emb.shape[1])
+    pos = state.get("pos_enc.weight")
+    if pos is not None:
+        dims["max_text_len"] = int(pos.shape[0]) - 1
+    qkv = state.get("dec_layers.0.self_qkv.weight")
+    if qkv is not None:
+        dims["_self_attn_total"] = int(qkv.shape[0]) // 3
+    return dims
+
+
+_DECODER_FIELDS = ("decoder_layers", "decoder_d_model", "decoder_heads", "decoder_ff_mult",
+                   "max_text_len", "bos_id", "eos_id", "ctc_loss_weight")
+
+
+def load_encdec_torch_checkpoint(path: str, compute_dtype: Any = None, verbose: bool = True):
+    """A reference enc-dec torch checkpoint → ``(model, params, config)``:
+    an ``EncDecConformer``, its state dict and its ``EncDecConfig``."""
+    from dynamic_asr_eval_tpu_torch.models.encdec import EncDecConfig, init_encdec
+
+    state, raw_cfg = load_torch_checkpoint(path)
+    cfg_plain = _plain_config(raw_cfg)
+    model_cfg = dict(cfg_plain.get("model", cfg_plain) or {}) if isinstance(cfg_plain, dict) else {}
+    enc_state = {k[len("encoder."):]: v for k, v in state.items() if k.startswith("encoder.")}
+    dec_state = {k: v for k, v in state.items() if not k.startswith("encoder.")}
+    if not enc_state or "embed.weight" not in dec_state:
+        raise ValueError(f"{path}: not an enc-dec checkpoint (need encoder.* "
+                         "keys and a decoder embed.weight)")
+
+    enc_cfg_d = dict(model_cfg.get("encoder", model_cfg) or {})
+    enc_merged, warns = _merge_reference_config(enc_cfg_d, infer_conformer_dims(enc_state))
+    if compute_dtype is not None:
+        enc_merged["compute_dtype"] = compute_dtype
+    enc_config = ConformerConfig.from_dict(enc_merged)
+
+    dec_dims = infer_encdec_decoder_dims(dec_state)
+    self_total = dec_dims.pop("_self_attn_total", None)
+    dec_merged = {k: v for k, v in model_cfg.items() if k in _DECODER_FIELDS}
+    dec_merged.update(dec_dims)
+    if "decoder_heads" not in dec_merged and dec_merged.get("decoder_d_model"):
+        d = self_total or dec_merged["decoder_d_model"]
+        # EncDecConfig convention: head_dim 64 where divisible
+        h_d = 64 if d % 64 == 0 and d >= 64 else max(d // 4, 1)
+        dec_merged["decoder_heads"] = d // h_d
+        warns.append(f"checkpoint config carries no decoder head count; assuming head_dim={h_d}")
+    config = EncDecConfig(encoder=enc_config, **dec_merged)
+    if enc_config.default_norm in ("batch_renorm", "batch_norm"):
+        state = {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
+    model, missing, extra = _overlay_on_init(config, state, init=init_encdec)
+    if verbose:
+        for w in warns:
+            print(f"load_encdec_torch_checkpoint: WARNING {w}", file=sys.stderr)
+        if extra:
+            print(f"load_encdec_torch_checkpoint: {len(extra)} torch keys unconverted "
+                  f"(first: {extra[:4]})", file=sys.stderr)
+        if missing:
+            print(f"load_encdec_torch_checkpoint: {len(missing)} params kept fresh init "
+                  f"(first: {missing[:4]})", file=sys.stderr)
+    return model, _loaded(model), config

@@ -16,7 +16,12 @@ paths.  This module keeps its own copy of that table, in both directions:
   policies, which the JAX package states on flax paths);
 - :func:`lm_params_from_jax` / :func:`lm_params_to_jax` — the same two
   directions for the transformer LM (lming torch names, the JAX package's
-  ``lm/loader.py`` ``_LM_TORCH_RULES``).
+  ``lm/loader.py`` ``_LM_TORCH_RULES``);
+- :func:`encdec_params_from_jax` / :func:`encdec_params_to_jax` — the same
+  for the encoder-decoder: the encoder (``encoder.*``, flax ``encoder/``)
+  through the conformer's tables, the decoder (``embed``, ``pos_enc``,
+  ``dec_layers.N.*``, ``ln_f``, ``head``; flax ``language_model_decoder/``)
+  through the JAX package's ``ENCDEC_DECODER_RULES``.
 
 Layouts: flax Dense kernels are [in, out] (torch Linear [out, in]); flax
 conv kernels are [kh, kw, in/groups, out] (torch [out, in/groups, kh, kw]);
@@ -127,7 +132,26 @@ _LM_TABLE: List[Tuple[str, str, str]] = [
     ("head.bias", "head/bias", "identity"),
 ]
 
-_GROUPS = {"n": r"(?P<n>\d+)", "m": r"(?P<m>ff1|ff2|attn|conv)", "f": r"(?P<f>ff1|ff2)"}
+# the enc-dec's decoder (models/encdec.py): the names the JAX package's
+# ``ENCDEC_DECODER_RULES`` (models/convert.py) map, under ``language_model_decoder``
+_DEC = "language_model_decoder"
+_ENCDEC_DECODER_TABLE: List[Tuple[str, str, str]] = [
+    ("embed.weight", f"{_DEC}/embed/embedding", "identity"),
+    ("pos_enc.weight", f"{_DEC}/pos_enc/embedding", "identity"),
+    ("dec_layers.{n}.{l}.weight", _DEC + "/layer_{n}/{l}/scale", "identity"),
+    ("dec_layers.{n}.{l}.bias", _DEC + "/layer_{n}/{l}/bias", "identity"),
+    ("dec_layers.{n}.{w}.weight", _DEC + "/layer_{n}/{w}/kernel", "dense"),
+    ("dec_layers.{n}.{b}.bias", _DEC + "/layer_{n}/{b}/bias", "identity"),
+    ("ln_f.weight", f"{_DEC}/ln_f/scale", "identity"),
+    ("ln_f.bias", f"{_DEC}/ln_f/bias", "identity"),
+    ("head.weight", f"{_DEC}/head/kernel", "dense"),
+    ("head.bias", f"{_DEC}/head/bias", "identity"),
+]
+
+_GROUPS = {"n": r"(?P<n>\d+)", "m": r"(?P<m>ff1|ff2|attn|conv)", "f": r"(?P<f>ff1|ff2)",
+           "l": r"(?P<l>ln_self|ln_cross|ln_ff)",
+           "w": r"(?P<w>self_qkv|self_out|cross_q|cross_kv|cross_out|ff_in|ff_out)",
+           "b": r"(?P<b>ff_in|ff_out)"}
 
 
 def _regex(template: str) -> "re.Pattern":
@@ -145,6 +169,7 @@ _COMPILED = _compile(_TABLE)
 _BATCH_RENORM_COMPILED = _compile(_BATCH_RENORM_TABLE) + _COMPILED
 _STATS_COMPILED = _compile(_STATS_TABLE)
 _LM_COMPILED = _compile(_LM_TABLE)
+_ENCDEC_DECODER_COMPILED = _compile(_ENCDEC_DECODER_TABLE)
 
 
 def jax_path(name: str) -> str:
@@ -249,3 +274,37 @@ def lm_params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
 def lm_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
     """:func:`params_to_jax` for the transformer LM."""
     return _to_jax(state, _LM_COMPILED)
+
+
+def encdec_params_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's enc-dec variables (``{'params': {'encoder': ...,
+    'language_model_decoder': ...}}``, optionally ``'batch_stats':
+    {'encoder': ...}``; numpy leaves), or their ``params`` → the port's
+    :class:`..models.encdec.EncDecConformer` state dict.  Raises on any flax
+    path the tables do not place."""
+    if "params" in variables_np:
+        params, stats = variables_np["params"], variables_np.get("batch_stats", {})
+    else:
+        params, stats = variables_np, {}
+    enc = {"params": params["encoder"]}
+    if stats:
+        enc["batch_stats"] = stats["encoder"]
+    state = {f"encoder.{k}": v for k, v in params_from_jax(enc).items()}
+    dec = {k: v for k, v in params.items() if k != "encoder"}
+    state.update(_from_jax(dec, _ENCDEC_DECODER_COMPILED))
+    return state
+
+
+def encdec_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's enc-dec state dict → the JAX package's variables
+    (``{'params': ...}`` and, for batch-renorm mid-norms, ``'batch_stats'``
+    under ``encoder``), what JAX's ``convert_encdec_checkpoint`` gives for the
+    same state dict."""
+    enc = variables_to_jax({k[len("encoder."):]: v for k, v in state.items()
+                            if k.startswith("encoder.")})
+    dec = _to_jax({k: v for k, v in state.items() if not k.startswith("encoder.")},
+                  _ENCDEC_DECODER_COMPILED)
+    out = {"params": {"encoder": enc["params"], **dec}}
+    if "batch_stats" in enc:
+        out["batch_stats"] = {"encoder": enc["batch_stats"]}
+    return out

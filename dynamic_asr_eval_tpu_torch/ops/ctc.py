@@ -6,8 +6,10 @@ Counterpart of the JAX package's ``ops/ctc.py``:
   arbitrary blank, padded labels masked by ``label_lengths``, optional
   per-sample weights; a zero-length label costs −Σ log P(blank).  It is
   ``F.ctc_loss`` (the JAX package's CTC is plain XLA, not a kernel).  An
-  impossible alignment (label longer than the frames allow) costs 1e30 with
-  zero gradient, as the JAX recursion's −1e30 floor gives, not ``inf``.
+  impossible alignment (label longer than the frames allow) costs 1e30, the
+  value the JAX recursion's −1e30 floor gives, not ``inf``, with zero
+  gradient; JAX's floor gives a path-count gradient there instead, which
+  overflows at a few hundred frames.
   PyTorch's CTC backward folds the softmax in: the gradient is exact with
   respect to the logits under a log-softmax (how the model uses it), not
   with respect to free-standing log-probs.

@@ -14,6 +14,8 @@ from dynamic_asr_eval_tpu_torch.kernels import attention as A
 from dynamic_asr_eval_tpu_torch.kernels import subsample as S
 from dynamic_asr_eval_tpu_torch.perf import kernel_name
 
+torch.set_num_threads(1)
+
 NS = "_ZN56_GLOBAL__N__53e36a9c_23_flash_attention_bf16_cu_ce332a91"
 FWD = NS + "16tc_attention_fwdILi128EEEvPK13__nv_bfloat16S3_S3_NS_7StridesES4_S4_PKiPS1_Pfiiif"
 DELTA = NS + "18tc_attention_deltaEPK13__nv_bfloat16S2_Pfxiii"
@@ -814,3 +816,113 @@ def test_softdtw_kernels_are_the_named_globals():
     src = D.SOURCE.read_text()
     assert "namespace {" in src
     assert " fwd_kernel(" in src and " bwd_kernel(" in src
+
+
+# phases 21-21c: the encoder-decoder path
+
+def _tiny_encdec():
+    from dynamic_asr_eval_tpu_torch.models import ConformerConfig
+    from dynamic_asr_eval_tpu_torch.models.encdec import EncDecConfig, init_encdec
+
+    cfg = EncDecConfig(encoder=ConformerConfig(feat_in=16, n_layers=2, d_model=32, n_heads=2,
+                                               head_dim=16, vocab_size=29, subsampling_factor=4,
+                                               subsampling_conv_channels=8, conv_kernel_size=5,
+                                               compute_dtype="float32"),
+                       decoder_layers=1, decoder_d_model=32, decoder_heads=2, max_text_len=16)
+    return cfg, init_encdec(cfg, seed=1)
+
+
+class _IdTokenizer:
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+@pytest.mark.parametrize("mode,filtered", [("teacher_ce", False), ("grpo", False),
+                                           ("grpo", True)])
+def test_branch_log_reads_each_branch_of_an_engine_run(mode, filtered):
+    """The branches of a CPU run of the engine: a teacher and a final decode
+    per chunk, the filters' teacher-forced pass and agreement decode, the
+    rollouts and the updates with their batches; the plan's launches follow
+    from them; the wrapped functions are restored after the run."""
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.config import TTAConfig
+    from dynamic_asr_eval_tpu_torch.tta import encdec_rl as R
+    from dynamic_asr_eval_tpu_torch.tta.filters import TeacherFilterConfig
+
+    cfg, model = _tiny_encdec()
+    filters = TeacherFilterConfig(low_confidence_enabled=True, min_mean_max_prob=0.0,
+                                  max_mean_entropy=99.0,
+                                  decode_agreement_enabled=True,
+                                  decode_agreement_min_similarity=0.0) if filtered else None
+    engine = R.EncDecDynamicEvalEngine(model, cfg, TTAConfig(optim_args={"lr": 1e-3}),
+                                       filter_config=filters, training_mode=mode,
+                                       max_generate=4, reward_skip_threshold=2.0, device="cpu")
+    saved = (R.generate_encdec, R.EncDecDynamicEvalEngine._policy_loss)
+    spec = np.random.default_rng(0).standard_normal((16, 96)).astype(np.float32)
+    with chip_smoke.BranchLog() as branches:
+        engine(None, spec, 48, _IdTokenizer())
+    assert (R.generate_encdec, R.EncDecDynamicEvalEngine._policy_loss) == saved
+    chunks, rollouts = 2, branches.rollouts()
+    assert sum(1 for s, e in branches.generates if s == 1 and e) == 2 * chunks
+    assert sum(1 for _, e in branches.generates if not e) == (chunks if filtered else 0)
+    assert branches.teacher_forced == (chunks if filtered else 0)
+    assert rollouts == (chunks if mode == "grpo" else 0)
+    assert branches.updates == [4 if mode == "grpo" else 1] * len(branches.updates)
+    assert 0 < len(branches.updates) <= chunks
+    n_fwd = branches.encodes + branches.teacher_forced + len(branches.updates)
+    assert branches.plan(6) == {"attention": (6 * n_fwd, 6 * len(branches.updates)),
+                                "subsample": (n_fwd, len(branches.updates)),
+                                "softdtw": (0, 0), "gx": 0}
+
+
+class _EncDecRecorder:
+    def __init__(self, mode, params, adapted):
+        self.engine = type("E", (), {"training_mode": mode, "num_rollouts": 4})()
+        self.calls, self.outputs = [(params, None)], [("words here", adapted, 1.0)]
+
+
+def _branches(generates, teacher_forced=0, updates=()):
+    b = chip_smoke.BranchLog()
+    b.generates, b.teacher_forced, b.updates = list(generates), teacher_forced, list(updates)
+    return b
+
+
+def test_check_encdec_run_holds_branches_weights_and_pos_enc():
+    n = chip_smoke.ENCDEC_CHUNKS
+    params = {"pos_enc.weight": torch.zeros(3), "head.weight": torch.zeros(2)}
+    moved = dict(params, **{"head.weight": torch.ones(2)})
+    grpo = [(1, True), (4, True)] * n + [(1, True)] * n
+    detail = {"model_output": ["words here"]}
+
+    def check(mode, branches, adapted, filtered=False, wer=1.0, out=detail):
+        return chip_smoke.check_encdec_run("case", None, wer, out,
+                                           _EncDecRecorder(mode, params, adapted), branches,
+                                           filtered)
+
+    assert check("grpo", _branches(grpo, updates=[4] * n), moved) == 1.0
+    assert check("teacher_ce", _branches([(1, True)] * 2 * n, updates=[1] * 3), moved) == 1.0
+    filtered = [(1, True), (1, False)] * n + [(1, True)] * n
+    assert check("grpo", _branches(filtered, teacher_forced=n), params, filtered=True) == 0.0
+    with pytest.raises(AssertionError, match="updates at batches"):  # an update at batch 1
+        check("grpo", _branches(grpo, updates=[1]), moved)
+    with pytest.raises(AssertionError, match="updates at batches"):  # a teacher decode missing
+        check("teacher_ce", _branches([(1, True)] * (2 * n - 1), updates=[1]), moved)
+    with pytest.raises(AssertionError, match="2 updates"):  # updates that moved nothing
+        check("teacher_ce", _branches([(1, True)] * 2 * n, updates=[1, 1]), params)
+    with pytest.raises(AssertionError, match="pos_enc moved"):
+        check("grpo", _branches(grpo, updates=[4]), dict(moved, **{"pos_enc.weight":
+                                                                   torch.ones(3)}))
+    with pytest.raises(AssertionError, match="non-finite"):
+        check("grpo", _branches(grpo, updates=[4]), dict(moved, **{"head.weight":
+                                                                   torch.full((2,), float("nan"))}))
+    with pytest.raises(AssertionError, match="transcript"):
+        check("grpo", _branches(grpo, updates=[4]), moved, out={"model_output": [" "]})
+
+
+def test_encdec_config_is_the_flagship_encoder_and_the_default_decoder():
+    cfg = chip_smoke.encdec_config()
+    assert cfg.encoder == chip_smoke.flagship_config(subsampling_impl="pallas")
+    assert (cfg.decoder_layers, cfg.decoder_d_model, cfg.decoder_heads, cfg.head_dim,
+            cfg.decoder_ff_mult, cfg.max_text_len) == (4, 512, 8, 64, 4, 256)
+    assert chip_smoke.ENCDEC_CHUNKS == 8 and chip_smoke.ENCDEC_SEQ // 8 == 256

@@ -25,6 +25,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import dynamic_asr_eval_tpu.data.adapters as jax_adapters
 from dynamic_asr_eval_tpu.audio import features as jax_features
@@ -34,6 +35,8 @@ from dynamic_asr_eval_tpu.config import load_paths as jax_load_paths
 from dynamic_asr_eval_tpu_torch.audio import features, io
 from dynamic_asr_eval_tpu_torch.config import DotDict, load_paths
 from dynamic_asr_eval_tpu_torch.data import adapters
+
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC_TOL = 1e-5

@@ -36,7 +36,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
-                                    "dynamic_asr_eval_tpu"))
+                                    "sacrebleu", "dynamic_asr_eval_tpu"))
 print(len(names))
 print(",".join(bad))
 """
@@ -67,7 +67,7 @@ import importlib, sys
 importlib.import_module("dynamic_asr_eval_tpu_torch." + sys.argv[1])
 print(",".join(sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
-                                             "wandb", "matplotlib", "transformers",
+                                             "wandb", "matplotlib", "transformers", "sacrebleu",
                                              "dynamic_asr_eval_tpu"))))
 """
 
@@ -125,6 +125,26 @@ def test_the_utterance_and_wav2vec2_modules_import_alone(module):
     assert proc.stdout.strip() == ""
 
 
+ENCDEC_CLIS = ("evals.enc_dec_inference_test", "evals.enc_dec_ctc_beam_inference_test",
+               "evals.enc_dec_dynamic_eval_test")
+# models.checkpoint and evals.run_sweep, which gained the enc-dec loaders and
+# run scripts, are imported alone by the options and protocol cases above
+ENCDEC_MODULES = ENCDEC_CLIS + ("models.encdec", "models.convert", "tta.encdec_rl",
+                                "tta.filters", "text.bleu")
+
+
+@pytest.mark.parametrize("module", ENCDEC_MODULES)
+def test_the_encoder_decoder_modules_import_alone(module):
+    """Each module of the encoder-decoder slice, imported on its own, pulls in
+    no JAX, flax, optax, no module of the JAX package, and no ``sacrebleu``
+    (the rewards' BLEU is the port's own ``text/bleu.py``; the card has no
+    sacrebleu)."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
 _IMPORT_BUILDS_NOTHING = """
 import importlib, pkgutil, subprocess
 calls = []
@@ -163,13 +183,15 @@ def test_native_libraries_build_from_native_sources_into_build():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dynamic_asr_eval_tpu)(\.|\s|$)", re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|sacrebleu|dynamic_asr_eval_tpu)(\.|\s|$)",
+    re.M)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
                          + ["chip_smoke.py"])
 def test_no_source_line_imports_jax_or_the_jax_package(path):
-    """Lazy imports inside functions included."""
+    """Lazy imports inside functions included; nor ``sacrebleu``, which the
+    card lacks."""
     src = (REPO / path).read_text()
     assert not _FORBIDDEN.search(src), _FORBIDDEN.search(src).group(0)
 
@@ -289,6 +311,29 @@ def test_utterance_and_wav2vec2_clis_without_device_raise_without_cuda(module, f
     driver = importlib.import_module("dynamic_asr_eval_tpu_torch." + module)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.cli(["-d", "synthetic", "--quiet"] + flags)
+
+
+@pytest.mark.parametrize("module", ENCDEC_CLIS)
+def test_encoder_decoder_clis_without_device_raise_without_cuda(module, no_cuda):
+    """With ``--device cpu`` they run (tests/test_torch_encdec_drivers.py)."""
+    import importlib
+
+    driver = importlib.import_module("dynamic_asr_eval_tpu_torch." + module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.cli(["-d", "synthetic", "--quiet"])
+
+
+def test_encoder_decoder_engine_without_device_raises_without_cuda(no_cuda):
+    from dynamic_asr_eval_tpu_torch.models.encdec import EncDecConfig, EncDecConformer
+    from dynamic_asr_eval_tpu_torch.tta.encdec_rl import EncDecDynamicEvalEngine
+
+    cfg = EncDecConfig(encoder=ConformerConfig(feat_in=16, n_layers=1, d_model=32, n_heads=2,
+                                               head_dim=16, vocab_size=10,
+                                               subsampling_conv_channels=4,
+                                               compute_dtype="float32"),
+                       decoder_layers=1, decoder_d_model=32, decoder_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EncDecDynamicEvalEngine(EncDecConformer(cfg), cfg, TTAConfig())
 
 
 @pytest.mark.parametrize("flags", [["--dp", "--tp", "2"], ["--dp"], ["--dp_records"]],

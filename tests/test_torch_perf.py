@@ -3,6 +3,7 @@ counts on the same configurations, and the H100's bf16 peak."""
 
 import jax.numpy as jnp
 import pytest
+import torch
 
 from dynamic_asr_eval_tpu import perf as jax_perf
 from dynamic_asr_eval_tpu.lm.transformer_lm import TransformerLMConfig as JaxLMConfig
@@ -10,6 +11,8 @@ from dynamic_asr_eval_tpu.models.conformer import ConformerConfig as JaxConfig
 from dynamic_asr_eval_tpu_torch import perf
 from dynamic_asr_eval_tpu_torch.lm.transformer_lm import TransformerLMConfig
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
+
+torch.set_num_threads(1)
 
 FLAGSHIP = dict(feat_in=80, n_layers=6, d_model=768, n_heads=6, head_dim=128, vocab_size=4095,
                 subsampling_factor=8, subsampling_conv_channels=256, conv_kernel_size=9)

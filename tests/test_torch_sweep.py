@@ -9,8 +9,8 @@
   run function stubbed on both sides write the same results JSONL; the real
   per-recording driver on the tiny model gives the same WER per trial (the
   scenario of tests/test_drivers.py::TestSweep); the wandb agent path with
-  an injected ``wandb`` module; the encoder-decoder run scripts raise,
-  naming their ROADMAP item.
+  an injected ``wandb`` module; the encoder-decoder run scripts reach their
+  drivers as in JAX's sweep (tests/test_torch_encdec_sweep.py runs them).
 - ``eval_for_each_cpt``: two reference ``.pt`` checkpoints in a folder, each
   package loading them itself: the same WER per checkpoint.
 - ``analysis``: the aggregates, the LaTeX table and the transcript-gap audit
@@ -180,11 +180,40 @@ def test_offline_sweep_of_the_real_driver_matches_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("script", run_sweep.ENC_DEC_SCRIPTS)
-def test_enc_dec_run_scripts_raise_naming_their_item(script, tmp_path):
+def test_enc_dec_run_scripts_dispatch_as_in_jax(script, tmp_path, monkeypatch):
+    """Each encoder-decoder ``-run_script`` reaches its driver's ``main`` with
+    the same arguments as in JAX's sweep (the joint-beam script pinned to
+    ``mode="joint"``, the sweep's ``--training_mode`` / ``--breaks`` /
+    ``-mode`` carried, the dev split), the drivers stubbed on both sides;
+    tests/test_torch_encdec_sweep.py runs the real drivers."""
+    import dynamic_asr_eval_tpu.evals.enc_dec_dynamic_eval_test as jax_ed_tta
+    import dynamic_asr_eval_tpu.evals.enc_dec_inference_test as jax_ed_inf
+    from dynamic_asr_eval_tpu_torch.evals import enc_dec_dynamic_eval_test as ed_tta
+    from dynamic_asr_eval_tpu_torch.evals import enc_dec_inference_test as ed_inf
+
+    seen = {"jax": [], "port": []}
+
+    def stub(side, driver):
+        def main(args, **kwargs):
+            seen[side].append((driver, args.mode, args.training_mode, args.breaks, args.split,
+                               args.optim_lr))
+            return _objective(args)
+        return main
+
+    for side, tta, inf in (("jax", jax_ed_tta, jax_ed_inf), ("port", ed_tta, ed_inf)):
+        monkeypatch.setattr(tta, "main", stub(side, "tta"))
+        monkeypatch.setattr(inf, "main", stub(side, "inference"))
     cfg = tmp_path / "sweep.yaml"
     cfg.write_text(SWEEPS["grid"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        run_sweep.cli(["-sc", str(cfg), "--no_wandb", "-run_script", script, "--device", "cpu"])
+    argv = ["-sc", str(cfg), "--no_wandb", "-run_script", script, "--training_mode",
+            "teacher_ce", "--breaks", "--quiet"]
+    jax_best = jax_sweep.cli(argv + ["--out", str(tmp_path / "jax.jsonl")])
+    port_best = run_sweep.cli(argv + ["--device", "cpu", "--out", str(tmp_path / "port.jsonl")])
+    assert _jsonl(tmp_path / "port.jsonl") == _jsonl(tmp_path / "jax.jsonl")
+    assert port_best == jax_best and seen["port"] == seen["jax"] and len(seen["port"]) == 10
+    driver = "tta" if script == "enc_dec_dynamic_eval_test" else "inference"
+    mode = "joint" if script == "enc_dec_ctc_beam_inference_test" else "default"
+    assert {s[:5] for s in seen["port"]} == {(driver, mode, "teacher_ce", True, "dev")}
 
 
 def test_sweep_wandb_agent_path(tmp_path, monkeypatch):

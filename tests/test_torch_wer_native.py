@@ -7,10 +7,13 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from dynamic_asr_eval_tpu.text import wer as jax_wer
 from dynamic_asr_eval_tpu_torch import nativelib
 from dynamic_asr_eval_tpu_torch.text import wer as port_wer
+
+torch.set_num_threads(1)
 
 
 def _corpus(seed, n, vocab, max_len, chars=False):
