@@ -50,6 +50,11 @@ Phases (each raises on failure; the script then exits non-zero):
      checks: attention [1, 256, 6, 128] at length 256 and a ragged 200, and
      [4, 256, 6, 128] (grpo's batch-4 step), subsampling [1, 2048, 80] and
      [4, 2048, 80];
+   - the bf16 attention at phase 22's padded training batch, with the same
+     checks: [4, 2048, 6, 128] with lengths [2048, 1100, 0, 0] and [1024, 0,
+     0, 0] (zero-length rows: a ragged last batch, a recording's half
+     window); its subsampling [4, 16384, 80] is the evaluation engine's case
+     above;
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
@@ -310,6 +315,40 @@ Phases (each raises on failure; the script then exits non-zero):
    path (``"xla"``, ``"conv"``), teacher-forced on a batch of 2 at lengths
    2048 and 1600, cuDNN deterministic: CTC log-probs and decoder logits
    within 1e-3 on valid frames and positions (``encdec_parity_launches``).
+22. NST finetuning: ``train/cli.py`` ``main -config <yaml> --data
+   <manifest>``, the yaml written here (JSON, which is YAML in flow style:
+   the card has no PyYAML) with the flagship widths (bf16,
+   ``"pallas_flash"``, ``"pallas"``), lr 1e-5, batch 4 x 16384 frames,
+   overlap 0, EMA 0.8, clip 0.8, 6 frequency masks of width < 34; the
+   manifest two synthetic 16 kHz wavs of 73728 frames (737.28 s: 4.5
+   windows, so 2 steps a recording, the second one ragged window and three
+   zero-length rows), 4 steps.  Launches exactly 12 attention forwards
+   (teacher and student) and 6 backwards, 2 subsampling forwards and 1
+   backward without gx a step, all bf16; every loss finite, the weights
+   moved, the EMA between the initial and the trained weights (projected on
+   their difference, inside (0, 1)), ``epoch_0.ckpt`` and its side file
+   written, and ``NSTTrainer.resume`` of it gives the weights, the EMA,
+   MADGRAD's state and ``step_count`` bit for bit.  22a: the trainer warm,
+   3 steps three times untraced (ms per step) and once under
+   torch.profiler: device busy, idle share, time by kernel family, the
+   kernels' share; peak memory above the phase's start; a ``{"train_path":
+   ...}`` line;
+22b. one NST step of the full-depth flagship in f32 through the f32 kernels
+   (``"tf32x3"``) against the plain path (``"xla"``, ``"conv"``), the
+   augmentation off, cuDNN deterministic, on a batch of 4 x 16384 frames at
+   lengths 16384, 8192, 0, 0: the loss within 1e-3 relative, the weight
+   gradients within phase 6's bar; exactly 12 / 6 attention and 2 / 1
+   subsampling launches on the f32 route (``train_parity_launches``);
+23. word-level LM fusion as the reference fuses its word 4-gram with a
+   character CTC model: a synthetic word 4-gram ARPA (20000 words of 1 to 9
+   letters, ~6e4 n-grams per higher order) and the character tokenizer;
+   ``build_ctcdecoder(..., lm_level="auto")`` (it must pick word level, its
+   tables read natively onto the device) and ``word_beam_search`` over the
+   ARPA's words, each on the card and on the CPU on one set of log-probs
+   spelling 120 of the words with close rivals: equal live beams
+   (``check_live_beams``) and texts, every word of the lexicon search in the
+   lexicon; a ``{"word_fusion": ...}`` line.  Each new heading prints its
+   seconds.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
@@ -319,16 +358,17 @@ path, ``consistency_launches`` on the consistency path,
 ``entropy_launches`` (phase 17), ``nemo_launches`` (phase 18),
 ``utterance_launches`` and ``utterance_softdtw_launches`` (phases 19 and
 19b), ``wav2vec2_launches`` (phases 20 and 20b) and ``encdec_launches``
-(phases 21 and 21b), each read from its own runs; ``encdec_parity_launches``
-(21c) beside the other parity counts; ``f32_path_launches`` for the f32
+(phases 21 and 21b) and ``trainer_launches`` (phase 22), each read from its
+own runs; ``encdec_parity_launches`` (21c) and ``train_parity_launches``
+(22b) beside the other parity counts; ``f32_path_launches`` for the f32
 attention and
 subsampling, from phase 5c; the subsampling backwards' ``entropy_gx_launches``
 and ``nemo_gx_launches``, its ``gx_ms`` / ``gx_bound_ms`` /
 ``gx_library_ms``, and the bf16 forward's ``relu_ms``), and last
 ``{"ok": true, "device": {...}}``.  TF32 stays off throughout for PyTorch's
 matmuls and convolutions; cuDNN's deterministic algorithms are on only
-inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c, 21c), so the timed
-phases keep cuDNN's own choice.
+inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c, 21c, 22b), so the
+timed phases keep cuDNN's own choice.
 """
 
 from __future__ import annotations
@@ -3372,6 +3412,424 @@ def check_encdec_parity(A, S):
     return f32
 
 
+# ---------------------------------------------------------------------------
+# phases 22-23: NST finetuning and word-level LM fusion
+# ---------------------------------------------------------------------------
+
+HOP = 160  # audio.features' hop: a wave of (frames - 1) * HOP samples gives frames frames
+TRAIN_FRAMES = 73728  # phase 22: each wav 737.28 s, 4.5 windows of TRAIN_SEQ
+TRAIN_WAVS, TRAIN_SEQ, TRAIN_BATCH = 2, 16384, 4
+TRAIN_PLAN = {"attention": (12, 6), "subsample": (2, 1), "softdtw": (0, 0), "gx": 0}  # a step
+TRAIN_PROFILED_STEPS = 3
+TRAIN_PARITY_LENGTHS = (16384, 8192, 0, 0)  # phase 22b: the trainer's last batch, widened
+WORD_COUNTS = (20_000, 60_000, 60_000, 60_000)  # words, then drawn 2-, 3-, 4-grams (pre-dedup)
+WORD_TEXT_WORDS = 120  # the words phase 23's log-probs spell
+WORD_BEAMS = 20
+TRAIN_DEVICE = "cuda"  # phases 22-23's device ("cpu" in the tests' rehearsals)
+
+
+def train_steps() -> int:
+    """NST steps of one of phase 22's recordings: its windows (overlap 0) in
+    batches."""
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths
+
+    return -(-len(chunk_starts_and_lengths(TRAIN_FRAMES, TRAIN_SEQ, 0)[0]) // TRAIN_BATCH)
+
+
+def write_wav(path, frames, seed=0):
+    """A 16 kHz int16 wave of noise that featurizes to ``frames`` frames."""
+    import wave
+
+    import numpy as np
+
+    x = np.random.default_rng(seed).uniform(-0.3, 0.3, (frames - 1) * HOP)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SAMPLE_RATE)
+        w.writeframes((x * 32767).astype(np.int16).tobytes())
+    return path
+
+
+def train_yaml(path, ckpt_dir):
+    """Phase 22's trainer yaml, in flow style (JSON): the flagship model
+    (bf16, ``"pallas_flash"``, ``"pallas"``), lr 1e-5, batch 4 x 16384 frames,
+    overlap 0, EMA 0.8, clip 0.8, 6 frequency masks of width < 34."""
+    import dataclasses
+
+    model = dataclasses.asdict(flagship_config(subsampling_impl="pallas"))
+    model["compute_dtype"] = "bfloat16"
+    raw = {"model": model, "optimizer": {"args": {"lr": 1e-5}},
+           "scheduler": {"warmup_steps": 1},
+           "training": {"batch_size": TRAIN_BATCH, "ema_decay": 0.8, "clip_value": 0.8,
+                        "max_epochs": 1, "random_seed": 0},
+           "audio_chunking": {"size": TRAIN_SEQ, "overlap": 0},
+           "spec_augment": {"n_freq_masks": 6, "freq_mask_param": 34, "n_time_masks": 0},
+           "checkpointing": {"dir": ckpt_dir}}
+    with open(path, "w") as f:
+        json.dump(raw, f, indent=1)
+    return path
+
+
+def flat(state):
+    return torch.cat([v.float().flatten() for v in state.values()])
+
+
+def check_ema_between(initial, trained, ema):
+    """The EMA lies between the initial and the trained weights: projected
+    on their difference, strictly inside (0, 1), and nearer the start than
+    the trained weights are.  Returns (projection, |ema - init| / |trained -
+    init|)."""
+    d, e = flat(trained) - flat(initial), flat(ema) - flat(initial)
+    proj = float((e @ d) / (d @ d))
+    ratio = float(e.norm() / d.norm())
+    if not (0.0 < proj < 1.0 and 0.0 < ratio < 1.0):
+        raise AssertionError(f"EMA not between the initial and the trained weights: projection "
+                             f"{proj:.4f}, norm ratio {ratio:.4f}")
+    return proj, ratio
+
+
+def check_resume(trainer, ckpt, cfg):
+    """``NSTTrainer.resume`` of ``ckpt`` into a fresh trainer gives the
+    weights, the EMA, MADGRAD's state and ``step_count`` bit for bit."""
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+    from dynamic_asr_eval_tpu_torch.train import NSTTrainer
+
+    other = NSTTrainer(init_conformer(cfg, seed=1), None, cfg, trainer.cfg,
+                       device=trainer.device)
+    other.resume(ckpt)
+    same = all(torch.equal(a, b) for a, b in zip(other.model.state_dict().values(),
+                                                trainer.model.state_dict().values()))
+    same &= all(torch.equal(a, b) for a, b in zip(other.teacher.state_dict().values(),
+                                                 trainer.teacher.state_dict().values()))
+    ours, theirs = other._opt_state(), trainer._opt_state()
+    same &= ours["count"] == theirs["count"] and all(
+        torch.equal(ours[k][n], theirs[k][n]) for k in ("grad_sum", "grad_sum_sq", "x0")
+        for n in theirs[k])
+    if not (same and other.step_count == trainer.step_count
+            and other.recordings_seen == trainer.recordings_seen):
+        raise AssertionError(f"resume of {ckpt}: weights, EMA or optimizer state differ, or "
+                             f"steps {other.step_count} != {trainer.step_count}")
+    del other
+
+
+def train_timing(trainer, card):
+    """Warm numbers of the trained trainer: ms per step over
+    TRAIN_PROFILED_STEPS steps (a spectrogram of that many batches of whole
+    windows), untraced, three times;
+    then once under torch.profiler (the device's activity alone): device busy
+    time, idle share against the fastest untraced wall, time by kernel
+    family, the attention and subsampling kernels' share of busy."""
+    from collections import defaultdict
+
+    import numpy as np
+
+    steps = TRAIN_PROFILED_STEPS
+    spec = np.random.default_rng(5).standard_normal(
+        (80, steps * TRAIN_BATCH * TRAIN_SEQ)).astype(np.float32)
+    walls = [wall_ms(lambda: trainer.train_recording(spec)) for _ in range(3)]
+    by_kernel = kernel_ms(lambda: trainer.train_recording(spec), cpu=False)
+    busy, wall = sum(by_kernel.values()), min(walls)
+    result = {"card": card, "steps": steps, "walls_ms": walls, "warm_ms_per_step": wall / steps}
+    if busy <= 0:
+        result.update(device_busy_ms="not measured", idle_share="not measured")
+    else:
+        fams = defaultdict(float)
+        for k, ms in by_kernel.items():
+            fams[family(k)] += ms
+        result.update(device_busy_ms=busy, device_busy_ms_per_step=busy / steps,
+                      idle_share=max(0.0, 1.0 - busy / wall),
+                      attention_share=fams["flash_attention"] / busy,
+                      subsample_share=fams["fused_subsample"] / busy,
+                      kernels_share=(fams["flash_attention"] + fams["fused_subsample"]) / busy,
+                      families_ms=dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+                      top_kernels_ms=[[k[:90], ms] for k, ms in sorted(
+                          by_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]])
+    return result
+
+
+def train_path(tmp, card, A, S, D):
+    """Phase 22: ``train/cli.py main`` at the flagship width on two
+    synthetic wavs (``--device`` TRAIN_DEVICE).  Returns the run's launches
+    and routes."""
+    import math
+
+    import dynamic_asr_eval_tpu_torch.train.nst as nst
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+    from dynamic_asr_eval_tpu_torch.train import cli
+
+    device = TRAIN_DEVICE
+    t0 = time.time()
+    records = [{"id": f"wav{i}", "text": "synthetic",
+                "audio": write_wav(os.path.join(tmp, f"train{i}.wav"), TRAIN_FRAMES, seed=i)}
+               for i in range(TRAIN_WAVS)]
+    manifest = os.path.join(tmp, "train.json")
+    with open(manifest, "w") as f:
+        json.dump(records, f)
+    ckpt_dir = os.path.join(tmp, "nst_ckpt")
+    config = train_yaml(os.path.join(tmp, "train.yaml"), ckpt_dir)
+    log(f"  {TRAIN_WAVS} wavs of {TRAIN_FRAMES} frames written in {time.time() - t0:.2f} s")
+
+    steps = TRAIN_WAVS * train_steps()
+    losses = []
+    train_recording = nst.NSTTrainer.train_recording
+
+    def recorded(self, *args, **kwargs):
+        out = train_recording(self, *args, **kwargs)
+        losses.append(out)
+        return out
+
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    nst.NSTTrainer.train_recording = recorded
+    try:
+        t0 = time.time()
+        trainer, launches, routes = counted({"attention": A, "subsample": S, "softdtw": D},
+                                            lambda: cli.main(["-config", config, "--data",
+                                                              manifest, "--device", device]))
+        wall = time.time() - t0
+    finally:
+        nst.NSTTrainer.train_recording = train_recording
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - start_gb
+    check_path_launches("trainer", launches, routes, S.gx_launches, TRAIN_PLAN, windows=steps)
+    flat_losses = [x for rec in losses for x in rec]
+    if not (len(flat_losses) == steps == trainer.step_count and len(losses) == TRAIN_WAVS
+            and trainer.recordings_seen == TRAIN_WAVS and trainer.device.type == device
+            and all(math.isfinite(x) for x in flat_losses)):
+        raise AssertionError(f"trainer: losses {losses}, {trainer.step_count} steps, "
+                             f"{trainer.recordings_seen} recordings on {trainer.device}; "
+                             f"expected {steps} finite losses over {TRAIN_WAVS} recordings")
+    cfg = trainer.model_config
+    initial = {k: v.to(device) for k, v in init_conformer(cfg, seed=0).state_dict().items()}
+    trained, ema = trainer.model.state_dict(), trainer.teacher.state_dict()
+    moved = weight_change(trained, initial)
+    proj, ratio = check_ema_between(initial, trained, ema)
+    ckpt = os.path.join(ckpt_dir, "epoch_0.ckpt")
+    if not (moved > 0 and os.path.exists(ckpt) and os.path.exists(ckpt + ".train_state.pkl")):
+        raise AssertionError(f"trainer: weights moved {moved}, checkpoint {ckpt} written "
+                             f"{os.path.exists(ckpt)}")
+    check_resume(trainer, ckpt, cfg)
+    log(f"  cli.main: {steps} steps over {TRAIN_WAVS} recordings in {wall:.3f} s (first run); "
+        f"losses {flat_losses}; launches {launches}, all bf16, exactly {TRAIN_PLAN} a step; "
+        f"max weight change {moved:.3e}; EMA at {proj:.3f} of the way (norm ratio {ratio:.3f}); "
+        f"{ckpt} resumes bit for bit")
+    log(f"[22a] where a training step's time goes: the trained trainer, warm, on {card}")
+    timing = train_timing(trainer, card)
+    for key, val in timing.items():
+        if key != "top_kernels_ms":
+            log(f"  {key}: {val}")
+    for kname, ms in timing.get("top_kernels_ms", []):
+        log(f"  {ms:9.3f} ms  {kname}")
+    print(json.dumps({"train_path": {
+        "card": card, "recordings": TRAIN_WAVS, "frames": TRAIN_FRAMES, "seq": TRAIN_SEQ,
+        "batch": TRAIN_BATCH, "steps": steps, "losses": flat_losses, "first_wall_s": wall,
+        "first_ms_per_step": wall / steps * 1e3, "launches": launches,
+        "weight_change": moved, "ema_projection": proj, "timing": timing, "peak_gb": peak_gb,
+        "start_gb": start_gb}}))
+    del trainer
+    return launches, routes
+
+
+def check_train_parity(A, S):
+    """Phase 22b: one NST step of the full-depth flagship in f32 through the
+    f32 kernels (``"pallas_flash"``, ``"pallas"``: route ``"tf32x3"``) against
+    the same weights on the plain path (``"xla"``, ``"conv"``), the
+    augmentation off, cuDNN deterministic, on the trainer's batch of 4 x 16384
+    frames with lengths 16384, 8192, 0, 0 (multiples of 8, where the two
+    subsampling semantics agree): the loss within 1e-3 relative, the
+    student's weight gradients within 1e-3 of each one's max |value| (or 1 %
+    of the largest).  Returns the f32 routes' launches {module: (fwd, bwd)}."""
+    from dynamic_asr_eval_tpu_torch.config import SpecAugmentConfig
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+    from dynamic_asr_eval_tpu_torch.models import SCConformer, init_conformer
+    from dynamic_asr_eval_tpu_torch.train import NSTTrainer, TrainConfig
+
+    device = TRAIN_DEVICE
+    kernel_cfg = flagship_config(compute_dtype=torch.float32, subsampling_impl="pallas")
+    plain_cfg = flagship_config(compute_dtype=torch.float32, attention_impl="xla",
+                                subsampling_impl="conv")
+    tcfg = TrainConfig(batch_size=len(TRAIN_PARITY_LENGTHS), seq_len=TRAIN_SEQ,
+                       spec_augment=SpecAugmentConfig(n_freq_masks=0))
+    kernel_model = init_conformer(kernel_cfg, seed=0)
+    plain_model = SCConformer(plain_cfg)
+    plain_model.load_state_dict(kernel_model.state_dict())
+    g = torch.Generator(device=device).manual_seed(6)
+    x = torch.randn(len(TRAIN_PARITY_LENGTHS), 80, TRAIN_SEQ, generator=g, device=device)
+    lengths = torch.tensor(TRAIN_PARITY_LENGTHS, device=device)
+    x = x * (torch.arange(TRAIN_SEQ, device=device)[None, None] < lengths[:, None, None])
+    with deterministic_cudnn():
+        kernel = NSTTrainer(kernel_model, None, kernel_cfg, tcfg, device=device)
+        (loss_a, grads_a), launches, routes = counted(
+            {"attention": A, "subsample": S}, lambda: kernel.loss_and_grads(x, lengths))
+        names = list(kernel.named_params)
+        grads_a = dict(zip(names, grads_a))
+        del kernel
+        plain = NSTTrainer(plain_model, None, plain_cfg, tcfg, device=device)
+        loss_b, grads_b = plain.loss_and_grads(x, lengths)
+        grads_b = dict(zip(names, grads_b))
+        del plain
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss_a) - float(loss_b)) / abs(float(loss_b))
+    gerr = grad_err(grads_a, grads_b)
+    f32 = {k: tuple(routes[k][m.ROUTES[torch.float32]]) for k, m in (("attention", A),
+                                                                     ("subsample", S))}
+    L = kernel_cfg.n_layers
+    want = {"attention": (2 * L, L), "subsample": (2, 1)}
+    if not (loss_err <= 1e-3 and gerr <= 1e-3 and f32 == want and launches == f32):
+        raise AssertionError(f"NST step f32 parity: loss {float(loss_a)} vs {float(loss_b)} "
+                             f"({loss_err:.3e} relative), weight gradients {gerr:.3e} of max "
+                             f"(> 1e-3?); launches {launches}, f32 route {f32}, expected {want}")
+    log(f"  full-depth f32 NST step through the f32 kernels against the plain path: loss "
+        f"{float(loss_a):.6f} vs {float(loss_b):.6f} ({loss_err:.2e} relative), weight gradients "
+        f"{gerr:.2e} of max; f32 launches {f32}")
+    return f32
+
+
+def write_word_arpa(directory, seed=0):
+    """Phase 23's WORD-level 4-gram ARPA over WORD_COUNTS[0] words of letters,
+    each one to three synthetic piece texts joined (1 to 9 letters), plus
+    ``<s>``, ``</s>`` and ``<unk>``; higher orders as
+    :func:`write_synthetic_lm` draws them.  Returns (ARPA path, words,
+    n-grams per order)."""
+    import numpy as np
+
+    counts = WORD_COUNTS
+    rng = np.random.default_rng(seed)
+    texts = [p[1:] for p in synthetic_pieces(LM_VOCAB)]
+    words = set()
+    while len(words) < counts[0]:
+        k = int(rng.integers(1, 4))
+        words.add("".join(texts[int(i)] for i in rng.integers(0, len(texts), k)))
+    words = sorted(words)
+    names = np.array(["<s>", "</s>", "<unk>"] + words, dtype=object)
+    grams = [np.arange(len(names))[:, None]]
+    for n in counts[1:]:
+        prev = grams[-1]
+        rows = np.concatenate([prev[rng.integers(0, len(prev), n)],
+                               rng.integers(3, len(names), (n, 1))], axis=1)
+        grams.append(np.unique(rows, axis=0))
+    arpa_path = os.path.join(directory, "word.arpa")
+    with open(arpa_path, "w", encoding="utf-8") as f:
+        f.write("\\data\\\n" + "".join(f"ngram {k + 1}={len(g)}\n" for k, g in enumerate(grams)))
+        for k, g in enumerate(grams):
+            logp = rng.uniform(-5.0, -0.5, len(g))
+            lines = [" ".join(row) for row in names[g]]
+            if k + 1 < len(grams):
+                bo = rng.uniform(-1.0, 0.0, len(g))
+                body = [f"{a:.4f}\t{w}\t{b:.4f}" for a, w, b in zip(logp, lines, bo)]
+            else:
+                body = [f"{a:.4f}\t{w}" for a, w in zip(logp, lines)]
+            f.write(f"\n\\{k + 1}-grams:\n" + "\n".join(body) + "\n")
+        f.write("\n\\end\\\n")
+    return arpa_path, words, [len(g) for g in grams]
+
+
+def word_log_probs(tok, words, seed=0):
+    """Log-probs [T, V+1] spelling WORD_TEXT_WORDS lexicon words, with a blank
+    frame between tokens, noise below the blank, and at every seventh token a
+    rival within 0.5 of it (so the LM decides)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    text = " ".join(words[int(i)] for i in rng.integers(0, len(words), WORD_TEXT_WORDS))
+    V = tok.vocab_size() + 1
+    rows = []
+    for j, tid in enumerate(tok.encode(text)):
+        row = rng.uniform(-16, -10, V).astype(np.float32)
+        row[V - 1], row[tid] = -6.0, 0.0
+        if j % 7 == 3:
+            row[int(rng.integers(0, V - 1))] = -float(rng.uniform(0.0, 0.5))
+        rows += [row, np.where(np.arange(V) == V - 1, 0.0, row - 4).astype(np.float32)]
+    lp = np.stack(rows)
+    return (lp - np.log(np.exp(lp).sum(-1, keepdims=True))).astype(np.float32), text
+
+
+def lexicon_beams(x, words, tok):
+    """The beams of ``word_beam_search(x, words, tok, beam_width=WORD_BEAMS)``,
+    built from its public pieces at its defaults: (tokens, lengths, scores)."""
+    from dynamic_asr_eval_tpu_torch.ops.beam_search import UniformLMAdapter, beam_search_device
+    from dynamic_asr_eval_tpu_torch.ops.lexicon import (
+        LexiconConstrainedAdapter,
+        build_lexicon_tables,
+    )
+
+    V = x.shape[1] - 1
+    prefix_set, word_set = build_lexicon_tables(words, tok, x.device)
+    adapter = LexiconConstrainedAdapter(UniformLMAdapter(V, device=x.device), prefix_set,
+                                        word_set, tok.encode(" ")[0], V)
+    return beam_search_device(x, adapter, beam_width=WORD_BEAMS, alpha=1.0, beta=0.0,
+                              exclude_token_zero=False)
+
+
+def word_fusion_path(tmp, card):
+    """Phase 23: word-level fusion on the card, as the reference fuses a word
+    4-gram with a character CTC model: ``build_ctcdecoder(...,
+    lm_level="auto")`` on a synthetic word ARPA and ``word_beam_search`` over
+    its words, with the character tokenizer, on TRAIN_DEVICE and on the CPU,
+    on one set of log-probs: equal live beams (``check_live_beams``; the
+    lexicon search's beams from :func:`lexicon_beams`) and texts."""
+    from dynamic_asr_eval_tpu_torch.ops.lexicon import word_beam_search
+    from dynamic_asr_eval_tpu_torch.ops.pyctc_compat import build_ctcdecoder
+    from dynamic_asr_eval_tpu_torch.text import CharTokenizer
+
+    t0 = time.time()
+    arpa_path, words, counts = write_word_arpa(tmp)
+    tok = CharTokenizer()
+    lp, text = word_log_probs(tok, words)
+    log(f"  word ARPA: {counts} n-grams by order over {len(words)} words, "
+        f"{os.path.getsize(arpa_path) / 1e6:.1f} MB, written in {time.time() - t0:.2f} s; "
+        f"log-probs [{lp.shape[0]}, {lp.shape[1]}] spelling {WORD_TEXT_WORDS} words")
+    result = {"card": card, "ngrams_by_order": counts, "frames": int(lp.shape[0]),
+              "vocab": tok.vocab_size()}
+    beams, texts, lex_beams, lex_text = {}, {}, {}, {}
+    for side, dev in (("card", TRAIN_DEVICE), ("cpu", "cpu")):
+        t0 = time.time()
+        dec = build_ctcdecoder(tok, arpa_path, alpha=0.5, beta=1.0, lm_level="auto", device=dev)
+        load_s = time.time() - t0
+        ad = dec.word_adapter
+        if ad is None or ad.device.type != dev or ad.lm.reader != "native" or any(
+                t.device.type != dev for t in ad.lm.keys.values()):
+            raise AssertionError(f"build_ctcdecoder(lm_level='auto') on {dev}: word adapter "
+                                 f"{ad}, tables not all on {dev} or not read natively")
+        x = torch.as_tensor(lp, device=dev)
+        beam_s = wall_ms(lambda: beams.__setitem__(side, dec.beams(x, WORD_BEAMS))) / 1e3
+        texts[side] = dec.decode(x, WORD_BEAMS)
+        lex_s = wall_ms(lambda: lex_text.__setitem__(side, word_beam_search(
+            x, words, tok, beam_width=WORD_BEAMS))) / 1e3
+        lex_beams[side] = lexicon_beams(x, words, tok)
+        result[side] = {"load_s": load_s, "beam_s": beam_s,
+                        "beam_ms_per_frame": beam_s / lp.shape[0] * 1e3,
+                        "lexicon_beam_s": lex_s, "word_table_keys": int(ad.word_keys.numel()),
+                        "prefix_table_keys": int(ad.prefix_keys.numel())}
+    diff = check_live_beams("word-level fusion, card against CPU", beams["card"], beams["cpu"])
+    lex_diff = check_live_beams("word_beam_search, card against CPU", lex_beams["card"],
+                                lex_beams["cpu"])
+    if not (texts["card"] == texts["cpu"] and texts["card"].strip()
+            and lex_text["card"] == lex_text["cpu"] and lex_text["card"].strip()):
+        raise AssertionError(f"word fusion: texts differ or are empty: {texts}, {lex_text}")
+    spelled = text.split()
+    decoded = texts["card"].split()
+    lex_words = set(words)
+    result.update(max_rel_score_diff=diff, lexicon_max_rel_score_diff=lex_diff,
+                  words_decoded=len(decoded), words_spelled=len(spelled),
+                  word_errors_vs_spelled=wer_counts_total(spelled, decoded),
+                  lexicon_words_out_of_lexicon=sum(w not in lex_words
+                                                   for w in lex_text["card"].split()))
+    for key, val in result.items():
+        log(f"  {key}: {val}")
+    if result["lexicon_words_out_of_lexicon"]:
+        raise AssertionError("word_beam_search returned words outside its lexicon")
+    print(json.dumps({"word_fusion": result}))
+
+
+def wer_counts_total(ref, hyp) -> int:
+    """Word edits (insertions + deletions + substitutions) of ``hyp`` against
+    ``ref``."""
+    from dynamic_asr_eval_tpu_torch.text import wer_counts
+
+    return int(wer_counts(" ".join(hyp), " ".join(ref))[:3].sum())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3425,10 +3883,17 @@ def main() -> int:
     # 1600 frames); grpo's step at batch 4
     for lengths in ([256], [200], [256] * 4):
         check_attention(A, len(lengths), ENCDEC_SEQ // 8, 6, 128, lengths, torch.bfloat16)
+    # phase 22's trainer: its padded batch of 4 windows with zero-length rows
+    # (a ragged last batch), and a recording's last batch (a half window and
+    # three empty rows)
+    for lengths in ([2048, 1100, 0, 0], [1024, 0, 0, 0]):
+        check_attention(A, 4, 2048, 6, 128, lengths, torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32):
         errs[("sub", dtype)] = check_subsample(S, SUB_FLAGSHIP, dtype)
         check_subsample(S, SUB_RAGGED, dtype)
-    for batch in (1, 4):  # AWMC's windows; the evaluation engine's batches
+    # AWMC's windows; the evaluation engine's batches and phase 22's trainer
+    # batch (4 x 16384)
+    for batch in (1, 4):
         check_subsample(S, (batch,) + SUB_FLAGSHIP[1:], torch.bfloat16)
     for frames, _ in UTT_SDTW:  # phase 19's utterances
         check_subsample(S, (2, frames) + SUB_FLAGSHIP[2:], torch.bfloat16)
@@ -3574,6 +4039,23 @@ def main() -> int:
         inf_counts, inf_routes = encdec_inference_path(tmp, card, A, S, D)
     log("[21c] enc-dec parity: the full-depth f32 enc-dec, kernels against the plain path")
     encdec_parity = check_encdec_parity(A, S)
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[22] NST finetuning: train.cli.main -config <yaml> --data <{TRAIN_WAVS} wavs>, the "
+            f"flagship (bf16, 'pallas_flash', 'pallas'), {TRAIN_FRAMES} frames each, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}, on {card}")
+        t_phase = time.time()
+        train_counts, train_routes = train_path(tmp, card, A, S, D)
+        log(f"  phases 22-22a took {time.time() - t_phase:.1f} s")
+    log("[22b] NST step parity: the full-depth f32 flagship, kernels against the plain path")
+    t_phase = time.time()
+    train_parity = check_train_parity(A, S)
+    log(f"  phase 22b took {time.time() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[23] word-level LM fusion: build_ctcdecoder(lm_level='auto') and "
+            f"word_beam_search, card against CPU, on {card}")
+        t_phase = time.time()
+        word_fusion_path(tmp, card)
+        log(f"  phase 23 took {time.time() - t_phase:.1f} s")
     encdec_counts = {k: tuple(a + b for a, b in zip(encdec_counts[k], inf_counts[k]))
                      for k in encdec_counts}
     encdec_routes = {k: {r: tuple(a + b for a, b in zip(c, inf_routes[k][r]))
@@ -3623,6 +4105,7 @@ def main() -> int:
     utterance_softdtw_launches = by_kernel(sdtw_routes, sdtw_counts)
     wav2vec2_launches = by_kernel(w2v_routes, w2v_counts)
     encdec_launches = by_kernel(encdec_routes, encdec_counts)
+    trainer_launches = by_kernel(train_routes, train_counts)
     protocol_launches = {}  # phases 16, 16b and 16c together
     for counts_, routes_ in protocol_runs:
         for name, counts in by_kernel(routes_, counts_).items():
@@ -3634,6 +4117,8 @@ def main() -> int:
                           "fused_subsample_f32": cons_parity_routes["subsample"]}
     encdec_parity = {"flash_attention_f32": encdec_parity["attention"],
                      "fused_subsample_f32": encdec_parity["subsample"]}
+    train_parity = {"flash_attention_f32": train_parity["attention"],
+                    "fused_subsample_f32": train_parity["subsample"]}
     err_keys = {
         ("flash_attention", "fwd"): (errs[("attn", torch.bfloat16)], ("out",)),
         ("flash_attention", "bwd"): (errs[("attn", torch.bfloat16)], ("dq", "dk", "dv")),
@@ -3658,7 +4143,8 @@ def main() -> int:
             extra = ({"parity_launches": parity[name][i],
                       "awmc_parity_launches": awmc_parity[name][i],
                       "consistency_parity_launches": consistency_parity[name][i],
-                      "encdec_parity_launches": encdec_parity[name][i]}
+                      "encdec_parity_launches": encdec_parity[name][i],
+                      "train_parity_launches": train_parity[name][i]}
                      if name in parity else {})
             if name in f32_path_launches:
                 extra.update(f32_path_launches=f32_path_launches[name][i],
@@ -3699,6 +4185,7 @@ def main() -> int:
                 "utterance_softdtw_launches": utterance_softdtw_launches[name][i],
                 "wav2vec2_launches": wav2vec2_launches[name][i],
                 "encdec_launches": encdec_launches[name][i],
+                "trainer_launches": trainer_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

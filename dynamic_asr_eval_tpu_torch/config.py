@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
@@ -54,10 +55,18 @@ def load_paths(path: Optional[str] = None) -> DotDict:
 
 
 def load_yaml(path: str) -> Dict[str, Any]:
+    """A yaml file as a dict.  A file that is JSON (a YAML document in flow
+    style) is read with ``json``, so it needs no PyYAML; any other goes
+    through ``yaml.safe_load``."""
+    with open(path, "r") as f:
+        text = f.read()
+    try:
+        return json.loads(text) or {}
+    except ValueError:
+        pass
     import yaml
 
-    with open(path, "r") as f:
-        return yaml.safe_load(f) or {}
+    return yaml.safe_load(text) or {}
 
 
 def parse_kwarg_value(raw: str) -> Any:

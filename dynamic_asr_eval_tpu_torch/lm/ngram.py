@@ -18,6 +18,8 @@ signed int64, and one exact binary search finds the key: no probe.
 
 Vocabulary is indexed by token id; the caller supplies the token → id map
 when loading (n-grams with a token outside it are dropped).
+:func:`load_word_arpa` reads a word-level ARPA over its own word ids instead
+(for :class:`..lm.word_fusion.WordNGramAdapter`).
 """
 
 from __future__ import annotations
@@ -165,7 +167,8 @@ def _warn_dropped(path: str, total: int, kept: int, warn_drop_fraction: float) -
         msg = (f"load_arpa: dropped {total - kept}/{total} n-grams "
                f"({100.0 * (total - kept) / total:.1f}%) because their tokens are not in the "
                f"tokenizer vocab: '{path}' looks like a WORD-level LM, and token-level fusion "
-               f"will be a near-no-op (word-level fusion is not ported yet)")
+               f"will be a near-no-op.  Use lm.ngram.load_word_arpa + "
+               f"lm.word_fusion.WordNGramAdapter instead.")
         print(f"WARNING: {msg}")
         warnings.warn(msg, stacklevel=3)
 
@@ -224,3 +227,60 @@ def load_arpa(
         tables[cur].append((_hash_ctx(ids), logp * LOG10, bo * LOG10))
     _warn_dropped(path, total, kept, warn_drop_fraction)
     return NGramLM(order, _tables_to_numpy(tables), vocab_size, device=device)
+
+
+def _load_word_arpa_native(path: str, max_order: Optional[int],
+                           device) -> Tuple[NGramLM, Dict[str, int]]:
+    """The native reader's rows over word ids in unigram-section order (the
+    first occurrence of a word wins); higher-order rows with a word absent
+    from the unigrams are dropped, as in the Python parser."""
+    vocab, raw = arpa_native.parse_arpa(path, max_order)
+    if 1 not in raw:
+        lm = NGramLM(0, {}, 0, device=device)
+        lm.reader = "native"
+        return lm, {}
+    id_map = np.full((len(vocab),), -1, np.int64)
+    word_to_id: Dict[str, int] = {}
+    for nid in raw[1][0][:, 0]:  # native intern ids of the unigram words
+        if id_map[nid] == -1:
+            id_map[nid] = len(word_to_id)
+            word_to_id[vocab[nid]] = int(id_map[nid])
+    np_tables: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+    order = 0
+    for k, (ids, lp, bo) in raw.items():
+        order = max(order, k)
+        mapped = id_map[ids]
+        valid = (mapped >= 0).all(axis=1)
+        if valid.any():
+            np_tables[k] = (arpa_native.hash_rows(mapped[valid]), lp[valid] * LOG10,
+                            bo[valid] * LOG10)
+    lm = NGramLM(order, np_tables, len(word_to_id), device=device)
+    lm.reader = "native"
+    return lm, word_to_id
+
+
+def load_word_arpa(
+    path: str,
+    max_order: Optional[int] = None,
+    use_native: bool = True,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tuple[NGramLM, Dict[str, int]]:
+    """A WORD-level ARPA file (optionally .gz) as ``(NGramLM over word ids on
+    device, word → id)``: ids in unigram-section order, which the ARPA format
+    puts first.  The C++ reader unless ``use_native`` is False (the Python
+    parser); where the reader cannot be built, this raises."""
+    if use_native:
+        return _load_word_arpa_native(path, max_order, device)
+    word_to_id: Dict[str, int] = {}
+    tables: Dict[int, List[Tuple[int, float, float]]] = {}
+    order = 0
+    for cur, logp, toks, bo in _iter_arpa(path, max_order):
+        order = max(order, cur)
+        tables.setdefault(cur, [])
+        if cur == 1:
+            word_to_id.setdefault(toks[0], len(word_to_id))
+        ids = [word_to_id.get(t) for t in toks]
+        if any(i is None for i in ids):
+            continue
+        tables[cur].append((_hash_ctx(ids), logp * LOG10, bo * LOG10))
+    return NGramLM(order, _tables_to_numpy(tables), len(word_to_id), device=device), word_to_id

@@ -1,4 +1,5 @@
 from dynamic_asr_eval_tpu_torch.ops.chunk import (
+    chunk_spectrogram,
     chunk_starts_and_lengths,
     num_chunks,
     pad_num_chunks,
@@ -7,6 +8,7 @@ from dynamic_asr_eval_tpu_torch.ops.ctc import ctc_loss, greedy_decode, greedy_l
 from dynamic_asr_eval_tpu_torch.ops.stitch import stitch_chunk_probs, trim_stitched
 
 __all__ = [
+    "chunk_spectrogram",
     "chunk_starts_and_lengths",
     "num_chunks",
     "pad_num_chunks",

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``ops/ctc.py``:
 
 - :func:`ctc_loss` — summed negative log-likelihood (``reduction='sum'``),
   arbitrary blank, padded labels masked by ``label_lengths``, optional
-  per-sample weights; a zero-length label costs −Σ log P(blank).  It is
+  per-sample weights; a zero-length label costs −Σ log P(blank).  An input
+  length of 0 counts as 1: the JAX recursion always takes the first frame
+  (a zero-length row of a padded training batch costs −log P(blank) of its
+  frame 0 there).  It is
   ``F.ctc_loss`` (the JAX package's CTC is plain XLA, not a kernel).  An
   impossible alignment (label longer than the frames allow) costs 1e30, the
   value the JAX recursion's −1e30 floor gives, not ``inf``, with zero
@@ -41,6 +44,7 @@ def ctc_loss(
     B, T, V = log_probs.shape
     if blank_id is None:
         blank_id = V - 1
+    input_lengths = torch.clamp(input_lengths, min=1)
     nll = F.ctc_loss(
         log_probs.transpose(0, 1).float(),
         labels.long(),

@@ -926,3 +926,136 @@ def test_encdec_config_is_the_flagship_encoder_and_the_default_decoder():
     assert (cfg.decoder_layers, cfg.decoder_d_model, cfg.decoder_heads, cfg.head_dim,
             cfg.decoder_ff_mult, cfg.max_text_len) == (4, 512, 8, 64, 4, 256)
     assert chip_smoke.ENCDEC_CHUNKS == 8 and chip_smoke.ENCDEC_SEQ // 8 == 256
+
+
+def test_phases_22_and_23_are_listed_and_driven():
+    doc = chip_smoke.__doc__
+    for heading in ("\n22. NST finetuning", "\n22b. one NST step", "\n23. word-level LM fusion"):
+        assert heading in doc
+    assert "[4, 2048, 6, 128] with lengths [2048, 1100, 0, 0]" in " ".join(doc.split())
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    for call in ("train_path(tmp, card, A, S, D)", "check_train_parity(A, S)",
+                 "word_fusion_path(tmp, card)", "[2048, 1100, 0, 0], [1024, 0, 0, 0]"):
+        assert call in main
+    assert '"trainer_launches": trainer_launches[name][i]' in main
+    assert '"train_parity_launches": train_parity[name][i]' in main
+
+
+def test_train_plan_at_the_flagship():
+    """Two recordings of 4.5 windows: 2 steps each, the second with one
+    8192-frame window and three zero-length rows; per step the teacher's and
+    the student's forward and the student's backward."""
+    from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_spectrogram
+
+    assert chip_smoke.train_steps() == 2
+    spec = torch.zeros(1, chip_smoke.TRAIN_FRAMES).numpy()
+    _, lengths, _, n_real = chunk_spectrogram(spec, chip_smoke.TRAIN_SEQ, 0, pad_to_bucket=False)
+    assert n_real == 5 and lengths.tolist() == [16384] * 4 + [8192]
+    L = chip_smoke.flagship_config().n_layers
+    assert chip_smoke.TRAIN_PLAN == {"attention": (2 * L, L), "subsample": (2, 1),
+                                     "softdtw": (0, 0), "gx": 0}
+
+
+def test_write_wav_featurizes_to_the_frames(tmp_path):
+    from dynamic_asr_eval_tpu_torch.audio.features import log_mel_spectrogram
+    from dynamic_asr_eval_tpu_torch.audio.io import load_audio
+
+    path = chip_smoke.write_wav(str(tmp_path / "a.wav"), 301, seed=1)
+    assert log_mel_spectrogram(load_audio(path)).shape == (1, 80, 301)
+
+
+def test_train_yaml_gives_the_flagship_without_pyyaml(tmp_path, monkeypatch):
+    import dataclasses
+    import sys
+
+    from dynamic_asr_eval_tpu_torch.config import load_yaml
+    from dynamic_asr_eval_tpu_torch.models import ConformerConfig
+
+    path = chip_smoke.train_yaml(str(tmp_path / "t.yaml"), str(tmp_path / "ck"))
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    raw = load_yaml(path)
+    fields = {f.name for f in dataclasses.fields(ConformerConfig)}
+    cfg = ConformerConfig.from_dict({k: v for k, v in raw["model"].items() if k in fields})
+    assert cfg == chip_smoke.flagship_config(subsampling_impl="pallas")
+    assert raw["audio_chunking"] == {"size": 16384, "overlap": 0}
+    assert raw["training"]["batch_size"] == 4 and raw["spec_augment"]["n_freq_masks"] == 6
+
+
+def test_check_ema_between_holds_the_projection():
+    g = torch.Generator().manual_seed(0)
+    init = {"a": torch.randn(5, generator=g), "b": torch.randn(3, generator=g)}
+    trained = {k: v + torch.randn(v.shape, generator=g) for k, v in init.items()}
+    ema = {k: 0.7 * init[k] + 0.3 * trained[k] for k in init}
+    proj, ratio = chip_smoke.check_ema_between(init, trained, ema)
+    assert proj == pytest.approx(0.3, abs=1e-5) and ratio == pytest.approx(0.3, abs=1e-5)
+    for bad in (init, trained, {k: 2 * trained[k] - init[k] for k in init}):
+        with pytest.raises(AssertionError, match="EMA not between"):
+            chip_smoke.check_ema_between(init, trained, bad)
+
+
+def _tiny_phase(monkeypatch):
+    """Phase 22 / 22b at a tiny width and length on the CPU: nothing counts
+    and the profiler sees no device there."""
+    big = chip_smoke.flagship_config
+    monkeypatch.setattr(chip_smoke, "flagship_config", lambda **o: big(**{**dict(
+        n_layers=2, d_model=64, n_heads=2, head_dim=32, vocab_size=40,
+        subsampling_conv_channels=16, conv_kernel_size=5), **o}))
+    monkeypatch.setattr(chip_smoke, "TRAIN_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TRAIN_FRAMES", 1152)
+    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 256)
+    monkeypatch.setattr(chip_smoke, "TRAIN_PARITY_LENGTHS", (256, 128, 0, 0))
+    monkeypatch.setattr(chip_smoke, "TRAIN_PROFILED_STEPS", 1)
+    monkeypatch.setattr(chip_smoke, "kernel_ms", lambda fn, cpu=True: (fn(), {})[1])
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+
+
+def test_train_path_rehearsed_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The whole of phase 22 (cli.main on two wavs, losses, EMA, checkpoint,
+    resume bit for bit, timing) at a tiny width; the launch check sees the
+    CPU's zero counts and is stood in for."""
+    _tiny_phase(monkeypatch)
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_path_launches",
+                        lambda what, launches, routes, gx, plan, windows: seen.append(
+                            (what, plan, windows)))
+    from dynamic_asr_eval_tpu_torch.kernels import softdtw as D
+
+    launches, _ = chip_smoke.train_path(str(tmp_path), "card", A, S, D)
+    assert seen == [("trainer", chip_smoke.TRAIN_PLAN, 4)]
+    line = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+            if x.startswith('{"train_path"')][0]["train_path"]
+    assert line["steps"] == 4 and len(line["losses"]) == 4
+    assert 0 < line["ema_projection"] < 1 and line["timing"]["idle_share"] == "not measured"
+
+
+def test_train_parity_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 22b's comparison at a tiny width: the kernel and the plain
+    configurations agree on the CPU within its bars, given the f32 route's
+    counts (nothing counts here); with the CPU's zero counts it fails."""
+    _tiny_phase(monkeypatch)
+    with pytest.raises(AssertionError, match=r"launches \{'attention': \(0, 0\)"):
+        chip_smoke.check_train_parity(A, S)
+    f32 = {"attention": (4, 2), "subsample": (2, 1)}
+    monkeypatch.setattr(chip_smoke, "counted", lambda modules, fn: (
+        fn(), f32, {k: {"tf32x3": v, "tensor_core": (0, 0)} for k, v in f32.items()}))
+    assert chip_smoke.check_train_parity(A, S) == f32
+    assert "weight gradients" in capsys.readouterr().out
+
+
+def test_word_fusion_path_rehearsed_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 23 at a small lexicon and text, its "card" side on the CPU."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "TRAIN_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "WORD_COUNTS", (400, 800, 800, 800))
+    monkeypatch.setattr(chip_smoke, "WORD_TEXT_WORDS", 6)
+    monkeypatch.setattr(chip_smoke, "WORD_BEAMS", 8)
+    chip_smoke.word_fusion_path(str(tmp_path), "card")
+    line = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+            if x.startswith('{"word_fusion"')][0]["word_fusion"]
+    assert line["max_rel_score_diff"] == 0.0 and line["words_spelled"] == 6
+    assert line["lexicon_words_out_of_lexicon"] == 0

@@ -5,6 +5,7 @@ its native libraries only under ``build/``, and its entry points run on
 falling back."""
 
 import argparse
+import json
 import os
 import pathlib
 import re
@@ -62,24 +63,55 @@ PROTOCOL_CLIS = ("evals.run_in_dataset_eval", "evals.run_cross_dataset_eval",
                  "evals.run_sweep")
 PROTOCOL_MODULES = PROTOCOL_CLIS + ("evals.hpo", "analysis")
 
-_IMPORT_ONE = """
-import importlib, sys
-importlib.import_module("dynamic_asr_eval_tpu_torch." + sys.argv[1])
-print(",".join(sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
-                                             "wandb", "matplotlib", "transformers", "sacrebleu",
-                                             "dynamic_asr_eval_tpu"))))
+_IMPORT_EACH = """
+import contextlib, importlib, io, json, os, sys
+import numpy, torch  # what every port module imports first
+results = {}
+for name in sys.argv[1:]:
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:  # a child holding nothing of the port
+        os.close(r)
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                importlib.import_module("dynamic_asr_eval_tpu_torch." + name)
+            res = {"printed": out.getvalue(), "pulled_in": sorted(
+                m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml",
+                                       "wandb", "matplotlib", "transformers", "sacrebleu",
+                                       "dynamic_asr_eval_tpu"))}
+        except BaseException as e:
+            res = {"error": repr(e)}
+        os.write(w, json.dumps(res).encode())
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r) as f:
+        results[name] = json.loads(f.read() or '{"error": "the child died"}')
+    os.waitpid(pid, 0)
+print(json.dumps(results))
 """
 
 
+@pytest.fixture(scope="module")
+def imported_alone():
+    """Each module of the ``*_MODULES`` lists imported on its own, in a child
+    forked from one interpreter that holds only numpy and torch: {module:
+    what it printed and which forbidden packages it pulled in}.  One
+    interpreter start for all of them instead of one each."""
+    modules = (NEW_MODULES + OPTION_MODULES + PROTOCOL_MODULES + UTTERANCE_MODULES
+               + ENCDEC_MODULES + TRAIN_FUSION_MODULES)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_EACH, *modules], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
 @pytest.mark.parametrize("module", NEW_MODULES)
-def test_the_transformer_lm_and_consistency_modules_import_alone(module):
+def test_the_transformer_lm_and_consistency_modules_import_alone(module, imported_alone):
     """Each module of the transformer-LM and consistency slice, imported on
     its own, pulls in no JAX, flax, optax, msgpack or PyYAML."""
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == ""
+    assert imported_alone[module] == {"printed": "", "pulled_in": []}
 
 
 OPTION_MODULES = ("models.surgery", "models.nemo_convert", "tta.retokenize", "models.conformer",
@@ -87,27 +119,21 @@ OPTION_MODULES = ("models.surgery", "models.nemo_convert", "tta.retokenize", "mo
 
 
 @pytest.mark.parametrize("module", OPTION_MODULES)
-def test_the_options_slice_modules_import_alone(module):
+def test_the_options_slice_modules_import_alone(module, imported_alone):
     """Each module the options slice added or extended (NeMo conversion,
     surgery, re-tokenisation, batch renorm and rel_pos, the engine's options,
     ``--profile``), imported on its own, pulls in no JAX, no module of the
     JAX package, and no PyYAML, wandb or matplotlib."""
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == ""
+    assert imported_alone[module] == {"printed": "", "pulled_in": []}
 
 
 @pytest.mark.parametrize("module", PROTOCOL_MODULES)
-def test_the_protocol_modules_import_alone(module):
+def test_the_protocol_modules_import_alone(module, imported_alone):
     """Each module of the protocol slice (drivers, sweep, TPE, analysis),
     imported on its own, pulls in no JAX, no module of the JAX package, and
     no PyYAML, wandb or matplotlib: those are imported inside the functions
     that use them."""
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == ""
+    assert imported_alone[module] == {"printed": "", "pulled_in": []}
 
 
 UTTERANCE_MODULES = ("tta.utterance", "evals.run_utterance_eval", "augment.waveform",
@@ -115,14 +141,11 @@ UTTERANCE_MODULES = ("tta.utterance", "evals.run_utterance_eval", "augment.wavef
 
 
 @pytest.mark.parametrize("module", UTTERANCE_MODULES)
-def test_the_utterance_and_wav2vec2_modules_import_alone(module):
+def test_the_utterance_and_wav2vec2_modules_import_alone(module, imported_alone):
     """Each module of the utterance and wav2vec2 slice, imported on its own,
     pulls in no JAX, flax, optax, no module of the JAX package, and no
     ``transformers`` (the HF layout is read by name, not through HF)."""
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == ""
+    assert imported_alone[module] == {"printed": "", "pulled_in": []}
 
 
 ENCDEC_CLIS = ("evals.enc_dec_inference_test", "evals.enc_dec_ctc_beam_inference_test",
@@ -134,15 +157,12 @@ ENCDEC_MODULES = ENCDEC_CLIS + ("models.encdec", "models.convert", "tta.encdec_r
 
 
 @pytest.mark.parametrize("module", ENCDEC_MODULES)
-def test_the_encoder_decoder_modules_import_alone(module):
+def test_the_encoder_decoder_modules_import_alone(module, imported_alone):
     """Each module of the encoder-decoder slice, imported on its own, pulls in
     no JAX, flax, optax, no module of the JAX package, and no ``sacrebleu``
     (the rewards' BLEU is the port's own ``text/bleu.py``; the card has no
     sacrebleu)."""
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == ""
+    assert imported_alone[module] == {"printed": "", "pulled_in": []}
 
 
 _IMPORT_BUILDS_NOTHING = """
@@ -365,3 +385,51 @@ def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(where, cuda, tmp_pat
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert ("CUDA is not available" if not cuda else "checkout of the repository") in proc.stderr
+
+
+# the package's __init__ imports nst, data and schedule
+TRAIN_FUSION_MODULES = ("train", "train.cli", "lm.word_fusion", "ops.lexicon",
+                        "ops.pyctc_compat")
+
+
+@pytest.mark.parametrize("module", TRAIN_FUSION_MODULES)
+def test_the_trainer_and_word_fusion_modules_import_alone(module, imported_alone):
+    """Each module of the NST-trainer and word-fusion slice, imported on its
+    own, pulls in no JAX, flax, optax, no module of the JAX package, and no
+    PyYAML or wandb (the CLI reads a JSON-form yaml without PyYAML)."""
+    assert imported_alone[module] == {"printed": "", "pulled_in": []}
+
+
+def test_train_cli_without_device_raises_without_cuda(no_cuda, tmp_path):
+    """With ``--device cpu`` it runs (tests/test_torch_train_cli.py)."""
+    from dynamic_asr_eval_tpu_torch.train import cli
+
+    path = tmp_path / "c.yaml"
+    path.write_text('{"model": {"feat_in": 16, "n_layers": 1, "d_model": 32}}')
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["-config", str(path)])
+
+
+def test_trainer_and_decoders_without_device_raise_without_cuda(no_cuda, tmp_path):
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.lm.ngram import load_word_arpa
+    from dynamic_asr_eval_tpu_torch.ops.lexicon import word_beam_search
+    from dynamic_asr_eval_tpu_torch.ops.pyctc_compat import build_ctcdecoder
+    from dynamic_asr_eval_tpu_torch.text import CharTokenizer
+    from dynamic_asr_eval_tpu_torch.train import EvalRunner, NSTTrainer, TrainConfig
+
+    cfg = ConformerConfig(feat_in=16, n_layers=1, d_model=32, n_heads=2, head_dim=16,
+                          vocab_size=10, subsampling_conv_channels=4, compute_dtype="float32")
+    path = tmp_path / "w.arpa"
+    path.write_text("\\data\\\nngram 1=1\n\n\\1-grams:\n-1.0\tword\n\n\\end\\\n")
+    tok = CharTokenizer()
+    calls = [lambda: NSTTrainer(SCConformer(cfg), None, cfg, TrainConfig()),
+             lambda: EvalRunner(SCConformer(cfg), cfg, [], tok),
+             lambda: load_word_arpa(str(path)),
+             lambda: build_ctcdecoder(tok),
+             lambda: build_ctcdecoder(tok, str(path)),
+             lambda: word_beam_search(np.zeros((4, 29), np.float32), ["word"], tok)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
