@@ -55,6 +55,12 @@ Phases (each raises on failure; the script then exits non-zero):
      0, 0] (zero-length rows: a ragged last batch, a recording's half
      window); its subsampling [4, 16384, 80] is the evaluation engine's case
      above;
+   - each kernel ``autograd.Function`` under ``torch.func.vmap`` at R = 3,
+     bf16, forward and backward, bit for bit against the per-record loop:
+     attention [3, 2, 2048, 6, 128] (q, k, v views of one qkv tensor) with
+     ragged lengths in exactly one launch each way for the group, and
+     subsampling [3, 2, 16384, 80] with three distinct weight sets in one
+     launch a record each way (``check_vmap``: phase 24's calls);
    - soft-DTW R and E (f32, 1e-4 relative on R, 1e-4 of max |E| on E, each
      E from the same R) at the
      ``benchmark()`` defaults (4, 256, 256), at (2, 1500, 700) with bandwidth
@@ -349,6 +355,32 @@ Phases (each raises on failure; the script then exits non-zero):
    (``check_live_beams``) and texts, every word of the lexicon search in the
    lexicon; a ``{"word_fusion": ...}`` line.  Each new heading prints its
    seconds.
+24. records batching (``--dp_records``' engine): ``DynamicEvalEngine.batched``
+   on 4 ``synthetic_spec`` recordings of 30720, 30720, 22528 and 16384
+   frames (9, 9, 5 and 1 windows: 9 group steps) at the flagship (bf16,
+   ``"pallas_flash"``, ``"pallas"``, seed 0) with phase 5's TTA settings,
+   each record seeded as its serial run; launches exactly 6 / 6 attention
+   (the group folded into one launch a layer) and 4 / 4 subsampling (one a
+   record) a group step, all bf16; every output finite with its shape, every
+   record's weights moved; per record, against the serial engine on the
+   same record and seed, max |Δ log-prob| and the share of frames with the
+   same argmax (printed); the warm group's ms a step beside 4 serial window
+   steps; over 3 group steps (each record's first SEQ + 2 strides frames),
+   device busy time and idle share from torch.profiler; peak memory above
+   the phase's start; a ``{"records_path": ...}`` line.  24b: the same API
+   in f32 at the flagship widths (TF32 off, the ``"tf32x3"`` kernels) on
+   16384 + 8192 frames against the serial engine, cuDNN deterministic:
+   log-probs within 1e-4 of max |log-prob|, equal greedy ids.  24c:
+   ``evals/run.py`` ``main --dp_records`` (online) and ``--dp`` (offline)
+   at world size 1 (NCCL), f32, on the same two records, against the serial
+   driver: equal transcripts and WER, and each record's stitched log-probs
+   (from the engine the driver built) within 1e-4 of max with equal greedy
+   ids.  24d: one NSTI window step (16384 frames) at the flagship, bf16,
+   with ``checkpoint_every_n_layers=1, remat_subsampling=True`` beside the
+   same step without, twice: the updated weights bit for bit, or within the
+   two plain steps' spread; each run's peak memory; the recomputation's
+   extra forwards exactly 6 attention and 1 subsampling; a ``{"remat":
+   ...}`` line.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
@@ -360,14 +392,18 @@ path, ``consistency_launches`` on the consistency path,
 19b), ``wav2vec2_launches`` (phases 20 and 20b) and ``encdec_launches``
 (phases 21 and 21b) and ``trainer_launches`` (phase 22), each read from its
 own runs; ``encdec_parity_launches`` (21c) and ``train_parity_launches``
-(22b) beside the other parity counts; ``f32_path_launches`` for the f32
+(22b) beside the other parity counts; ``records_launches`` (phase 24),
+``remat_launches`` (24d's remat step) and ``vmap_launches`` (phase 3's
+vmapped calls), and for the f32 kernels ``records_parity_launches`` (24b)
+and ``records_driver_launches`` (24c); ``f32_path_launches`` for the f32
 attention and
 subsampling, from phase 5c; the subsampling backwards' ``entropy_gx_launches``
 and ``nemo_gx_launches``, its ``gx_ms`` / ``gx_bound_ms`` /
 ``gx_library_ms``, and the bf16 forward's ``relu_ms``), and last
 ``{"ok": true, "device": {...}}``.  TF32 stays off throughout for PyTorch's
 matmuls and convolutions; cuDNN's deterministic algorithms are on only
-inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c, 21c, 22b), so the
+inside the parity comparisons (phases 6, 6b, 5c, 10b, 15c, 21c, 22b, 24b,
+24c), so the
 timed phases keep cuDNN's own choice.
 """
 
@@ -1016,6 +1052,18 @@ class EngineRecorder:
         self.calls.append((params, spec))
         self.outputs.append(out)
         return out
+
+    def batched(self, params, specs, *args, **kwargs):
+        """``--dp_records``' call: each record's call and output kept."""
+        outs = self.engine.batched(params, specs, *args, return_params=True, **kwargs)
+        self.calls += [(params, spec) for spec in specs]
+        self.outputs += outs
+        return outs
+
+    def __getattr__(self, name):  # the engine's mesh, config, window_count
+        if name == "engine":
+            raise AttributeError(name)
+        return getattr(self.engine, name)
 
 
 def counted(modules, fn):
@@ -3822,6 +3870,364 @@ def word_fusion_path(tmp, card):
     print(json.dumps({"word_fusion": result}))
 
 
+# ---------------------------------------------------------------------------
+# phase 3's vmap cases; phases 24-24d: records batching, the data-parallel
+# drivers, rematerialisation
+# ---------------------------------------------------------------------------
+
+RECORDS_DEVICE = "cuda"  # phase 3's vmap cases and phases 24-24d ("cpu" in the rehearsals)
+VMAP_R = 3
+VMAP_ATTENTION = (2, 2048, 6, 128)  # B, T, H, D of each record
+VMAP_LENGTHS = ((2048, 1600), (1792, 2048), (1000, 2048))
+VMAP_SUBSAMPLE = (2, 16384, 80, 256)  # B, T, F, C of each record
+RECORDS_FRAMES = (30720, 30720, 22528, 16384)  # phase 24's group: 9, 9, 5 and 1 windows
+RECORDS_PROFILED_STEPS = 3
+RECORDS_PARITY_FRAMES = (16384, 8192)  # phases 24b and 24c: one window each
+
+
+def check_vmap(A, S):
+    """Phase 3's vmap cases, bf16: each kernel ``autograd.Function`` under
+    ``torch.func.vmap`` at R = VMAP_R against the per-record loop, bit for
+    bit, forward and backward.  Attention [R, 2, 2048, 6, 128] (q, k, v
+    views of one qkv tensor, as the model hands them) with ragged lengths:
+    exactly one launch forward and one backward for the group; subsampling
+    [R, 2, 16384, 80] with three distinct weight sets: one launch per record
+    each way.  Returns {module: (fwd, bwd)} of the vmapped runs."""
+    dev, R = RECORDS_DEVICE, VMAP_R
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, T, H, D = VMAP_ATTENTION
+    qkv = torch.randn(R, B, T, 3, H, D, generator=g, device=dev).to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    mask = (torch.arange(T, device=dev)[None, None]
+            < torch.tensor(VMAP_LENGTHS, device=dev)[..., None])
+    dout = torch.randn(R, B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+
+    def attention(x, m):
+        return A.flash_attention(*x.unbind(2), m)
+
+    def run_attention():
+        out = torch.func.vmap(attention)(qkv, mask)
+        out.backward(dout)
+        return out
+
+    out, attn_launches, attn_routes = counted({"attention": A}, run_attention)
+    grad, qkv.grad = qkv.grad, None
+    loop = torch.stack([attention(qkv[r], mask[r]) for r in range(R)])
+    loop.backward(dout)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, loop) and torch.equal(grad, qkv.grad)):
+        raise AssertionError("attention under vmap differs from the per-record loop")
+    if attn_launches["attention"] != (1, 1) or not bf16_only(attn_routes["attention"], (1, 1)):
+        raise AssertionError(f"attention under vmap: launches {attn_launches}, by route "
+                             f"{attn_routes}; expected one bf16 launch each way")
+    log(f"  attention [{R}, {B}, {T}, {H}, {D}] under vmap, lengths {VMAP_LENGTHS}: out, dq, dk, "
+        f"dv equal to the per-record loop bit for bit; launches {attn_launches['attention']}")
+
+    Bs, Ts, Fs, C = VMAP_SUBSAMPLE
+    x = torch.randn(R, Bs, Ts, Fs, generator=g, device=dev).to(torch.bfloat16)
+    shapes = {"k9": (9, C), "dw1": (9, C), "dw2": (9, C), "pw1": (C, C), "pw2": (C, C)}
+    ws = []  # subsample_inputs' scales, a set per record
+    for name in S.WEIGHT_NAMES:
+        scale = 1 / 3 if name in ("k9", "dw1", "dw2") else (C ** -0.5 if name.startswith("pw")
+                                                             else 0.1)
+        w = torch.randn((R,) + shapes.get(name, (C,)), generator=g, device=dev) * scale
+        ws.append(w.requires_grad_(True))
+    gout = torch.randn(R, Bs, S.ceil_chain(Ts)[2], Fs // 8, C, generator=g,
+                       device=dev).to(torch.bfloat16)
+
+    def run_subsample():
+        out = torch.func.vmap(S.fused_subsample)(x, *ws)
+        out.backward(gout)
+        return out
+
+    out, sub_launches, sub_routes = counted({"subsample": S}, run_subsample)
+    grads = [w.grad for w in ws]
+    for w in ws:
+        w.grad = None
+    loop = torch.stack([S.fused_subsample(x[r], *(w[r] for w in ws)) for r in range(R)])
+    loop.backward(gout)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, loop) and all(torch.equal(a, w.grad) for a, w in zip(grads, ws))):
+        raise AssertionError("subsampling under vmap differs from the per-record loop")
+    if sub_launches["subsample"] != (R, R) or not bf16_only(sub_routes["subsample"], (R, R)):
+        raise AssertionError(f"subsampling under vmap: launches {sub_launches}, by route "
+                             f"{sub_routes}; expected {R} bf16 launches each way")
+    log(f"  subsampling [{R}, {Bs}, {Ts}, {Fs}] under vmap, {R} weight sets: out and the 10 "
+        f"weight gradients equal to the per-record loop bit for bit; launches "
+        f"{sub_launches['subsample']}")
+    return {**attn_launches, **sub_launches}
+
+
+def records_engine(cfg, frames, kwargs=()):
+    """The NSTI engine ``evals.common.build_engine`` builds from phase 5's
+    settings (``RUN_KWARGS``; seq SEQ, overlap OVERLAP) for ``cfg`` with
+    random weights from seed 0 on RECORDS_DEVICE, and ``synthetic_spec``
+    spectrograms of ``frames`` frames (seeds 0, 1, ...)."""
+    from dynamic_asr_eval_tpu_torch.data import get_dataset
+    from dynamic_asr_eval_tpu_torch.evals import common, run
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+
+    os.environ["DAE_SYNTH_SPEC_FRAMES"] = ",".join(str(n) for n in frames)
+    args = run.parse_args(["-d", "synthetic_spec", "--quiet", "--device", RECORDS_DEVICE,
+                           "-seq", str(SEQ), "-o", str(OVERLAP), *RUN_KWARGS, *kwargs])
+    model = init_conformer(cfg, seed=0).to(RECORDS_DEVICE)
+    engine = common.build_engine(args, model, cfg)
+    specs = [rec["process_fn"](rec)[0] for rec in get_dataset("synthetic_spec", args.split)]
+    return engine, specs
+
+
+def records_plan(frames, n_layers):
+    """Launches of one records-batched adaptation (online, 1 epoch): a group
+    step per window of the longest record, each step one attention launch
+    per layer each way for the whole group and one subsampling launch per
+    record each way.  Returns (group steps, {module: (fwd, bwd)})."""
+    steps = max(n_windows(n, SEQ, OVERLAP) if n > SEQ else 1 for n in frames)
+    R = len(frames)
+    return steps, {"attention": (n_layers * steps, n_layers * steps),
+                   "subsample": (R * steps, R * steps)}
+
+
+def check_records_launches(what, launches, routes, expect, route="tensor_core"):
+    """Exactly ``expect`` ({module: (fwd, bwd)}), every launch on ``route``."""
+    for name, want in expect.items():
+        by_route = routes[name]
+        if tuple(launches[name]) != tuple(want) or any(
+                tuple(c) != (tuple(want) if r == route else (0, 0)) for r, c in by_route.items()):
+            raise AssertionError(f"{what}: {name} launches {launches[name]}, by route "
+                                 f"{by_route}; expected {want} on {route}")
+
+
+def frame_agreement(a, b):
+    """(max |a - b| of two stitched outputs' log-probs, the share of frames
+    whose most likely class is the same)."""
+    la, lb = a.numpy_logits(), b.numpy_logits()
+    return float(abs(la - lb).max()), float((la.argmax(-1) == lb.argmax(-1)).mean())
+
+
+def records_path(card, A, S):
+    """Phase 24: ``engine.batched`` on RECORDS_FRAMES at the flagship width
+    (bf16, ``"pallas_flash"``, ``"pallas"``), phase 5's TTA settings, each
+    record seeded as the serial run of it; then each record through the
+    serial engine with the same seed.  Returns the batched run's launches
+    and routes."""
+    cfg = flagship_config(subsampling_impl="pallas")
+    engine, specs = records_engine(cfg, RECORDS_FRAMES)
+    seeds = list(range(len(specs)))
+    steps, plan = records_plan(RECORDS_FRAMES, cfg.n_layers)
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    outs, launches, routes = counted({"attention": A, "subsample": S}, lambda: engine.batched(
+        None, specs, SEQ, OVERLAP, rngs=seeds, return_params=True))
+    first_s = time.time() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - start) / 1e9
+    check_records_launches("records batching", launches, routes, plan)
+    params = {k: v.detach().clone() for k, v in engine.model.state_dict().items()}
+    serial = [engine(None, s, SEQ, OVERLAP, rng=seed) for s, seed in zip(specs, seeds)]
+    per_record = []
+    for r, (out, ref) in enumerate(zip(outs, serial)):
+        lp = out.numpy_logits()
+        want = (-(-RECORDS_FRAMES[r] // cfg.subsampling_factor), cfg.n_classes)
+        moved = weight_change(out.params, params)
+        if lp.shape != want or not torch.isfinite(torch.from_numpy(lp)).all() or not moved > 0:
+            raise AssertionError(f"records batching, record {r}: log-probs {lp.shape} (expected "
+                                 f"{want}), finite {torch.isfinite(torch.from_numpy(lp)).all()}, "
+                                 f"weights moved {moved}")
+        err, same = frame_agreement(out, ref)
+        per_record.append({"frames": RECORDS_FRAMES[r], "max_abs_log_prob_diff": err,
+                           "same_argmax_share": same, "max_weight_change": moved})
+        log(f"  record {r} ({RECORDS_FRAMES[r]} frames): stitched {lp.shape}, finite, weights "
+            f"moved {moved:.3e}; against its serial run: max |d log-prob| {err:.3e}, "
+            f"{same:.4f} of frames with the same argmax")
+    group_ms = min(wall_ms(lambda: engine.batched(None, specs, SEQ, OVERLAP, rngs=seeds))
+                   for _ in range(TIMED_RUNS))
+    serial_ms = min(wall_ms(lambda: engine(None, specs[0], SEQ, OVERLAP, rng=0))
+                    for _ in range(TIMED_RUNS)) / n_windows(RECORDS_FRAMES[0], SEQ, OVERLAP)
+    cut = [s[..., : SEQ + (RECORDS_PROFILED_STEPS - 1) * (SEQ - OVERLAP)] for s in specs]
+    cut_ms = wall_ms(lambda: engine.batched(None, cut, SEQ, OVERLAP, rngs=seeds))
+    by_kernel = kernel_ms(lambda: engine.batched(None, cut, SEQ, OVERLAP, rngs=seeds), cpu=False)
+    busy = sum(by_kernel.values())
+    result = {"card": card, "records": len(specs), "frames": list(RECORDS_FRAMES),
+              "group_steps": steps, "launches": launches, "first_call_s": first_s,
+              "peak_gb_above_start": peak_gb, "per_record": per_record,
+              "warm_group_ms": group_ms, "group_ms_per_step": group_ms / steps,
+              "serial_ms_per_window": serial_ms,
+              "serial_ms_for_group_step": len(specs) * serial_ms,
+              "profiled_steps": RECORDS_PROFILED_STEPS, "profiled_wall_ms": cut_ms}
+    if busy <= 0:
+        result.update(device_busy_ms="not measured", idle_share="not measured")
+    else:
+        from collections import defaultdict
+
+        fams = defaultdict(float)
+        for k, ms in by_kernel.items():
+            fams[family(k)] += ms
+        result.update(device_busy_ms=busy, device_busy_ms_per_step=busy / RECORDS_PROFILED_STEPS,
+                      idle_share=max(0.0, 1.0 - busy / cut_ms),
+                      families_ms=dict(sorted(fams.items(), key=lambda kv: -kv[1])))
+    log(f"  launches {launches} over {steps} group steps; first call {first_s:.3f} s; peak "
+        f"{peak_gb:.2f} GB above the phase's start; warm group {group_ms:.2f} ms, "
+        f"{group_ms / steps:.2f} ms a group step of {len(specs)} records against "
+        f"{len(specs)} x {serial_ms:.2f} ms serial window steps; over {RECORDS_PROFILED_STEPS} "
+        f"group steps: wall {cut_ms:.2f} ms, device busy {result['device_busy_ms']}, idle "
+        f"share {result['idle_share']}")
+    print(json.dumps({"records_path": result}))
+    return launches, routes
+
+
+def check_records_parity(A, S):
+    """Phase 24b: ``engine.batched`` at the flagship widths in f32 (TF32
+    off, the ``"tf32x3"`` kernels) on RECORDS_PARITY_FRAMES against the
+    serial engine on each record with the same seed, cuDNN deterministic:
+    log-probs within 1e-4 of max |log-prob| and the same greedy ids.
+    Returns the f32 route's launches {module: (fwd, bwd)}."""
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+
+    cfg = flagship_config(compute_dtype=torch.float32, subsampling_impl="pallas")
+    engine, specs = records_engine(cfg, RECORDS_PARITY_FRAMES)
+    seeds = list(range(len(specs)))
+    _, plan = records_plan(RECORDS_PARITY_FRAMES, cfg.n_layers)
+    with deterministic_cudnn():
+        outs, launches, routes = counted({"attention": A, "subsample": S},
+                                         lambda: engine.batched(None, specs, SEQ, OVERLAP,
+                                                                rngs=seeds))
+        serial = [engine(None, s, SEQ, OVERLAP, rng=seed) for s, seed in zip(specs, seeds)]
+    check_records_launches("records batching, f32", launches, routes, plan, route="tf32x3")
+    for r, (out, ref) in enumerate(zip(outs, serial)):
+        err, _ = frame_agreement(out, ref)
+        scale = float(abs(ref.numpy_logits()).max())
+        same = bool((out.greedy_ids() == ref.greedy_ids()).all()
+                    if len(out.greedy_ids()) == len(ref.greedy_ids()) else False)
+        if not (err <= 1e-4 * scale and same):
+            raise AssertionError(f"records batching f32, record {r}: max |d log-prob| {err:.3e} "
+                                 f"(max |log-prob| {scale:.3e}), greedy ids equal {same}")
+        log(f"  record {r} ({RECORDS_PARITY_FRAMES[r]} frames): max |d log-prob| {err:.3e} of "
+            f"max {scale:.3e} against its serial run; greedy ids equal")
+    log(f"  f32 launches {launches}")
+    return {k: tuple(launches[k]) for k in launches}
+
+
+def records_driver_path(card, A, S):
+    """Phase 24c: ``evals/run.py main`` at world size 1 (NCCL on the card)
+    on RECORDS_PARITY_FRAMES, f32, TF32 off, cuDNN deterministic: with
+    ``--dp_records`` (online) against the serial driver, and with ``--dp``
+    (offline) against the serial driver offline: the same transcripts and
+    WER, and each record's stitched log-probs (read from the engine the
+    driver built) within 1e-4 of max |log-prob| with the same greedy ids.
+    Returns the ``--dp_records`` and ``--dp`` runs' f32 launches together
+    {module: (fwd, bwd)}."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+    from dynamic_asr_eval_tpu_torch.evals import run
+
+    cfg = flagship_config(compute_dtype=torch.float32, subsampling_impl="pallas")
+    os.environ["DAE_SYNTH_SPEC_FRAMES"] = ",".join(str(n) for n in RECORDS_PARITY_FRAMES)
+    runs = {}
+    build_engine = run.build_engine
+    for name, flags, kwargs in (("serial", (), ()), ("dp_records", ("--dp_records",), ()),
+                                ("serial_offline", (), ("online=false",)),
+                                ("dp", ("--dp",), ("online=false",))):
+        recorder = EngineRecorder()
+        with tempfile.TemporaryDirectory() as tmp:
+            args = run.parse_args(["-d", "synthetic_spec", "--quiet", "--device", RECORDS_DEVICE,
+                                   "-s", os.path.join(tmp, "r.pkl"), "-seq", str(SEQ), "-o",
+                                   str(OVERLAP), *flags, *RUN_KWARGS, *kwargs])
+            run.build_engine = recorder.wrap(build_engine)
+            t0 = time.time()
+            try:
+                with deterministic_cudnn():
+                    wer, launches, _ = counted({"attention": A, "subsample": S},
+                                               lambda: run.main(args, model_config=cfg))
+            finally:
+                run.build_engine = build_engine
+            wall = time.time() - t0
+            with open(os.path.join(tmp, "r_1.pkl"), "rb") as f:
+                detail = pickle.load(f)
+        runs[name] = (wer, detail, launches, recorder.outputs)
+        log(f"  {name}: WER {wer}, {wall:.2f} s, launches {launches}, greedy ids a record "
+            f"{[len(o.greedy_ids()) for o in recorder.outputs]}")
+    for name, ref in (("dp_records", "serial"), ("dp", "serial_offline")):
+        (wer, detail, _, outs), (ref_wer, ref_detail, _, ref_outs) = runs[name], runs[ref]
+        if not (wer == ref_wer and detail["model_output"] == ref_detail["model_output"]
+                and set(detail) == set(ref_detail) and len(outs) == len(ref_outs)):
+            raise AssertionError(f"{name}: WER {wer}, transcripts {detail['model_output']}; "
+                                 f"{ref}: WER {ref_wer}, {ref_detail['model_output']}")
+        for r, (out, want) in enumerate(zip(outs, ref_outs)):
+            err, _ = frame_agreement(out, want)
+            scale = float(abs(want.numpy_logits()).max())
+            same = (len(out.greedy_ids()) == len(want.greedy_ids())
+                    and bool((out.greedy_ids() == want.greedy_ids()).all()))
+            if not (err <= 1e-4 * scale and same):
+                raise AssertionError(f"{name}, record {r}: max |d log-prob| {err:.3e} against "
+                                     f"{ref} (max |log-prob| {scale:.3e}), greedy ids equal {same}")
+            log(f"  {name}, record {r}: max |d log-prob| {err:.3e} of max {scale:.3e} against "
+                f"{ref}; greedy ids equal")
+    if not (dist.is_initialized() and dist.get_world_size() == 1):
+        raise AssertionError("the data-parallel drivers left no process group of 1")
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    log(f"  --dp_records and --dp give the serial driver's transcripts and WER (world size 1, "
+        f"{backend})")
+    return {k: tuple(a + b for a, b in zip(runs["dp_records"][2][k], runs["dp"][2][k]))
+            for k in runs["dp"][2]}
+
+
+def remat_path(card, A, S):
+    """Phase 24d: one NSTI window step (a SEQ-frame recording, ``adapt_only``)
+    at the flagship width, bf16, with ``checkpoint_every_n_layers=1,
+    remat_subsampling=True`` beside the same step without, twice: the
+    updated weights equal bit for bit, or within the spread of the two runs
+    without; each run's peak memory; the recomputation's extra forward
+    launches (one attention a layer, one subsampling).  Returns the remat
+    run's launches and routes."""
+    from dynamic_asr_eval_tpu_torch.evals import common, run
+    from dynamic_asr_eval_tpu_torch.models import SCConformer
+
+    cfg = flagship_config(subsampling_impl="pallas")
+    remat_cfg = flagship_config(subsampling_impl="pallas", checkpoint_every_n_layers=1,
+                                remat_subsampling=True)
+    engine, (spec,) = records_engine(cfg, (SEQ,))
+    model = SCConformer(remat_cfg).to(RECORDS_DEVICE)
+    model.load_state_dict(engine.model.state_dict())
+    args = run.parse_args(["-d", "synthetic_spec", "--quiet", "--device", RECORDS_DEVICE,
+                           "-seq", str(SEQ), "-o", str(OVERLAP), *RUN_KWARGS])
+    remat_engine = common.build_engine(args, model, remat_cfg)
+    L = cfg.n_layers
+    expect = {"plain": {"attention": (L, L), "subsample": (1, 1)},
+              "remat": {"attention": (2 * L, L), "subsample": (2, 1)}}
+    runs = {}
+    for name, eng in (("plain", engine), ("plain_again", engine), ("remat", remat_engine)):
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, launches, routes = counted({"attention": A, "subsample": S}, lambda: eng(
+            None, spec, SEQ, OVERLAP, rng=0, adapt_only=True))
+        peak_gb = (torch.cuda.max_memory_allocated() - start) / 1e9
+        check_records_launches(f"remat phase, {name}", launches, routes,
+                               expect["remat" if name == "remat" else "plain"])
+        runs[name] = (out.params, launches, routes, peak_gb)
+    base = runs["plain"][0]
+
+    def spread(other):
+        return max((other[k].float() - base[k].float()).abs().max().item() for k in base)
+
+    noise, diff = spread(runs["plain_again"][0]), spread(runs["remat"][0])
+    if not diff <= noise:
+        raise AssertionError(f"remat: updated weights {diff:.3e} from the plain step's, beyond "
+                             f"the spread of two plain steps {noise:.3e}")
+    result = {"card": card, "frames": SEQ, "max_weight_diff": diff, "plain_spread": noise,
+              "bit_for_bit": diff == 0.0, "peak_gb_above_start":
+                  {k: v[3] for k, v in runs.items()},
+              "launches": {k: v[1] for k, v in runs.items()},
+              "weight_change": weight_change(base, engine.model.state_dict())}
+    log(f"  remat step: weights {diff:.3e} from the plain step's (two plain steps: {noise:.3e}); "
+        f"peak above start {result['peak_gb_above_start']}; launches {result['launches']}")
+    print(json.dumps({"remat": result}))
+    return runs["remat"][1], runs["remat"][2]
+
+
 def wer_counts_total(ref, hyp) -> int:
     """Word edits (insertions + deletions + substitutions) of ``hyp`` against
     ``ref``."""
@@ -3904,6 +4310,7 @@ def main() -> int:
         e = check_softdtw(D, shape, bandwidth)
         if shape == SDTW_BENCH:
             errs["sdtw"] = e
+    vmap_launches = check_vmap(A, S)  # the records-batched step's calls
 
     log("[4] timing at the flagship (attention and subsampling: bf16 and f32) and "
         "benchmark (soft-DTW: f32) shapes")
@@ -4056,6 +4463,22 @@ def main() -> int:
         t_phase = time.time()
         word_fusion_path(tmp, card)
         log(f"  phase 23 took {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    log(f"[24] records batching: DynamicEvalEngine.batched on {len(RECORDS_FRAMES)} "
+        f"synthetic_spec recordings of {RECORDS_FRAMES} frames, the flagship (bf16, "
+        f"'pallas_flash', 'pallas'), phase 5's TTA settings, beside the serial engine, on {card}")
+    records_counts, records_routes = records_path(card, A, S)
+    log(f"[24b] records batching f32 parity: {RECORDS_PARITY_FRAMES} frames, the flagship in "
+        f"f32 through the f32 kernels, against the serial engine")
+    records_parity = check_records_parity(A, S)
+    log(f"[24c] evals.run.main --dp_records and --dp at world size 1, f32, on "
+        f"{RECORDS_PARITY_FRAMES} frames, against the serial driver")
+    records_driver = records_driver_path(card, A, S)
+    log(f"[24d] rematerialisation: one NSTI window step of {SEQ} frames, the flagship (bf16), "
+        f"checkpoint_every_n_layers=1 and remat_subsampling=True beside the plain step, on "
+        f"{card}")
+    remat_counts, remat_routes = remat_path(card, A, S)
+    log(f"  phases 24-24d took {time.time() - t_phase:.1f} s")
     encdec_counts = {k: tuple(a + b for a, b in zip(encdec_counts[k], inf_counts[k]))
                      for k in encdec_counts}
     encdec_routes = {k: {r: tuple(a + b for a, b in zip(c, inf_routes[k][r]))
@@ -4106,6 +4529,11 @@ def main() -> int:
     wav2vec2_launches = by_kernel(w2v_routes, w2v_counts)
     encdec_launches = by_kernel(encdec_routes, encdec_counts)
     trainer_launches = by_kernel(train_routes, train_counts)
+    no_softdtw = {"softdtw": (0, 0)}
+    records_launches = by_kernel(records_routes, no_softdtw)
+    remat_launches = by_kernel(remat_routes, no_softdtw)
+    vmap_by_kernel = {"flash_attention": vmap_launches["attention"],
+                      "fused_subsample": vmap_launches["subsample"]}
     protocol_launches = {}  # phases 16, 16b and 16c together
     for counts_, routes_ in protocol_runs:
         for name, counts in by_kernel(routes_, counts_).items():
@@ -4146,6 +4574,11 @@ def main() -> int:
                       "encdec_parity_launches": encdec_parity[name][i],
                       "train_parity_launches": train_parity[name][i]}
                      if name in parity else {})
+            if name in parity:  # phases 24b and 24c run the f32 routes
+                extra.update(records_parity_launches=records_parity[
+                    "attention" if name.startswith("flash") else "subsample"][i],
+                             records_driver_launches=records_driver[
+                    "attention" if name.startswith("flash") else "subsample"][i])
             if name in f32_path_launches:
                 extra.update(f32_path_launches=f32_path_launches[name][i],
                              bound_cuda_core_ms=bnd[f"{kind}_cuda_core"][0])
@@ -4186,6 +4619,9 @@ def main() -> int:
                 "wav2vec2_launches": wav2vec2_launches[name][i],
                 "encdec_launches": encdec_launches[name][i],
                 "trainer_launches": trainer_launches[name][i],
+                "records_launches": records_launches[name][i],
+                "remat_launches": remat_launches[name][i],
+                "vmap_launches": vmap_by_kernel.get(name, (0, 0))[i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],

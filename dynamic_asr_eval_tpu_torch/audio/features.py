@@ -3,16 +3,19 @@ filterbank → log → per-feature normalization over time.
 
 Counterpart of the JAX package's ``audio/features.py`` (16 kHz, 25 ms window,
 10 ms hop, 80 mels, reflect padding of n_fft/2 at both ends), with
+:func:`make_featurizer` (a closure on a device) and
 :func:`zero_out_spectrogram` for TEDLIUM's ignored segments.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from dynamic_asr_eval_tpu_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +84,20 @@ def log_mel_spectrogram(
     from an exact result on the normalized output."""
     out = log_mel(torch.as_tensor(np.asarray(audio, np.float64)), config)
     return out.numpy().astype(np.float32)[None]
+
+
+def make_featurizer(config: FeaturizerConfig = FeaturizerConfig(),
+                    device: Optional[Union[str, torch.device]] = None):
+    """A featurizer closure: waveform [n] (array or tensor) → log-mel
+    [n_mels, T] f32 tensor on ``device`` (``cuda`` unless ``cpu`` is asked
+    for), computed in f64 as :func:`log_mel_spectrogram` computes it."""
+    dev = resolve_device(device)
+
+    def featurize(audio) -> torch.Tensor:
+        x = torch.as_tensor(audio).to(device=dev, dtype=torch.float64)
+        return log_mel(x, config).float()
+
+    return featurize
 
 
 def zero_out_spectrogram(spec: np.ndarray, regions_seconds,

@@ -3,6 +3,7 @@ from dynamic_asr_eval_tpu_torch.augment.spec_augment import (
     apply_augmentation_pipeline,
     cutout,
     frame_shuffle,
+    replace_with_frame,
     spec_augment,
 )
 
@@ -11,5 +12,6 @@ __all__ = [
     "apply_augmentation_pipeline",
     "cutout",
     "frame_shuffle",
+    "replace_with_frame",
     "spec_augment",
 ]

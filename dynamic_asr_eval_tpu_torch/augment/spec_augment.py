@@ -52,6 +52,15 @@ def spec_augment(spec: torch.Tensor, g: torch.Generator, config: SpecAugmentConf
     return out
 
 
+def replace_with_frame(spec: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """Every frame replaced by one frame drawn at random ([F, T]; [B, F, T]
+    draws one frame per item)."""
+    if spec.dim() == 3:
+        return torch.stack([replace_with_frame(s, g) for s in spec])
+    idx = int(_randint(g, 0, spec.shape[-1], 1))
+    return spec[:, idx : idx + 1].expand(spec.shape)
+
+
 def frame_shuffle(spec: torch.Tensor, g: torch.Generator, config: FrameShuffleConfig) -> torch.Tensor:
     if not (config.time_dimension or config.freq_dimension):
         return spec

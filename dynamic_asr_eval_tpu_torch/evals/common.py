@@ -9,8 +9,16 @@ final beam decode, after groups of ``--decode_batch`` records, and for
 LM-fused NSTI pseudo-labels,
 greedy decode, the repeat loop the drivers share
 (:func:`evaluate_repeats`), and the protocol drivers' evaluation engine
-(:func:`build_eval_engine`, :func:`evaluate_with`).  The device mesh is not
-ported yet.
+(:func:`build_eval_engine`, :func:`evaluate_with`).
+
+``--dp`` and ``--dp_records`` run on ``torch.distributed``, one process a
+card (``torchrun --nproc_per_node=N``; without torchrun, a world of 1):
+every rank runs the driver, each on its ``cuda:{LOCAL_RANK}`` (or the CPU
+with ``--device cpu``), and only rank 0 prints the corpus lines, writes the
+log and writes the result pickle.  ``--dp`` splits each record's offline
+inference windows over the ranks; ``--dp_records`` adapts a group of
+records at once, one group member a rank (:func:`run_records_dp`).
+``--tp`` above 1 raises (tensor parallelism is ROADMAP item 19c).
 """
 
 from __future__ import annotations
@@ -24,13 +32,26 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dynamic_asr_eval_tpu_torch.config import TTAConfig, load_yaml
 from dynamic_asr_eval_tpu_torch.device import resolve_device
 from dynamic_asr_eval_tpu_torch.lm.loader import load_beamsearch, load_lm_adapter
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig, init_conformer, params_from_jax
 from dynamic_asr_eval_tpu_torch.models.checkpoint import load_any_checkpoint
-from dynamic_asr_eval_tpu_torch.text import load_tokenizer, normalize, word_error_rate_detail
+from dynamic_asr_eval_tpu_torch.parallel import (
+    axis_rank,
+    axis_size,
+    init_process_group,
+    make_mesh,
+    reduce_wer_counts,
+)
+from dynamic_asr_eval_tpu_torch.text import (
+    load_tokenizer,
+    normalize,
+    wer_counts,
+    word_error_rate_detail,
+)
 from dynamic_asr_eval_tpu_torch.tta import AWMCEngine, ConsistencyEngine, DynamicEvalEngine
 
 ENGINES = {"dynamic_eval": DynamicEvalEngine, "awmc": AWMCEngine,
@@ -113,6 +134,28 @@ def load_language_model(args, tokenizer):
     return adapter, beam_search_fn
 
 
+def data_parallel(args) -> bool:
+    """``--dp`` or ``--dp_records``."""
+    return bool(getattr(args, "dp", False) or getattr(args, "dp_records", False))
+
+
+def init_data_parallel(args) -> torch.device:
+    """The process group of ``--dp`` / ``--dp_records``
+    (:func:`..parallel.init_process_group`: this rank's ``cuda`` device
+    becomes the current one, unless ``--device cpu``); ``--tp`` above 1
+    raises.  The drivers call it before they load the model."""
+    if int(getattr(args, "tp", 1) or 1) > 1:
+        raise NotImplementedError(
+            "--tp > 1 (tensor parallelism) is not ported yet (ROADMAP queue 1 item 19c)")
+    return init_process_group(getattr(args, "device", None))
+
+
+def is_lead_rank() -> bool:
+    """Rank 0 of the default process group, or no group at all: the rank
+    that prints the corpus lines and writes the log and the pickle."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_eval",
                  device=None, lm_adapter=None, tokenizer=None) -> DynamicEvalEngine:
     """The ``engine_kind`` engine (``"dynamic_eval"``: NSTI; ``"awmc"``;
@@ -121,10 +164,10 @@ def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_
     greedy teachers, as in the JAX package.  ``tokenizer`` goes to the NSTI
     engine only (``pseudo_label_retokenize``, ``print_pseudo_labels``)."""
     tta = TTAConfig.from_args(args)
-    if getattr(args, "dp", False) or getattr(args, "dp_records", False):
-        raise NotImplementedError(
-            "--dp / --dp_records are not ported yet (ROADMAP queue 1 item 19)")
     kwargs = {}
+    if data_parallel(args):
+        init_data_parallel(args)
+        kwargs["mesh"] = make_mesh()
     if tokenizer is not None and engine_kind == "dynamic_eval":
         kwargs["tokenizer"] = tokenizer
     if lm_adapter is not None and engine_kind == "dynamic_eval" and tta.lm_tta_beams > 0:
@@ -165,6 +208,63 @@ def evaluate_with(eval_engine, params, records: List[Dict], args, tokenizer) -> 
         return normalize(decode_output(out, tokenizer)), gold
 
     return evaluate_records(records, run_one, verbose=not getattr(args, "quiet", False))
+
+
+def run_records_dp(engine, params, records: List[Dict], tokenizer, args, repeat_seed: int,
+                   repeat_shuffle: np.random.Generator, rec_counter, beam_search_fn=None,
+                   verbose: bool = True) -> Tuple[float, Dict]:
+    """``--dp_records``: records in groups of the dp size, each group
+    adapted at once, one member a rank (``engine.batched`` on this rank's
+    member); a partial last group is padded by repeating its last record,
+    whose duplicate result is dropped.  Each record's seed is the serial
+    drivers' (``repeat_seed · 1_000_003 + index``), and with ``shuffle`` its
+    window orders are drawn from ``repeat_shuffle`` record-major over the
+    whole group on every rank, so a record adapts as its serial run does.
+    The (hypothesis, gold) pairs are gathered to every rank, and the corpus
+    WER re-derived through :func:`..parallel.reduce_wer_counts`."""
+    if not hasattr(engine, "batched"):
+        raise ValueError(f"--dp_records needs the NSTI engine (got {type(engine).__name__})")
+    if engine.mesh is None:
+        raise ValueError("--dp_records requires a device mesh (engine.mesh)")
+    mesh = engine.mesh
+    ndp, rank = axis_size(mesh), axis_rank(mesh)
+    group_pg = mesh.get_group("dp")
+    cfg = engine.config
+    beams = getattr(args, "beams", 1)
+
+    def run_group(group):
+        pads = (-len(group)) % ndp
+        grp = list(group) + [group[-1]] * pads
+        seeds = [repeat_seed * 1_000_003 + next(rec_counter) for _ in group]
+        seeds += [seeds[-1]] * pads
+        spec, gold = grp[rank]["process_fn"](grp[rank])
+        orders = None
+        if cfg.shuffle and cfg.epochs > 0:
+            n_frames = [None] * ndp
+            dist.all_gather_object(n_frames, int(np.asarray(spec).shape[-1]), group=group_pg)
+            orders = _group_orders(engine, n_frames, args, repeat_shuffle)[rank : rank + 1]
+        (out,) = engine.batched(params, [spec], args.seq_len, args.overlap,
+                                rngs=seeds[rank : rank + 1], shuffle_rng=repeat_shuffle,
+                                orders=orders)
+        pair = (normalize(decode_output(out, tokenizer, beam_search_fn, beams)), gold)
+        pairs = [None] * ndp
+        dist.all_gather_object(pairs, pair, group=group_pg)
+        return pairs[: len(group)]
+
+    lead = is_lead_rank()
+    wer, detail = evaluate_records_grouped(records, run_group, ndp, verbose=verbose and lead)
+    counts = np.stack([wer_counts(h, g) for h, g in zip(detail["model_output"], detail["gold"])])
+    tot = reduce_wer_counts(counts, mesh)
+    detail["wer"] = float((int(tot[0]) + int(tot[1]) + int(tot[2])) / max(int(tot[3]), 1))
+    return detail["wer"], detail
+
+
+def _group_orders(engine, n_frames: List[int], args, shuffle_rng: np.random.Generator):
+    """Every group member's window orders, a permutation of its real
+    windows per epoch, drawn record-major from ``shuffle_rng`` as
+    ``engine.batched`` draws them for a group it holds whole."""
+    return [[shuffle_rng.permutation(engine.window_count(n, args.seq_len, args.overlap))
+             for _ in range(engine.config.epochs)] for n in n_frames]
 
 
 def decode_output(out, tokenizer, beam_search_fn: Optional[Callable] = None,
@@ -265,7 +365,8 @@ def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
     base_seed = 0 if seed is None else int(seed)
     beams = getattr(args, "beams", 1)
     decode_batch = int(getattr(args, "decode_batch", 1) or 1)
-    verbose = not getattr(args, "quiet", False)
+    lead = is_lead_rank()
+    verbose = not getattr(args, "quiet", False) and lead
     for repeat in range(repeats):
         repeat_seed = base_seed * 1000 + repeat
         repeat_shuffle = np.random.default_rng(repeat_seed)
@@ -291,18 +392,25 @@ def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
         profile_dir = getattr(args, "profile", "")
         with (profile_to(profile_dir) if profile_dir and repeat == 0
               else contextlib.nullcontext()):
-            if beam_search_fn is not None and beams > 1 and decode_batch > 1:
+            if getattr(args, "dp_records", False):
+                wer, detail = run_records_dp(engine, params, records, tokenizer, args,
+                                             repeat_seed, repeat_shuffle, rec_counter,
+                                             beam_search_fn=beam_search_fn, verbose=verbose)
+            elif beam_search_fn is not None and beams > 1 and decode_batch > 1:
                 wer, detail = evaluate_records_grouped(records, run_group, decode_batch,
                                                        verbose=verbose)
             else:
                 wer, detail = evaluate_records(records, run_one, verbose=verbose)
+        wers.append(wer)
+        if not lead:
+            continue
         print(f"WER: {wer}")
         append_log(getattr(args, "log", ""), log_line(wer))
         if getattr(args, "save_path", ""):
             save_result_pickle(args.save_path, detail, args, repeat, repeats)
-        wers.append(wer)
     mean_wer = sum(wers) / len(wers)
-    print(f"Average WER: {mean_wer}")
+    if lead:
+        print(f"Average WER: {mean_wer}")
     return mean_wer
 
 

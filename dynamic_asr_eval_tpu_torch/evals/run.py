@@ -7,9 +7,14 @@ torch pickle), decode the stitched posteriors (greedy; with ``-lm
 > 0``, the default, also gives the NSTI pseudo-labels; ``--decode_batch N``
 adapts N records before their decodes), normalize, corpus WER, log and result
 pickle, repeated ``-r`` times with a distinct seed per repeat; ``--profile
-DIR`` writes a ``torch.profiler`` Chrome trace of repeat 0 into DIR.  ``--tp``
-is accepted and means something only with ``--dp``, not ported yet.  Runs on
-``cuda`` unless ``--device cpu`` is given.
+DIR`` writes a ``torch.profiler`` Chrome trace of repeat 0 into DIR.
+``--dp`` splits each record's offline inference windows over the ranks of
+``torch.distributed``, ``--dp_records`` adapts one record a rank at once
+(:func:`..evals.common.run_records_dp`); start either under ``torchrun
+--nproc_per_node=N`` (without torchrun: a world of 1); only rank 0 prints,
+logs and pickles.  ``--tp`` above 1 raises (ROADMAP item 19c).  Runs on
+``cuda`` (``cuda:{LOCAL_RANK}`` under torchrun) unless ``--device cpu`` is
+given.
 
 CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run -d synthetic -kwargs
 optim_lr=9e-5 epochs=1 online=true``
@@ -24,16 +29,13 @@ from dynamic_asr_eval_tpu_torch.config import apply_args
 from dynamic_asr_eval_tpu_torch.data import get_dataset
 from dynamic_asr_eval_tpu_torch.evals.common import (
     build_engine,
+    data_parallel,
     evaluate_repeats,
+    init_data_parallel,
     load_language_model,
     load_model_and_tokenizer,
 )
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
-
-_NOT_PORTED = {
-    "dp": "--dp (data-parallel windowed inference, ROADMAP queue 1 item 19)",
-    "dp_records": "--dp_records (records-level data parallelism, ROADMAP queue 1 item 19)",
-}
 
 
 def main(args, model_config: Optional[ConformerConfig] = None,
@@ -46,9 +48,8 @@ def main(args, model_config: Optional[ConformerConfig] = None,
         raise SystemExit(
             "--dp_records is not implemented for the AWMC engine "
             "(records-DP batching currently covers the NSTI engine only)")
-    for key, what in _NOT_PORTED.items():
-        if getattr(args, key, False):
-            raise NotImplementedError(f"{what} is not ported yet")
+    if data_parallel(args):
+        init_data_parallel(args)
     model, params, tokenizer, cfg = load_model_and_tokenizer(
         args, config=model_config, jax_params=jax_params)
     records = get_dataset(args.dataset, args.split)
@@ -70,8 +71,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     parser.add_argument("--awmc", action="store_true", help="use the AWMC engine")
-    parser.add_argument("--dp", action="store_true", help="not ported yet")
-    parser.add_argument("--dp_records", action="store_true", help="not ported yet")
+    parser.add_argument("--dp", action="store_true",
+                        help="split each record's offline inference windows over the ranks")
+    parser.add_argument("--dp_records", action="store_true",
+                        help="records-level data parallelism: adapt one record a rank at once; "
+                             "corpus WER reduced over the ranks")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree of the device mesh (with --dp)")
     parser.add_argument("--decode_batch", type=int, default=1,

@@ -7,8 +7,8 @@ loop of :mod:`.run` (per-repeat and per-record seeds, greedy or ``-lm`` beam
 decode, ``--decode_batch``, WER, ``--save_path`` pickles) with the log line
 ``"{engine}\\t{dataset}\\tWER: ..."``; LM-fused pseudo-labels are NSTI's
 only (AWMC and consistency keep greedy teachers; ``-lm`` serves their final
-decode).  Not ported yet (raises ``NotImplementedError``): ``--dp_records``.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+decode); ``--dp_records`` (NSTI only) as in :mod:`.run`.  Runs on ``cuda``
+(``cuda:{LOCAL_RANK}`` under torchrun) unless ``--device cpu`` is given.
 
 CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run_dynamic_eval_full -d
 synthetic --awmc -c model.dae -kwargs epochs=1``
@@ -24,15 +24,13 @@ from dynamic_asr_eval_tpu_torch.data import get_dataset
 from dynamic_asr_eval_tpu_torch.evals.common import (
     ENGINES,
     build_engine,
+    data_parallel,
     evaluate_repeats,
+    init_data_parallel,
     load_language_model,
     load_model_and_tokenizer,
 )
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
-
-_NOT_PORTED = {
-    "dp_records": "--dp_records (records-level data parallelism, ROADMAP queue 1 item 19)",
-}
 
 
 def main(args, model_config: Optional[ConformerConfig] = None,
@@ -43,9 +41,8 @@ def main(args, model_config: Optional[ConformerConfig] = None,
                    else "awmc" if getattr(args, "awmc", False) else "dynamic_eval")
     if getattr(args, "dp_records", False) and engine_kind != "dynamic_eval":
         raise ValueError("--dp_records supports only the NSTI engine (drop --awmc/--consistency)")
-    for key, what in _NOT_PORTED.items():
-        if getattr(args, key, False):
-            raise NotImplementedError(f"{what} is not ported yet")
+    if data_parallel(args):
+        init_data_parallel(args)
     model, params, tokenizer, cfg = load_model_and_tokenizer(
         args, config=model_config, jax_params=jax_params)
     lm_adapter, beam_search_fn = load_language_model(args, tokenizer)
@@ -67,7 +64,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--awmc", action="store_true", help="use the AWMC engine")
     parser.add_argument("--consistency", action="store_true",
                         help="use the consistency engine (per-chunk parameters, Adafactor)")
-    parser.add_argument("--dp_records", action="store_true", help="not ported yet")
+    parser.add_argument("--dp_records", action="store_true",
+                        help="records-level data parallelism: adapt one record a rank at once")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree of the mesh (with --dp_records)")
     parser.add_argument("--decode_batch", type=int, default=1,

@@ -10,6 +10,9 @@ kernels (``_flash_attention_impl`` forward, ``_flash_attention_bwd_dkv`` and
   launch a kernel, chosen by dtype (the route); on a CPU tensor they run the
   plain versions below.  There is no fallback from a kernel to anything
   else: a CUDA tensor goes through its route's kernel or the call raises.
+  Under ``torch.func.vmap`` (the records-batched engine) its ``vmap`` rule
+  folds the mapped axis into the batch: one launch each way for the whole
+  group, every row what its own launch gives.
 - Routes (``ROUTES``):
   - bf16 → ``"tensor_core"``: ``csrc/flash_attention_bf16.cu``, every product
     on the tensor cores (``mma.sync`` m16n8k16, bf16 in, f32 sums).  The
@@ -255,19 +258,42 @@ def flash_attention_bwd(q, k, v, mask, out, lse, dout):
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, mask):
-        out, lse = flash_attention_fwd(q, k, v, mask)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
-        return out
+    """(out, lse); lse is not differentiable.  In the ``forward`` /
+    ``setup_context`` form ``torch.func`` needs, with a ``vmap`` rule that
+    folds the mapped axis into the batch: one launch for the whole group,
+    each row's result what its own launch gives."""
 
     @staticmethod
-    def backward(ctx, dout):
+    def forward(q, k, v, mask):
+        return flash_attention_fwd(q, k, v, mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, mask = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
         q, k, v, mask, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, mask, out, lse, dout)
         return dq, dk, dv, None
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask):
+        R = info.batch_size
+
+        def fold(x, dim):  # [.., R at dim, ..] -> [R * B, ...]
+            x = x.movedim(dim, 0) if dim is not None else x.expand(R, *x.shape)
+            return x.reshape(R * x.shape[1], *x.shape[2:])
+
+        out, lse = FlashAttentionFunction.apply(*(fold(x, d) for x, d in zip((q, k, v, mask),
+                                                                          in_dims)))
+        return (out.view(R, -1, *out.shape[1:]), lse.view(R, -1, *lse.shape[1:])), (0, 0)
+
 
 def flash_attention(q, k, v, mask):
-    """q, k, v [B, T, H, D], mask [B, T] valid-frame mask → [B, T, H, D]."""
-    return FlashAttentionFunction.apply(q, k, v, mask)
+    """q, k, v [B, T, H, D], mask [B, T] valid-frame mask → [B, T, H, D].
+    Under ``torch.func.vmap`` the mapped axis joins the batch (one launch)."""
+    return FlashAttentionFunction.apply(q, k, v, mask)[0]

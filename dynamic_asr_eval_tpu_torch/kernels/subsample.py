@@ -16,7 +16,11 @@ whose valid length is not a multiple of 8.
   ``torch.autograd.Function``: on CUDA tensors the forward and the backward
   launch a kernel, chosen by dtype (the route); on CPU tensors they run the
   plain version and autograd through it.  A CUDA tensor goes through its
-  route's kernel or the call raises: there is no fallback.
+  route's kernel or the call raises: there is no fallback.  Under
+  ``torch.func.vmap`` its ``vmap`` rule folds the mapped axis into the batch
+  where the weights are shared (one launch), and launches once per record
+  where each record has its own weights (the records-batched engine: R
+  launches a step each way).
 - Routes (``ROUTES``):
   - bf16 → ``"tensor_core"``: ``csrc/fused_subsample_bf16.cu``, both
     pointwise products, forward and backward, on the tensor cores
@@ -262,17 +266,42 @@ def fused_subsample_bwd(x, weights, g, act_name="silu", need_gx=True):
 
 
 class FusedSubsampleFunction(torch.autograd.Function):
+    """In the ``forward`` / ``setup_context`` form ``torch.func`` needs,
+    with a ``vmap`` rule: shared weights fold the mapped axis into the batch
+    (one launch); per-record weights launch once per record slice, each call
+    the one a per-record loop makes."""
+
     @staticmethod
-    def forward(ctx, act_name, x, *weights):
+    def forward(act_name, x, *weights):
+        return fused_subsample_fwd(x, weights, act_name)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        act_name, x, *weights = inputs
         ctx.act_name = act_name
         ctx.save_for_backward(x, *weights)
-        return fused_subsample_fwd(x, weights, act_name)
 
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
         gx, gws = fused_subsample_bwd(x, weights, g, ctx.act_name, ctx.needs_input_grad[1])
         return (None, gx, *gws)
+
+    @staticmethod
+    def vmap(info, in_dims, act_name, x, *weights):
+        R, x_dim, w_dims = info.batch_size, in_dims[1], in_dims[2:]
+        if all(d is None for d in w_dims):
+            x = x.movedim(x_dim, 0) if x_dim is not None else x.expand(R, *x.shape)
+            out = FusedSubsampleFunction.apply(act_name, x.reshape(-1, *x.shape[2:]), *weights)
+            return out.view(R, -1, *out.shape[1:]), 0
+
+        def part(t, dim, r):
+            return t if dim is None else t.select(dim, r)
+
+        outs = [FusedSubsampleFunction.apply(act_name, part(x, x_dim, r),
+                                             *(part(w, d, r) for w, d in zip(weights, w_dims)))
+                for r in range(R)]
+        return torch.stack(outs), 0
 
 
 def fused_subsample(x, k9, b0, dw1, bdw1, pw1, bpw1, dw2, bdw2, pw2, bpw2, act_name="silu"):

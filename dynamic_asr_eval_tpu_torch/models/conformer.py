@@ -44,9 +44,22 @@ weights drives both.  Semantics followed line by line:
   casts its input and weights to it), LayerNorm in f32 returned in the
   input's dtype (eps 1e-5), the head in f32 unless ``head_in_compute_dtype``.
 
+Activation rematerialisation, as JAX's ``nn.remat``: with
+``checkpoint_every_n_layers`` n, blocks i with ``i % n == 0``, and with
+``remat_subsampling`` the subsampling module, run under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` when
+gradients are on: their activations are recomputed in the backward, which
+launches the kernels a second time (the launch counters count it).  The
+recomputation sees the batch-renorm running statistics and a dropout
+generator as the forward saw them, and leaves them as the forward left them:
+the statistics move once a step, as flax keeps only the primal pass's
+updates.  A model whose ``rematerialise`` is false (the records-batched
+engine sets it around its ``torch.func.vmap`` forwards, inside which a
+checkpoint cannot recompute) keeps every activation.
+
 Not ported (raise ``NotImplementedError``): a subsampling other than
-``"dw_striding"``, ``seq_shard_axes`` (sequence parallelism) and an
-``attention_impl`` other than ``"xla"`` / ``"pallas_flash"``.
+``"dw_striding"``, ``seq_shard_axes`` (sequence parallelism, ROADMAP item
+19c) and an ``attention_impl`` other than ``"xla"`` / ``"pallas_flash"``.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from dynamic_asr_eval_tpu_torch.kernels.attention import flash_attention
 from dynamic_asr_eval_tpu_torch.kernels.subsample import fused_subsample
@@ -153,7 +167,9 @@ def _check_supported(cfg: ConformerConfig) -> None:
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        raise NotImplementedError(f"conformer options not ported: {bad}")
+        raise NotImplementedError(f"conformer options not ported: {bad}"
+                                  + (" (seq_shard_axes: ROADMAP queue 1 item 19c)"
+                                     if "seq_shard_axes" in bad else ""))
     if cfg.subsampling_impl not in _SUBSAMPLING_IMPLS:
         raise ValueError(f"unknown subsampling_impl {cfg.subsampling_impl!r}")
     if cfg.pos_encoding not in ("rotary", "rel_pos", "none"):
@@ -479,6 +495,38 @@ class ConformerBlock(nn.Module):
         return _layer_norm(x, self.norm_out)
 
 
+def remat(module: nn.Module, *args, generator: Optional[torch.Generator] = None):
+    """``module(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  The recomputation runs
+    with the module's buffers and ``generator`` as the forward found them,
+    and restores them afterwards to what the forward left."""
+    first = {}
+
+    def run(*a):
+        buffers = [b for b in module.buffers()]
+        if not first:  # the forward
+            first["buffers"] = [b.clone() for b in buffers]
+            first["rng"] = generator.get_state() if generator is not None else None
+            return module(*a)
+        now = [b.clone() for b in buffers]
+        rng_now = generator.get_state() if generator is not None else None
+        with torch.no_grad():
+            for b, old in zip(buffers, first["buffers"]):
+                b.copy_(old)
+        if generator is not None:
+            generator.set_state(first["rng"])
+        try:
+            return module(*a)
+        finally:
+            with torch.no_grad():
+                for b, cur in zip(buffers, now):
+                    b.copy_(cur)
+            if generator is not None:
+                generator.set_state(rng_now)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+
+
 class SCConformer(nn.Module):
     """``forward(audio_signal [B, feat_in, T], length [B]) -> {
     'final_posteriors' [B, T_ds, vocab+1] f32 log-probs, 'length' [B]
@@ -498,6 +546,7 @@ class SCConformer(nn.Module):
         self.decoder = nn.Linear(d, config.n_classes)
         self.self_condition_reembed = (
             nn.Linear(config.n_classes, d, bias=False) if config.self_conditioning else None)
+        self.rematerialise = True
 
     def _ctc_logits(self, h):
         cfg = self.config
@@ -521,7 +570,11 @@ class SCConformer(nn.Module):
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         x = torch.where(lengths_to_mask(length, T)[..., None], x, zero).to(cd)
 
-        h = self.subsampling(x, length)
+        remat_on = self.rematerialise and torch.is_grad_enabled()
+        if cfg.remat_subsampling and remat_on:
+            h = remat(self.subsampling, x, length)
+        else:
+            h = self.subsampling(x, length)
         if cfg.input_xscale:  # NeMo scales the embedding by √d_model
             h = h * torch.sqrt(torch.tensor(float(cfg.d_model))).to(h.dtype)
         T_ds = h.shape[1]
@@ -534,8 +587,13 @@ class SCConformer(nn.Module):
                                 cfg.rotary_interpolation_factor, h.device)
 
         n = len(self.layers)
+        every = cfg.checkpoint_every_n_layers
         for i, block in enumerate(self.layers):
-            h = block(h, mask, cos, sin, deterministic, generator, use_running_average)
+            if every and i % every == 0 and remat_on:
+                h = remat(block, h, mask, cos, sin, deterministic, generator, use_running_average,
+                          generator=generator)
+            else:
+                h = block(h, mask, cos, sin, deterministic, generator, use_running_average)
             if self.self_condition_reembed is not None and i < n - 1:
                 lp = self._ctc_logits(h)
                 h = h + _dense(torch.exp(lp), self.self_condition_reembed.weight, None, cd)

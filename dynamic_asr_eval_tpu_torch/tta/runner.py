@@ -34,18 +34,29 @@ of ``TTAConfig``, as in the JAX engine:
 - ``print_pseudo_labels``: per window, the pseudo-labels and the first
   noisy stream's greedy decode, through the tokenizer when there is one.
 
-Not ported (raise ``NotImplementedError``): a device mesh and the
-records-batched ``batched()``.
+With ``mesh=`` (a ``('dp', 'tp')`` mesh of :mod:`..parallel`, ``--dp``)
+the adaptation runs the same on every rank, and the offline inference
+rounds ``infer_batch`` up to a multiple of dp: each rank forwards its block
+of every batch, and the stitch accumulators are summed over the ranks
+before the average.
+
+:meth:`DynamicEvalEngine.batched` adapts R recordings at once
+(``--dp_records``): each keeps its own weights, stacked on a leading axis,
+and one window step forwards all R through ``torch.func.vmap`` of the
+model (the kernels' ``vmap`` rules: the attention folds the records into
+its batch, one launch; the subsampling, with per-record weights, launches
+once per record).
 """
 
 from __future__ import annotations
 
 import copy
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dynamic_asr_eval_tpu_torch.augment import apply_augmentation_pipeline
 from dynamic_asr_eval_tpu_torch.config import TTAConfig
@@ -53,8 +64,9 @@ from dynamic_asr_eval_tpu_torch.device import resolve_device
 from dynamic_asr_eval_tpu_torch.ops.beam_search import beam_search_device
 from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths, pad_num_chunks
 from dynamic_asr_eval_tpu_torch.ops.ctc import ctc_loss, greedy_labels
-from dynamic_asr_eval_tpu_torch.optim.madgrad import MADGRAD
+from dynamic_asr_eval_tpu_torch.optim.madgrad import MADGRAD, RecordsMADGRAD
 from dynamic_asr_eval_tpu_torch.optim.masks import param_labels
+from dynamic_asr_eval_tpu_torch.parallel.mesh import axis_rank, axis_size
 from dynamic_asr_eval_tpu_torch.tta.retokenize import retokenize_labels
 
 
@@ -102,7 +114,8 @@ class DynamicEvalEngine:
     prune_less_than_val, top_am_threshold) give LM-fused pseudo-labels when
     ``config.lm_tta_beams > 0``.  ``tokenizer`` serves
     ``pseudo_label_retokenize`` (required there) and the
-    ``print_pseudo_labels`` text.  ``device`` defaults to ``cuda``."""
+    ``print_pseudo_labels`` text.  ``mesh`` splits the offline inference's
+    windows over the dp ranks.  ``device`` defaults to ``cuda``."""
 
     def __init__(
         self,
@@ -123,8 +136,9 @@ class DynamicEvalEngine:
         tokenizer=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1)")
+        if mesh is not None and axis_size(mesh, "tp") > 1:
+            raise NotImplementedError(
+                "tensor parallelism (--tp > 1) is not ported yet (ROADMAP queue 1 item 19c)")
         if config.pseudo_label_retokenize and tokenizer is None:
             raise ValueError("pseudo_label_retokenize=True needs tokenizer= on the engine")
         self.device = resolve_device(device)
@@ -142,6 +156,7 @@ class DynamicEvalEngine:
         self.lm_adapter = lm_adapter
         self.lm_beam_kwargs = dict(lm_beam_kwargs or {})
         self.tokenizer = tokenizer
+        self.mesh = mesh
         opt_args = dict(config.optim_args)
         self.lr = opt_args.pop("lr", 9e-5)
         self.opt_args = opt_args
@@ -178,41 +193,11 @@ class DynamicEvalEngine:
 
     # -- host-side plan -----------------------------------------------------
     def _plan(self, spec: np.ndarray, seq_len: int, overlap: int):
-        cfg = self.config
-        seq_len = cfg.seq_len if seq_len == -1 else seq_len
-        overlap = cfg.overlap if overlap == -1 else overlap
-        spec = np.asarray(spec)
-        if spec.ndim == 3:
-            spec = spec[0]
-        spec_n = spec.shape[-1]
-        if seq_len > spec_n:
-            seq_len, overlap = spec_n, 0
-        if overlap % self.ds:
-            raise ValueError(
-                f"overlap ({overlap}) must be a multiple of the subsampling "
-                f"factor ({self.ds})")
-        if spec_n > seq_len and seq_len % self.ds:
-            raise ValueError(
-                f"seq_len ({seq_len}) must be a multiple of the subsampling "
-                f"factor ({self.ds}) when the spectrogram spans multiple windows")
-        starts, lengths = chunk_starts_and_lengths(spec_n, seq_len, overlap)
-        n_real = len(starts)
-        W = seq_len
-        N = pad_num_chunks(n_real)
-        starts_np = np.zeros((N,), np.int64)
-        lengths_np = np.zeros((N,), np.int64)
-        starts_np[:n_real] = starts
-        lengths_np[:n_real] = lengths
-        # T_pad and total_ds follow the window-count bucket, as in the JAX
-        # package (there they key the compiled program)
-        if n_real > 1:
-            T_pad = (N - 1) * (W - overlap) + W
-        else:
-            T_pad = int(max(starts_np.max() + W, spec_n))
-        spec_padded = np.zeros((spec.shape[0], T_pad), dtype=spec.dtype)
-        spec_padded[:, :spec_n] = spec
-        total_ds = _ds_ceil(T_pad, self.ds) + _ds_ceil(W, self.ds)
-        return spec_padded, spec_n, W, N, n_real, starts_np, lengths_np, total_ds
+        """One recording's window plan: :meth:`_records_plan` of a group of
+        one."""
+        spec_b, W, N, (n_real,), starts, lengths, total_ds = self._records_plan(
+            [spec], seq_len, overlap)
+        return spec_b[0], np.asarray(spec).shape[-1], W, N, n_real, starts[0], lengths[0], total_ds
 
     # -- one adaptation step ------------------------------------------------
     def _augment(self, batch: torch.Tensor, gen: torch.Generator, w_len: int) -> torch.Tensor:
@@ -297,11 +282,16 @@ class DynamicEvalEngine:
     # -- inference (no-grad chunked forward + stitch) -----------------------
     @torch.no_grad()
     def _infer(self, spec_dev, W, n_real, starts_np, lengths_np, total_ds):
+        """With a mesh, ``infer_batch`` rounds up to a multiple of dp, each
+        rank forwards its block of every batch, and the accumulators are
+        summed over the ranks."""
         V = self.n_classes
         acc = torch.zeros(total_ds, V, dtype=torch.float32, device=self.device)
         counts = torch.zeros(total_ds, dtype=torch.float32, device=self.device)
-        for b0 in range(0, n_real, self.infer_batch):
-            idx = range(b0, min(b0 + self.infer_batch, n_real))
+        ndp, rank = (axis_size(self.mesh), axis_rank(self.mesh)) if self.mesh else (1, 0)
+        share = -(-self.infer_batch // ndp)
+        for b0 in range(rank * share, n_real, share * ndp):
+            idx = range(b0, min(b0 + share, n_real))
             w = torch.stack([spec_dev[:, int(starts_np[i]) : int(starts_np[i]) + W]
                              for i in idx]).float()
             lens = torch.as_tensor([int(lengths_np[i]) for i in idx], device=self.device)
@@ -309,6 +299,10 @@ class DynamicEvalEngine:
             for j, i in enumerate(idx):
                 self._accumulate(acc, counts, lp[j], int(starts_np[i]) // self.ds,
                                  self.out_len_fn(int(lengths_np[i])))
+        if self.mesh is not None:
+            group = self.mesh.get_group("dp")
+            dist.all_reduce(acc, group=group)
+            dist.all_reduce(counts, group=group)
         return self._finish(acc, counts)
 
     @staticmethod
@@ -392,17 +386,255 @@ class DynamicEvalEngine:
             print(f"Runtime: {elapsed}")
         return EngineOutput(log_avg, counts, adapted, elapsed, self.blank_id)
 
-    def batched(self, *args, **kwargs):
-        if self.config.pseudo_label_retokenize:
+    # -- records batching (--dp_records) ------------------------------------
+    def window_count(self, n_frames: int, seq_len: int = -1, overlap: int = -1) -> int:
+        """The number of real windows of an ``n_frames`` recording."""
+        seq_len = self.config.seq_len if seq_len == -1 else seq_len
+        overlap = self.config.overlap if overlap == -1 else overlap
+        if n_frames <= seq_len:
+            return 1
+        return len(chunk_starts_and_lengths(n_frames, seq_len, overlap)[0])
+
+    def _records_plan(self, specs, seq_len: int, overlap: int):
+        """The JAX package's plan (``_plan`` and ``batched``): one window
+        size ``W = min(seq_len, max length)`` and one bucketed window count
+        ``N`` for the group; ``T_pad`` and ``total_ds`` follow the bucket (in
+        JAX they key the compiled program).  Returns (spectrograms [R, F,
+        T_pad], W, N, real windows per record, starts [R, N], lengths [R,
+        N], total_ds)."""
+        cfg = self.config
+        seq_len = cfg.seq_len if seq_len == -1 else seq_len
+        overlap = cfg.overlap if overlap == -1 else overlap
+        specs = [np.asarray(s) for s in specs]
+        specs = [s[0] if s.ndim == 3 else s for s in specs]
+        max_n = max(s.shape[-1] for s in specs)
+        W = min(seq_len, max_n)
+        if max_n <= W:  # every record fits one window: no overlap to check
+            overlap = 0
+        if overlap % self.ds:
+            raise ValueError(
+                f"overlap ({overlap}) must be a multiple of the subsampling "
+                f"factor ({self.ds})")
+        if max_n > W and W % self.ds:
+            raise ValueError(
+                f"seq_len ({W}) must be a multiple of the subsampling factor "
+                f"({self.ds}) when any spectrogram spans multiple windows")
+        plans = [chunk_starts_and_lengths(s.shape[-1], W, overlap if s.shape[-1] > W else 0)
+                 for s in specs]
+        R, N = len(specs), pad_num_chunks(max(len(p[0]) for p in plans))
+        starts = np.zeros((R, N), np.int64)
+        lengths = np.zeros((R, N), np.int64)
+        for r, (st, ln) in enumerate(plans):
+            starts[r, : len(st)] = st
+            lengths[r, : len(ln)] = ln
+        if max_n > W:
+            T_pad = (N - 1) * (W - overlap) + W
+        else:
+            T_pad = int(max(starts.max() + W, max_n))
+        spec_b = np.zeros((R, specs[0].shape[0], T_pad), dtype=specs[0].dtype)
+        for r, sp in enumerate(specs):
+            spec_b[r, :, : sp.shape[-1]] = sp
+        total_ds = _ds_ceil(T_pad, self.ds) + _ds_ceil(W, self.ds)
+        n_reals = [len(p[0]) for p in plans]
+        return spec_b, W, N, n_reals, starts, lengths, total_ds
+
+    def _records_forward(self, stacked, batch, lengths):
+        """``final_posteriors`` of ``batch`` [R, B, F, W] (``lengths`` [R,
+        B]), record r through its own weights ``stacked[name][r]``; the
+        buffers are shared, as JAX's ``extra_vars`` is ``in_axes=None``."""
+        buffers = dict(self._work.named_buffers())
+
+        def one(weights, x, length):
+            out = torch.func.functional_call(self._work, (weights, buffers), (x, length))
+            return out["final_posteriors"]
+
+        remat = getattr(self._work, "rematerialise", None)
+        if remat is not None:  # a checkpoint cannot recompute inside vmap
+            self._work.rematerialise = False
+        try:
+            return torch.func.vmap(one)(stacked, batch, lengths)
+        finally:
+            if remat is not None:
+                self._work.rematerialise = remat
+
+    def _records_entropy_delta(self, stacked, aug, lengths):
+        """:meth:`_entropy_delta` of every record at once: each record's
+        mean entropy over its own copies, on its own detached weights."""
+        aug = aug.detach().requires_grad_(True)
+        weights = {n: p.detach() for n, p in stacked.items()}
+        lp = self._records_forward(weights, aug, lengths)
+        entropy = torch.mean(-torch.sum(torch.exp(lp) * lp, dim=-1), dim=(1, 2)).sum()
+        (grad,) = torch.autograd.grad(entropy, aug)
+        return 1e-3 * grad
+
+    def _records_step(self, opt, stacked, spec_dev, starts, w_lens, W, max_tokens, gens):
+        """One window step of every record whose window here is real
+        (``w_lens[r] > 0``); the others ride along and are not stepped.
+        Returns the detached clean log-probs [R, T_ds, V]."""
+        R, nn = len(w_lens), self.num_negatives
+        active = [int(n) > 0 for n in w_lens]
+        windows = torch.stack([spec_dev[r, :, int(starts[r]) : int(starts[r]) + W]
+                               for r in range(R)]).float()  # [R, F, W]
+        aug = torch.stack([self._augment(windows[r][None].repeat(nn, 1, 1), gens[r], int(w_lens[r]))
+                           if active[r] else windows[r][None].repeat(nn, 1, 1)
+                           for r in range(R)])  # [R, nn, F, W]
+        lens = torch.as_tensor(np.asarray(w_lens, np.int64), device=self.device)
+        if self.config.entropy_augmentation:
+            aug = (aug + self._records_entropy_delta(stacked, aug, lens[:, None].expand(R, nn))
+                   ).detach()
+        batch = torch.cat([aug, windows[:, None]], dim=1)  # [R, nn + 1, F, W]
+        lp = self._records_forward(stacked, batch, lens[:, None].expand(R, nn + 1))
+        clean_lp = lp[:, -1].detach()
+
+        rows, targets, target_lens, in_lens, weights = [], [], [], [], []
+        for r in range(R):
+            if not active[r]:
+                continue
+            ds_len = self.out_len_fn(int(w_lens[r]))
+            labels, lab_len = self._pseudo_labels(clean_lp[r], ds_len, max_tokens)
+            rows.append(r)
+            targets.append(labels[None].expand(nn, -1))
+            target_lens.append(lab_len.reshape(1).expand(nn))
+            in_lens += [ds_len] * nn
+            weights += [1.0 / (max(ds_len, 1) * nn)] * nn
+        aug_lp = lp[rows, :nn]  # [A, nn, T_ds, V]
+        loss = ctc_loss(
+            aug_lp.reshape(-1, *aug_lp.shape[2:]),
+            torch.as_tensor(in_lens, dtype=torch.int64, device=self.device),
+            torch.cat(targets),
+            torch.cat(target_lens),
+            blank_id=self.blank_id,
+            sample_weights=torch.as_tensor(weights, dtype=torch.float32, device=self.device),
+        )
+        opt.zero_grad()
+        loss.backward()
+        opt.step(active)
+        return clean_lp
+
+    @torch.no_grad()
+    def _records_infer(self, stacked, spec_dev, W, n_reals, starts, lengths, total_ds):
+        """The offline pass with the adapted stacks: ``infer_batch`` windows
+        of every record a forward, the window axis unsplit (JAX's
+        ``use_mesh=False``)."""
+        R, V = len(n_reals), self.n_classes
+        acc = torch.zeros(R, total_ds, V, dtype=torch.float32, device=self.device)
+        counts = torch.zeros(R, total_ds, dtype=torch.float32, device=self.device)
+        for b0 in range(0, max(n_reals), self.infer_batch):
+            idx = range(b0, min(b0 + self.infer_batch, max(n_reals)))
+            w = torch.stack([torch.stack([spec_dev[r, :, int(starts[r, i]) : int(starts[r, i]) + W]
+                                          for i in idx]) for r in range(R)]).float()
+            lens = torch.as_tensor(lengths[:, list(idx)], device=self.device)
+            lp = self._records_forward(stacked, w, lens)
+            for r in range(R):
+                for j, i in enumerate(idx):
+                    if i < n_reals[r]:
+                        self._accumulate(acc[r], counts[r], lp[r, j], int(starts[r, i]) // self.ds,
+                                         self.out_len_fn(int(lengths[r, i])))
+        return [self._finish(acc[r], counts[r]) for r in range(R)]
+
+    def batched(
+        self,
+        params: Optional[Dict[str, torch.Tensor]],
+        specs,  # list of [F, T_r] (or [1, F, T_r]) spectrograms
+        seq_len: int = -1,
+        overlap: int = -1,
+        rng: Optional[int] = None,
+        shuffle_rng: Optional[np.random.Generator] = None,
+        rngs=None,
+        orders=None,
+        return_params: bool = False,
+    ) -> List[EngineOutput]:
+        """Adapt R recordings at once (``--dp_records``), each from
+        ``params`` (a state dict; ``None``: the engine's model's weights) as
+        :meth:`__call__` adapts it alone; returns one :class:`EngineOutput`
+        per recording, in order, with ``params=None`` (with
+        ``return_params``, the record's adapted state dict) and ``elapsed``
+        the group's wall over R.
+
+        The group shares ``W = min(seq_len, max length)`` and one bucketed
+        window count.  ``rngs`` holds each record's seed or
+        ``torch.Generator`` (by default ``rng · 1_000_003 + r``); a record's
+        augmentation stream is the one its serial run with that seed draws.
+        With ``shuffle``, the window orders are drawn from ``shuffle_rng``
+        record-major (every epoch of record r before record r + 1, as the
+        serial loop draws them), the padded windows last; ``orders`` (per
+        record, per epoch, a permutation of its real windows) gives them
+        instead.  A record whose window in a
+        step is a padded one keeps its weights and optimizer state."""
+        cfg = self.config
+        if cfg.pseudo_label_retokenize:
             raise ValueError(
                 "pseudo_label_retokenize (host callback per window) is not "
                 "supported under --dp_records; run serially for exact mode")
-        if self.config.print_pseudo_labels:
+        if cfg.print_pseudo_labels:
             raise ValueError(
                 "print_pseudo_labels (per-chunk host debug print) is not "
                 "supported under --dp_records; run serially to debug")
-        raise NotImplementedError(
-            "records-batched adaptation (--dp_records) is not ported yet (ROADMAP queue 1)")
+        spec_b, W, N, n_reals, starts, lengths, total_ds = self._records_plan(
+            specs, seq_len, overlap)
+        R = len(n_reals)
+        if rngs is None:
+            if isinstance(rng, torch.Generator):
+                raise TypeError("one generator cannot seed R records; pass rngs=")
+            rngs = [int(rng or 0) * 1_000_003 + r for r in range(R)]
+        if len(rngs) != R:
+            raise ValueError(f"{len(rngs)} rngs for {R} records")
+        gens = [self._generator(g) for g in rngs]
+        if cfg.shuffle and cfg.epochs > 0:
+            if orders is None:
+                shuffle_rng = shuffle_rng or np.random.default_rng(0)
+                orders = [[shuffle_rng.permutation(n) for _ in range(cfg.epochs)]
+                          for n in n_reals]
+            orders = [[np.concatenate([np.asarray(o), np.arange(n, N)]) for o in per_epoch]
+                      for per_epoch, n in zip(orders, n_reals)]
+
+        t0 = time.time()
+        self._load(params)
+        spec_dev = torch.as_tensor(spec_b, device=self.device).to(self.transfer_dtype)
+        stacked = {n: p.detach().unsqueeze(0).repeat(R, *([1] * p.dim()))
+                   .requires_grad_(self._trainable_names[n])
+                   for n, p in self._work.named_parameters()}
+        max_tokens = max(8, int(self.out_len_fn(W) * self.max_label_frames_ratio))
+        online_result = None
+
+        if cfg.epochs > 0:
+            opt = RecordsMADGRAD([p for p in stacked.values() if p.requires_grad], R,
+                                 lr=self.lr, **self.opt_args)
+            for epoch in range(cfg.epochs):
+                order = (np.stack([o[epoch] for o in orders]) if cfg.shuffle
+                         else np.broadcast_to(np.arange(N), (R, N)))
+                if cfg.online:  # a fresh stitch per epoch; the last one wins
+                    acc = torch.zeros(R, total_ds, self.n_classes, device=self.device)
+                    counts = torch.zeros(R, total_ds, device=self.device)
+                for step in range(N):
+                    idx = order[:, step]
+                    w_lens = lengths[np.arange(R), idx]
+                    if not w_lens.any():  # a padded window of every record
+                        continue
+                    st = starts[np.arange(R), idx]
+                    clean_lp = self._records_step(opt, stacked, spec_dev, st, w_lens, W,
+                                                  max_tokens, gens)
+                    if cfg.online:
+                        for r in np.flatnonzero(w_lens):
+                            self._accumulate(acc[r], counts[r], clean_lp[r], int(st[r]) // self.ds,
+                                             self.out_len_fn(int(w_lens[r])))
+                if cfg.online:
+                    online_result = [self._finish(acc[r], counts[r]) for r in range(R)]
+
+        if cfg.online and online_result is not None:
+            results = online_result
+        else:
+            results = self._records_infer(stacked, spec_dev, W, n_reals, starts, lengths,
+                                          total_ds)
+        adapted = [None] * R
+        if return_params:
+            buffers = {n: b.detach().clone() for n, b in self._work.named_buffers()}
+            adapted = [{**{n: p[r].detach().clone() for n, p in stacked.items()}, **buffers}
+                       for r in range(R)]
+        _sync(self.device)
+        elapsed = time.time() - t0
+        return [EngineOutput(log_avg, counts, params, elapsed / R, self.blank_id)
+                for (log_avg, counts), params in zip(results, adapted)]
 
 
 def chunked_inference(

@@ -1059,3 +1059,72 @@ def test_word_fusion_path_rehearsed_on_the_cpu(tmp_path, monkeypatch, capsys):
             if x.startswith('{"word_fusion"')][0]["word_fusion"]
     assert line["max_rel_score_diff"] == 0.0 and line["words_spelled"] == 6
     assert line["lexicon_words_out_of_lexicon"] == 0
+
+
+def test_records_plan_at_the_flagship():
+    """Phase 24's group: 9, 9, 5 and 1 windows, the engine's own plan; a
+    group step launches the attention once a layer for all 4 records and
+    the subsampling once a record."""
+    import numpy as np
+
+    from dynamic_asr_eval_tpu_torch.config import TTAConfig
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+    from dynamic_asr_eval_tpu_torch.tta import DynamicEvalEngine
+
+    L = chip_smoke.flagship_config().n_layers
+    steps, plan = chip_smoke.records_plan(chip_smoke.RECORDS_FRAMES, L)
+    assert steps == 9 and plan == {"attention": (9 * L, 9 * L), "subsample": (36, 36)}
+    cfg = chip_smoke.flagship_config(n_layers=1, d_model=64, n_heads=2, head_dim=32,
+                                     subsampling_conv_channels=8)
+    engine = DynamicEvalEngine(init_conformer(cfg), cfg.blank_id, 8,
+                               TTAConfig(seq_len=chip_smoke.SEQ, overlap=chip_smoke.OVERLAP),
+                               device="cpu")
+    specs = [np.zeros((80, n), np.float32) for n in chip_smoke.RECORDS_FRAMES]
+    _, W, _, n_reals, _, _, _ = engine._records_plan(specs, -1, -1)
+    assert W == chip_smoke.SEQ and n_reals == [9, 9, 5, 1]
+    assert chip_smoke.records_plan(chip_smoke.RECORDS_PARITY_FRAMES, L)[1] == {
+        "attention": (L, L), "subsample": (2, 2)}
+
+
+def test_main_drives_phases_24_to_24d():
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    for call in ("check_vmap(A, S)", "records_path(card, A, S)", "check_records_parity(A, S)",
+                 "records_driver_path(card, A, S)", "remat_path(card, A, S)"):
+        assert call in main
+    for key in ('"records_launches"', '"remat_launches"', '"vmap_launches"',
+                "records_parity_launches=", "records_driver_launches="):
+        assert key in main
+
+
+def test_vmap_cases_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 3's vmap cases at a tiny shape: bit for bit against the loop;
+    the launch check sees the CPU's zero counts and fails, and passes with
+    the card's counts stood in."""
+    monkeypatch.setattr(chip_smoke, "RECORDS_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "VMAP_ATTENTION", (2, 40, 2, 16))
+    monkeypatch.setattr(chip_smoke, "VMAP_LENGTHS", ((40, 31), (9, 40), (1, 40)))
+    monkeypatch.setattr(chip_smoke, "VMAP_SUBSAMPLE", (2, 64, 16, 8))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    with pytest.raises(AssertionError, match="attention under vmap: launches"):
+        chip_smoke.check_vmap(A, S)
+    R = chip_smoke.VMAP_R
+    card = {"attention": (1, 1), "subsample": (R, R)}
+    monkeypatch.setattr(chip_smoke, "counted", lambda modules, fn: (
+        fn(), {k: card[k] for k in modules},
+        {k: {"tensor_core": card[k], "tf32x3": (0, 0)} for k in modules}))
+    assert chip_smoke.check_vmap(A, S) == card
+
+
+def test_engine_recorder_keeps_the_records_batched_calls():
+    class Engine:
+        mesh, config = "mesh", "config"
+
+        def batched(self, params, specs, *args, return_params=False, **kwargs):
+            return [(s, return_params) for s in specs]
+
+    recorder = chip_smoke.EngineRecorder()
+    recorder.wrap(lambda: Engine())()
+    assert recorder.batched("p", ["a", "b"], 1, rngs=[0, 1]) == [("a", True), ("b", True)]
+    assert recorder.calls == [("p", "a"), ("p", "b")] and recorder.mesh == "mesh"

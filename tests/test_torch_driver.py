@@ -236,17 +236,29 @@ def test_awmc_from_a_reference_checkpoint_wer_identical(checkpoint_runs):
 
 
 @pytest.mark.parametrize("flags,error", [(["--consistency", "--dp_records"], ValueError),
-                                         (["--dp_records"], NotImplementedError)],
+                                         (["--dp_records"], None)],
                          ids=["consistency", "dp_records"])
-def test_full_driver_rejects_what_is_not_ported(flags, error):
-    """``--dp_records`` is not ported (it names its ROADMAP item);
-    ``--consistency`` is, and with ``--dp_records`` it is refused as JAX
-    refuses it."""
-    with pytest.raises(error, match="ROADMAP queue 1 item|only the NSTI engine"):
-        full.cli(["-d", "synthetic", "--quiet", "--device", "cpu"] + flags)
+def test_full_driver_rejects_what_is_not_ported(flags, error, tmp_path):
+    """``--consistency`` with ``--dp_records`` is refused as JAX refuses it;
+    ``--dp_records`` alone is ported: a world of 1 here, the serial
+    driver's transcripts and WER on an f32 model (its 2-rank run against
+    JAX: tests/test_torch_parallel.py)."""
     if error is ValueError:
         with pytest.raises(ValueError, match="only the NSTI engine"):
+            full.cli(["-d", "synthetic", "--quiet", "--device", "cpu"] + flags)
+        with pytest.raises(ValueError, match="only the NSTI engine"):
             jax_full.cli(["-d", "synthetic", "--quiet"] + flags)
+        return
+    runs = []
+    for extra in ([], flags):
+        out = tmp_path / ("records" if extra else "serial") / "r.pkl"
+        wer = full.cli(["-d", "synthetic", "--quiet", "--device", "cpu", "-s", str(out)]
+                       + extra + KWARGS, model_config=ConformerConfig(compute_dtype="float32",
+                                                                      **TINY))
+        runs.append((wer, _load_pickle(out.parent)))
+    (serial_wer, serial), (wer, detail) = runs
+    assert wer == serial_wer and detail["model_output"] == serial["model_output"]
+    assert set(detail) == set(serial)
 
 
 def test_awmc_with_dp_records_is_refused_as_in_jax():
