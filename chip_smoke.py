@@ -381,6 +381,40 @@ Phases (each raises on failure; the script then exits non-zero):
    two plain steps' spread; each run's peak memory; the recomputation's
    extra forwards exactly 6 attention and 1 subsampling; a ``{"remat":
    ...}`` line.
+25. tensor and sequence parallelism: ``torch.distributed.run
+   --nproc_per_node 2`` on this script (PARALLEL_RANK set), a gloo group
+   with both ranks on the one card (NCCL refuses two ranks on one device;
+   gloo runs its all-reduce and all-gather on CUDA tensors).  25a: the
+   NSTI engine ``evals.common.build_engine`` builds with ``--dp --tp 2``
+   (a ``('dp', 'tp')`` mesh of 1 x 2, the working copy sharded) on a
+   3-window recording, the flagship (bf16, ``"pallas_flash"``,
+   ``"pallas"``), against the same run at tp 1 in each rank: ≥ 0.99 of
+   frames with the same argmax, max |Δ log-prob| printed; on each rank
+   exactly 6 / 6 attention launches of 3 heads and 1 / 1 subsampling a
+   window; the same in f32 at 2 layers (TF32 off), max |Δ log-prob| and
+   the tp 1 run's own repeat spread printed only (CTC's atomics carried
+   through 3 windows of MADGRAD), and held: the engine's windowed inference
+   before adaptation (``epochs=0``) within 1e-4 of max |log-prob| with
+   greedy ids equal, and the gradients of a fixed linear functional of one
+   window's log-probs through a model sliced by ``shard_params``, each
+   rank's slices within 1e-4 of max of the whole model's.  25b: ``seq_shard_axes`` under
+   ``use_mesh`` of a ``('dp', 'sp')`` mesh of 1 x 2 on a batch of 2 x 16384
+   frames (T_ds 1024 a rank), forward and one step against the unsharded
+   model in the same rank: f32 at 2 layers, log-probs within 1e-4 of max
+   on valid frames and the gradients of a fixed linear functional of the
+   log-probs within 1e-4 of max (the CTC loss's gradients printed, not
+   held); bf16 at the flagship depth, ≥ 0.99 of valid frames with the same
+   argmax; every attention launch a query block (6 heads, 1024 rows from
+   row 1024 r against 2048 keys), one a layer forward and one a layer in
+   each of the two backwards, subsampling 1 / 2;
+   peak memory a rank beside the unsharded run's; a ``{"parallel": ...}``
+   line.  25c (first, in this process): the query-block kernels of both
+   routes on q [2, 1024, 6, 128] against k, v [2, 2048, 6, 128], lengths
+   2048 and 1600, both blocks: against the plain version at phase 3's
+   bars, out, lse and dq rows the full call's bit for bit, the blocks' dk
+   and dv summed within phase 3's bf16 ulp bar (f32: its 1e-4 bar) of the
+   full call's, a block of 700 rows from row 300 against the plain version;
+   each block's CUDA-event times beside the full call's.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
@@ -394,7 +428,10 @@ path, ``consistency_launches`` on the consistency path,
 own runs; ``encdec_parity_launches`` (21c) and ``train_parity_launches``
 (22b) beside the other parity counts; ``records_launches`` (phase 24),
 ``remat_launches`` (24d's remat step) and ``vmap_launches`` (phase 3's
-vmapped calls), and for the f32 kernels ``records_parity_launches`` (24b)
+vmapped calls), ``tp_launches`` and ``sp_launches`` (rank 0's in 25a and
+25b: bf16 on the main routes, f32 on the parity routes), for the attention
+``query_block_ms`` (25c: each block's ms) and ``query_block_full_ms``,
+and for the f32 kernels ``records_parity_launches`` (24b)
 and ``records_driver_launches`` (24c); ``f32_path_launches`` for the f32
 attention and
 subsampling, from phase 5c; the subsampling backwards' ``entropy_gx_launches``
@@ -4228,6 +4265,421 @@ def remat_path(card, A, S):
     return runs["remat"][1], runs["remat"][2]
 
 
+# ---------------------------------------------------------------------------
+# phase 25: tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANK = "CHIP_SMOKE_PARALLEL_RANK"  # set in phase 25's two rank processes: their out dir
+TP_FRAMES = SEQ + (SEQ - OVERLAP)  # phase 25a: a 3-window recording
+SP_LENGTHS = (16384, 12800)  # phase 25b: frames of a batch of 2 (T_ds 2048, 1024 a rank)
+QB_SHAPE = (2, 2048, 6, 128)  # phase 25c: B, Tk, H, D; two query blocks of 1024 rows
+QB_LENGTHS = [2048, 1600]
+QB_RAGGED = (300, 700)  # phase 25c: a block of 700 rows from row 300, inside a tile
+
+
+def check_query_block(A, dtype):
+    """Phase 25c: the attention kernels on one query block: q [2, 1024, 6,
+    128] (rows 0 and 1024 of the sequence) against k, v [2, 2048, 6, 128],
+    lengths 2048 and 1600.  Each block against the plain version at phase
+    3's bar; its out, lse and dq rows the full call's bit for bit (the
+    blocks start on a query-tile boundary); the blocks' dk and dv summed
+    against the full call's (bf16: within BF16_ULPS bf16 ulps of max, f32:
+    phase 3's bar); a block of 700 rows from row 300 against the plain
+    version; each block's CUDA-event times beside the full call's.  Returns
+    {"fwd"/"bwd": (block ms, full ms)} and the max |err| against the plain
+    version."""
+    B, Tk, H, D = QB_SHAPE
+    q, k, v, mask, dout = attention_inputs(B, Tk, H, D, QB_LENGTHS, dtype, seed=5)
+    full_out, full_lse = A.flash_attention_fwd(q, k, v, mask)
+    full = A.flash_attention_bwd(q, k, v, mask, full_out, full_lse, dout)
+    what = f"query block {dtype}"
+    n = Tk // 2
+    sums = [torch.zeros(B, Tk, H, D, device="cuda") for _ in range(2)]
+    worst, block_ms = 0.0, {"fwd": [], "bwd": []}
+    for offset, rows in ((0, n), (n, n), QB_RAGGED):
+        qb, db = q[:, offset : offset + rows], dout[:, offset : offset + rows]
+        out, lse = A.flash_attention_fwd(qb, k, v, mask, offset)
+        grads = A.flash_attention_bwd(qb, k, v, mask, out, lse, db, offset)
+        ref_out, ref_lse = A.attention_reference(qb.float(), k.float(), v.float(), mask, offset)
+        ref = A.attention_reference_bwd(qb.float(), k.float(), v.float(), mask, ref_out, ref_lse,
+                                        db.float(), offset)
+        torch.cuda.synchronize()
+        name = f"{what}, rows {offset}-{offset + rows}"
+        errs = check_close(name, zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads),
+                                     (ref_out,) + tuple(ref)), FWD_TOL[dtype])
+        worst = max(worst, *errs.values())
+        line = ", ".join(f"{k_} {v_:.2e}" for k_, v_ in errs.items())
+        if rows == n:
+            sl = slice(offset, offset + rows)
+            if not (torch.equal(out, full_out[:, sl]) and torch.equal(lse, full_lse[..., sl])
+                    and torch.equal(grads[0], full[0][:, sl])):
+                raise AssertionError(f"{name}: out, lse and dq rows differ from the full call's")
+            sums[0] += grads[1].float()
+            sums[1] += grads[2].float()
+            block_ms["fwd"].append(cuda_ms(lambda: A.flash_attention_fwd(qb, k, v, mask, offset)))
+            block_ms["bwd"].append(cuda_ms(lambda: A.flash_attention_bwd(qb, k, v, mask, out, lse,
+                                                                         db, offset)))
+            line += "; out, lse and dq rows the full call's bit for bit"
+        log(f"  {name} against the plain version: {line}")
+    for name, got, want in (("dk", sums[0], full[1]), ("dv", sums[1], full[2])):
+        scale = want.float().abs().max().item()
+        err = (got - want.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            ulps = err / bf16_ulp(scale)
+            ok, shown = ulps <= BF16_ULPS, f"{ulps:.3f} bf16 ulps of max"
+        else:
+            ok, shown = err <= FWD_TOL[dtype] * scale, f"{err:.3e} of max {scale:.3e}"
+        if not ok:
+            raise AssertionError(f"{what}: the blocks' {name} summed, against the full call: "
+                                 f"{shown}")
+        log(f"  {what}: the two blocks' {name} summed against the full call's: {shown}")
+    timing = {kind: (block_ms[kind], cuda_ms(fn)) for kind, fn in (
+        ("fwd", lambda: A.flash_attention_fwd(q, k, v, mask)),
+        ("bwd", lambda: A.flash_attention_bwd(q, k, v, mask, full_out, full_lse, dout)))}
+    log(f"  {what} ms, block 0 and block 1 beside the full call: " + "; ".join(
+        f"{kind} {b[0]:.4f}, {b[1]:.4f} / {f:.4f}" for kind, (b, f) in timing.items()))
+    return timing, worst
+
+
+def parallel_engine(cfg, tp: int, frames: int, epochs: int = 1):
+    """Phase 25a: the NSTI engine ``evals.common.build_engine`` builds from
+    phase 5's settings on ``cuda:0`` (``--dp --tp tp`` where ``tp`` is above
+    1: a ``('dp', 'tp')`` mesh over the two ranks; ``epochs`` 0: windowed
+    inference), random weights from seed 0, and a ``synthetic_spec``
+    recording of ``frames`` frames."""
+    from dynamic_asr_eval_tpu_torch.data import get_dataset
+    from dynamic_asr_eval_tpu_torch.evals import common, run
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+
+    os.environ["DAE_SYNTH_SPEC_FRAMES"] = str(frames)
+    flags = ["--dp", "--tp", str(tp)] if tp > 1 else []
+    args = run.parse_args(["-d", "synthetic_spec", "--quiet", "--device", "cuda:0",
+                           "-seq", str(SEQ), "-o", str(OVERLAP), *flags, *RUN_KWARGS,
+                           f"epochs={epochs}"])
+    model = init_conformer(cfg, seed=0).to("cuda:0")
+    engine = common.build_engine(args, model, cfg)
+    (rec,) = get_dataset("synthetic_spec", args.split)
+    return engine, rec["process_fn"](rec)[0]
+
+
+class AttentionShapes:
+    """Within ``with``: the (H, Tq, Tk, q_offset) of every attention kernel
+    launch forward (a spy on ``kernels.attention._kernel_fwd``)."""
+
+    def __init__(self, A):
+        self.A, self.calls = A, []
+
+    def __enter__(self):
+        inner = self.inner = self.A._kernel_fwd
+
+        def spy(q, k, v, seg, q_offset=0):
+            self.calls.append((q.shape[2], q.shape[1], k.shape[1], q_offset))
+            return inner(q, k, v, seg, q_offset)
+
+        self.A._kernel_fwd = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.A._kernel_fwd = self.inner
+
+
+def tp_rank_phase(A, S):
+    """Phase 25a in one rank: the 3-window NSTI run at tp 2 (bf16 flagship,
+    ``"pallas_flash"``, ``"pallas"``) and the same run at tp 1, then both in
+    f32 at 2 layers (TF32 off, cuDNN deterministic), where the tp 1 run goes
+    twice: the run's own repeat spread (CTC's CUDA backward sums with
+    atomics, and 3 windows of MADGRAD carry it on) printed beside the tp
+    difference, neither held.  What holds f32 tp 2 to tp 1 is what
+    separates a sharding fault from that noise (:func:`tp_held_f32`)."""
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+
+    result = {}
+    for name, cfg in (("bf16", flagship_config(subsampling_impl="pallas")),
+                      ("f32", flagship_config(compute_dtype=torch.float32, n_layers=2,
+                                              subsampling_impl="pallas"))):
+        outs = {}
+        for tp in (2, 1) if name == "bf16" else (2, 1, "repeat"):
+            if tp == "repeat":
+                engine, spec = parallel_engine(cfg, 1, TP_FRAMES)
+                with deterministic_cudnn():
+                    again = engine(None, spec, SEQ, OVERLAP, rng=0)
+                result[name]["repeat_max_abs_log_prob_diff"] = frame_agreement(again, outs[1])[0]
+                del engine
+                continue
+            engine, spec = parallel_engine(cfg, tp, TP_FRAMES)
+            with deterministic_cudnn(), AttentionShapes(A) as shapes:
+                t0 = time.time()
+                out, launches, routes = counted({"attention": A, "subsample": S},
+                                                lambda: engine(None, spec, SEQ, OVERLAP, rng=0))
+                wall = time.time() - t0
+            outs[tp] = out
+            if tp == 2:
+                result[name] = {"launches": launches, "routes": routes, "wall_s": wall,
+                                "heads": sorted({c[0] for c in shapes.calls}),
+                                "layers": cfg.n_layers, "windows": n_windows(TP_FRAMES)}
+            del engine
+        err, same = frame_agreement(outs[2], outs[1])
+        scale = float(abs(outs[1].numpy_logits()).max())
+        result[name].update(max_abs_log_prob_diff=err, same_argmax_share=same, scale=scale,
+                            greedy_equal=greedy_equal(outs[2], outs[1]))
+        if name == "f32":
+            result[name]["held"] = tp_held_f32(cfg, spec)
+    return result
+
+
+def greedy_equal(a, b) -> bool:
+    ia, ib = a.greedy_ids(), b.greedy_ids()
+    return bool(len(ia) == len(ib) and (ia == ib).all())
+
+
+def tp_held_f32(cfg, spec):
+    """Phase 25a's held f32 checks at tp 2 against tp 1: (1) the engine's
+    windowed inference before any adaptation (``epochs=0``, 3 windows):
+    log-probs and greedy ids; (2) one forward and backward of the first
+    window through a model sliced by ``shard_params`` on ``make_mesh(tp=2)``
+    and through the whole model: the weight gradients of a fixed linear
+    functional of the valid frames' log-probs, each rank's slices against
+    the same slices of the whole gradients (as 25b holds sequence
+    parallelism)."""
+    import copy
+
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+    from dynamic_asr_eval_tpu_torch.models import init_conformer
+    from dynamic_asr_eval_tpu_torch.parallel import make_mesh, shard_params
+    from dynamic_asr_eval_tpu_torch.parallel.mesh import shard_state
+
+    outs = {}
+    for tp in (2, 1):
+        engine, spec = parallel_engine(cfg, tp, TP_FRAMES, epochs=0)
+        with deterministic_cudnn():
+            outs[tp] = engine(None, spec, SEQ, OVERLAP, rng=0)
+        del engine
+    err, same = frame_agreement(outs[2], outs[1])
+    held = {"infer_max_abs_log_prob_diff": err, "infer_same_argmax_share": same,
+            "infer_scale": float(abs(outs[1].numpy_logits()).max()),
+            "infer_greedy_equal": greedy_equal(outs[2], outs[1])}
+
+    mesh = make_mesh(tp=2)
+    whole = init_conformer(cfg, seed=0).to("cuda:0")
+    sliced = copy.deepcopy(whole)
+    sharding = shard_params(sliced, mesh)
+    x = torch.as_tensor(spec[..., :SEQ], dtype=torch.float32, device="cuda:0")  # [1, 80, SEQ]
+    length = torch.tensor([SEQ], device="cuda:0")
+    w = torch.randn(1, SEQ // 8, cfg.n_classes, generator=torch.Generator().manual_seed(11))
+    grads, lps = {}, {}
+    for kind, model in (("tp2", sliced), ("tp1", whole)):
+        with deterministic_cudnn():
+            lp = model(x, length)["final_posteriors"]
+            linear = (lp * w.to(lp.device)[:, :lp.shape[1]]).sum() / lp.shape[1]
+            names = [n for n, _ in model.named_parameters()]
+            grads[kind] = dict(zip(names, torch.autograd.grad(linear, list(model.parameters()))))
+        lps[kind] = lp.detach()
+    want = shard_state(grads["tp1"], sharding, mesh)
+    held.update(
+        step_max_abs_log_prob_diff=(lps["tp2"] - lps["tp1"]).abs().max().item(),
+        step_scale=lps["tp1"].abs().max().item(),
+        max_grad_diff=max((grads["tp2"][n] - want[n]).abs().max().item() for n in want),
+        grad_scale=max(v.abs().max().item() for v in grads["tp1"].values()))
+    return held
+
+
+def sp_rank_phase(A, S):
+    """Phase 25b in one rank: a forward and one step of a batch of 2 x 16384
+    frames (lengths SP_LENGTHS) with ``seq_shard_axes`` under ``use_mesh``
+    of a ``('dp', 'sp')`` mesh over the two ranks, against the unsharded
+    model, f32 at 2 layers and bf16 at the flagship depth, all through the
+    kernels; peak memory of each.  The step's weight gradients are held on
+    a fixed linear functional of the valid frames' log-probs; the NSTI CTC
+    loss's gradients are printed beside them: CTC's alignment posteriors
+    turn the GEMMs' ~1e-7 relative differences in the log-probs into ~1e-4
+    relative ones in its gradients, so they bound nothing here."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from dynamic_asr_eval_tpu_torch.device import deterministic_cudnn
+    from dynamic_asr_eval_tpu_torch.models import SCConformer, init_conformer
+    from dynamic_asr_eval_tpu_torch.ops.ctc import ctc_loss
+    from dynamic_asr_eval_tpu_torch.parallel import use_mesh
+
+    import contextlib
+
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2), mesh_dim_names=("dp", "sp"))
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 80, max(SP_LENGTHS), generator=g).cuda()
+    length = torch.tensor(SP_LENGTHS).cuda()
+    ds = (length + 7) // 8
+    result = {}
+    for name, cfg in (("f32", flagship_config(compute_dtype=torch.float32, n_layers=2,
+                                              subsampling_impl="pallas")),
+                      ("bf16", flagship_config(subsampling_impl="pallas"))):
+        labels = torch.randint(0, cfg.vocab_size, (2, 256), generator=g).cuda()
+        label_len = torch.tensor([256, 200]).cuda()
+        weights = torch.randn(2, max(SP_LENGTHS) // 8, cfg.n_classes, generator=g).cuda()
+        ref = init_conformer(cfg, seed=0).cuda()
+        sharded = SCConformer(dataclasses.replace(cfg, seq_shard_axes=("dp", "sp"))).cuda()
+        sharded.load_state_dict(ref.state_dict())
+        runs = {}
+        for kind, model, ctx in (("unsharded", ref, contextlib.nullcontext()),
+                                 ("sp", sharded, use_mesh(mesh))):
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+            def step():
+                with ctx:
+                    lp = model(x, length)["final_posteriors"]
+                    valid = torch.arange(lp.shape[1], device="cuda")[None] < ds[:, None]
+                    linear = (lp * weights)[valid].sum() / valid.sum()
+                    held = torch.autograd.grad(linear, list(model.parameters()),
+                                               retain_graph=True)
+                    loss = ctc_loss(lp, ds, labels, label_len, blank_id=cfg.blank_id) / ds.sum()
+                    loss.backward()
+                return lp.detach(), loss.item(), held
+
+            with deterministic_cudnn(), AttentionShapes(A) as shapes:
+                (lp, loss, held), launches, routes = counted({"attention": A, "subsample": S},
+                                                             step)
+            peak = (torch.cuda.max_memory_allocated() - start) / 1e9
+            names = [n for n, _ in model.named_parameters()]
+            grads = dict(zip(names, held))
+            ctc_grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            runs[kind] = (lp, loss, grads, launches, routes, peak, shapes.calls, ctc_grads)
+        lp, loss, grads, launches, routes, peak, calls, ctc = runs["sp"]
+        lp_ref, loss_ref, grads_ref, *_, peak_ref, _, ctc_ref = runs["unsharded"]
+        valid = torch.arange(lp.shape[1], device="cuda")[None] < ds[:, None]
+        scale = lp_ref[valid].abs().max().item()
+        g_scale = max(v.abs().max().item() for v in grads_ref.values())
+        ctc_scale = max(v.abs().max().item() for v in ctc_ref.values())
+        result[name] = {
+            "launches": launches, "routes": routes, "peak_gb": peak, "unsharded_peak_gb": peak_ref,
+            "loss": loss, "unsharded_loss": loss_ref, "shape": list(lp.shape),
+            "max_abs_log_prob_diff": (lp - lp_ref).abs()[valid].max().item(), "scale": scale,
+            "same_argmax_share": (lp.argmax(-1) == lp_ref.argmax(-1))[valid].float().mean().item(),
+            "max_grad_diff": max((grads[n] - grads_ref[n]).abs().max().item() for n in grads_ref),
+            "grad_scale": g_scale,
+            "ctc_max_grad_diff": max((ctc[n] - ctc_ref[n]).abs().max().item() for n in ctc_ref),
+            "ctc_grad_scale": ctc_scale,
+            "query_blocks": sorted(set(calls)),
+            "query_block_launches": sum(c[1] != c[2] for c in calls)}
+        del ref, sharded
+    return result
+
+
+def parallel_rank() -> int:
+    """Phase 25's rank process (started by ``torch.distributed.run`` with
+    PARALLEL_RANK set to the directory for its results): gloo, both ranks on
+    ``cuda:0``; phases 25a and 25b; ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    from dynamic_asr_eval_tpu_torch.device import set_parity_precision
+    from dynamic_asr_eval_tpu_torch.kernels import attention as A
+    from dynamic_asr_eval_tpu_torch.kernels import subsample as S
+
+    set_parity_precision()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    result = {"rank": rank, "tp": tp_rank_phase(A, S)}
+    result["sp"] = sp_rank_phase(A, S)
+    with open(os.path.join(os.environ[PARALLEL_RANK], f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_path(card):
+    """Phases 25a and 25b: two gloo ranks on the one card
+    (``torch.distributed.run --nproc_per_node 2`` on this script), NCCL
+    refusing two ranks on one device.  Holds each rank's results; returns
+    rank 0's {"tp": ..., "sp": ...}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+               "--master_port", str(free_port()), os.path.abspath(__file__)]
+        t0 = time.time()
+        proc = subprocess.run(cmd, env={**os.environ, PARALLEL_RANK: tmp}, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"phase 25's ranks exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-8000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    wall = time.time() - t0
+    L = flagship_config().n_layers
+    for r, res in enumerate(ranks):
+        for name, tp in res["tp"].items():
+            W, layers = tp["windows"], tp["layers"]
+            route = "tensor_core" if name == "bf16" else "tf32x3"
+            expect = {"attention": (layers * W, layers * W), "subsample": (W, W)}
+            check_records_launches(f"phase 25a, rank {r}, {name}", tp["launches"], tp["routes"],
+                                   expect, route=route)
+            if tp["heads"] != [3]:
+                raise AssertionError(f"phase 25a, rank {r}, {name}: attention launches of "
+                                     f"{tp['heads']} heads, expected 3 (6 over tp 2)")
+            held = tp.get("held")
+            ok = (tp["same_argmax_share"] >= 0.99 if name == "bf16" else
+                  held["infer_max_abs_log_prob_diff"] <= 1e-4 * held["infer_scale"]
+                  and held["infer_greedy_equal"]
+                  and held["max_grad_diff"] <= 1e-4 * held["grad_scale"])
+            if not ok:
+                raise AssertionError(f"phase 25a, rank {r}, {name}: against tp 1 {tp}")
+            repeat = (f" (tp 1 run twice: {tp['repeat_max_abs_log_prob_diff']:.3e}; neither "
+                      f"held)" if "repeat_max_abs_log_prob_diff" in tp else "")
+            log(f"  25a rank {r}, {name} ({layers} layers, {W} windows): tp 2 against tp 1: max "
+                f"|d log-prob| {tp['max_abs_log_prob_diff']:.3e}{repeat} of max {tp['scale']:.3e}, "
+                f"{tp['same_argmax_share']:.4f} of frames with the same argmax, greedy ids equal "
+                f"{tp['greedy_equal']}; launches {tp['launches']} (exactly {layers} / {layers} "
+                f"attention of 3 heads and 1 / 1 subsampling a window, {route}); "
+                f"{tp['wall_s']:.2f} s")
+            if held:
+                log(f"  25a rank {r}, {name} held: before adaptation max |d log-prob| "
+                    f"{held['infer_max_abs_log_prob_diff']:.3e} of max {held['infer_scale']:.3e}, "
+                    f"greedy ids equal {held['infer_greedy_equal']}; one window's forward "
+                    f"{held['step_max_abs_log_prob_diff']:.3e} of max {held['step_scale']:.3e}, "
+                    f"max |d grad| of the linear functional {held['max_grad_diff']:.3e} of max "
+                    f"{held['grad_scale']:.3e}")
+        for name, sp in res["sp"].items():
+            layers = L if name == "bf16" else 2
+            route = "tensor_core" if name == "bf16" else "tf32x3"
+            # one forward, two backwards (the linear functional's and CTC's)
+            check_records_launches(f"phase 25b, rank {r}, {name}", sp["launches"], sp["routes"],
+                                   {"attention": (layers, 2 * layers), "subsample": (1, 2)},
+                                   route=route)
+            blocks = [[6, 1024, 2048, 1024 * r]]  # H, Tq, Tk, q_offset
+            if sp["query_blocks"] != blocks or sp["query_block_launches"] != layers:
+                raise AssertionError(f"phase 25b, rank {r}, {name}: attention launches "
+                                     f"{sp['query_blocks']} x {sp['query_block_launches']}, "
+                                     f"expected {layers} of {blocks}")
+            ok = (sp["same_argmax_share"] >= 0.99 if name == "bf16" else
+                  sp["max_abs_log_prob_diff"] <= 1e-4 * sp["scale"]
+                  and sp["max_grad_diff"] <= 1e-4 * sp["grad_scale"])
+            if not ok:
+                raise AssertionError(f"phase 25b, rank {r}, {name}: against unsharded {sp}")
+            log(f"  25b rank {r}, {name} ({layers} layers): sp 2 against unsharded: max |d "
+                f"log-prob| {sp['max_abs_log_prob_diff']:.3e} of max {sp['scale']:.3e}, "
+                f"{sp['same_argmax_share']:.4f} of valid frames with the same argmax; CTC loss "
+                f"{sp['loss']:.6g} / {sp['unsharded_loss']:.6g}; max |d grad| of the linear "
+                f"functional {sp['max_grad_diff']:.3e} of max {sp['grad_scale']:.3e}, of the CTC "
+                f"loss {sp['ctc_max_grad_diff']:.3e} of max {sp['ctc_grad_scale']:.3e} (not "
+                f"held); query blocks "
+                f"(H, Tq, Tk, q_offset) {sp['query_blocks']} x {sp['query_block_launches']}; "
+                f"peak memory {sp['peak_gb']:.2f} GB (unsharded {sp['unsharded_peak_gb']:.2f} GB)")
+    line = {"card": card, "ranks": 2, "backend": "gloo", "wall_s": wall,
+            "tp": ranks[0]["tp"], "sp": ranks[0]["sp"]}
+    print(json.dumps({"parallel": line}))
+    return ranks[0]
+
+
 def wer_counts_total(ref, hyp) -> int:
     """Word edits (insertions + deletions + substitutions) of ``hyp`` against
     ``ref``."""
@@ -4479,6 +4931,18 @@ def main() -> int:
         f"{card}")
     remat_counts, remat_routes = remat_path(card, A, S)
     log(f"  phases 24-24d took {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    log("[25c] the query-block attention kernels (sequence parallelism's): q [2, 1024, 6, 128] "
+        "against k, v [2, 2048, 6, 128], both routes, both blocks, against the plain version "
+        "and the full call")
+    query_block = {dtype: check_query_block(A, dtype) for dtype in (torch.bfloat16,
+                                                                    torch.float32)}
+    log(f"[25] tensor and sequence parallelism: two gloo ranks on the one card; 25a: the "
+        f"{TP_FRAMES}-frame NSTI run at tp 2 against tp 1, the flagship (bf16, 'pallas_flash', "
+        f"'pallas') and 2 layers in f32; 25b: sp 2 on {SP_LENGTHS} frames against unsharded, "
+        f"on {card}")
+    parallel = parallel_path(card)
+    log(f"  phases 25-25c took {time.time() - t_phase:.1f} s")
     encdec_counts = {k: tuple(a + b for a, b in zip(encdec_counts[k], inf_counts[k]))
                      for k in encdec_counts}
     encdec_routes = {k: {r: tuple(a + b for a, b in zip(c, inf_routes[k][r]))
@@ -4532,6 +4996,19 @@ def main() -> int:
     no_softdtw = {"softdtw": (0, 0)}
     records_launches = by_kernel(records_routes, no_softdtw)
     remat_launches = by_kernel(remat_routes, no_softdtw)
+    # phase 25: rank 0's launches at tp 2 (25a) and sp 2 (25b), bf16 on the
+    # main routes and f32 on the parity routes
+    tp_runs, sp_runs = parallel["tp"], parallel["sp"]
+    tp_launches = by_kernel({"attention": {"tensor_core": tp_runs["bf16"]["launches"]["attention"],
+                                           "tf32x3": tp_runs["f32"]["launches"]["attention"]},
+                             "subsample": {"tensor_core": tp_runs["bf16"]["launches"]["subsample"],
+                                           "tf32x3": tp_runs["f32"]["launches"]["subsample"]}},
+                            no_softdtw)
+    sp_launches = by_kernel({"attention": {"tensor_core": sp_runs["bf16"]["launches"]["attention"],
+                                           "tf32x3": sp_runs["f32"]["launches"]["attention"]},
+                             "subsample": {"tensor_core": sp_runs["bf16"]["launches"]["subsample"],
+                                           "tf32x3": sp_runs["f32"]["launches"]["subsample"]}},
+                            no_softdtw)
     vmap_by_kernel = {"flash_attention": vmap_launches["attention"],
                       "fused_subsample": vmap_launches["subsample"]}
     protocol_launches = {}  # phases 16, 16b and 16c together
@@ -4584,6 +5061,11 @@ def main() -> int:
                              bound_cuda_core_ms=bnd[f"{kind}_cuda_core"][0])
             if name == "flash_attention_f32":
                 extra.update(library_kernels=library_kernels[kind])
+            if name.startswith("flash_attention"):  # phase 25c
+                timing, qb_err = query_block[torch.float32 if name.endswith("f32")
+                                             else torch.bfloat16]
+                extra.update(query_block_ms=timing[kind][0], query_block_full_ms=timing[kind][1],
+                             query_block_max_abs_err=qb_err)
             if name == "softdtw":
                 extra.update(chain_floor_ms=bnd[f"{kind}_chain"][0])
             if name == "fused_subsample_f32":
@@ -4622,6 +5104,8 @@ def main() -> int:
                 "records_launches": records_launches[name][i],
                 "remat_launches": remat_launches[name][i],
                 "vmap_launches": vmap_by_kernel.get(name, (0, 0))[i],
+                "tp_launches": tp_launches[name][i],
+                "sp_launches": sp_launches[name][i],
                 "max_abs_err": max(e[k] for k in keys),
                 "ms": t[kind],
                 "kernel_ms": t[kind],
@@ -4641,4 +5125,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(parallel_rank() if os.environ.get(PARALLEL_RANK) else main())

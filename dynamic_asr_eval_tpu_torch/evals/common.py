@@ -18,7 +18,10 @@ with ``--device cpu``), and only rank 0 prints the corpus lines, writes the
 log and writes the result pickle.  ``--dp`` splits each record's offline
 inference windows over the ranks; ``--dp_records`` adapts a group of
 records at once, one group member a rank (:func:`run_records_dp`).
-``--tp`` above 1 raises (tensor parallelism is ROADMAP item 19c).
+``--tp N`` with either makes the mesh ``('dp', 'tp')`` with N adjacent
+ranks a tp group, and the engine shards its working copy over them
+(tensor parallelism).  Without ``--dp`` / ``--dp_records``,
+``--tp`` changes nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -142,11 +145,8 @@ def data_parallel(args) -> bool:
 def init_data_parallel(args) -> torch.device:
     """The process group of ``--dp`` / ``--dp_records``
     (:func:`..parallel.init_process_group`: this rank's ``cuda`` device
-    becomes the current one, unless ``--device cpu``); ``--tp`` above 1
-    raises.  The drivers call it before they load the model."""
-    if int(getattr(args, "tp", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--tp > 1 (tensor parallelism) is not ported yet (ROADMAP queue 1 item 19c)")
+    becomes the current one, unless ``--device cpu``).  The drivers call it
+    before they load the model."""
     return init_process_group(getattr(args, "device", None))
 
 
@@ -167,7 +167,7 @@ def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_
     kwargs = {}
     if data_parallel(args):
         init_data_parallel(args)
-        kwargs["mesh"] = make_mesh()
+        kwargs["mesh"] = make_mesh(tp=int(getattr(args, "tp", 1) or 1))
     if tokenizer is not None and engine_kind == "dynamic_eval":
         kwargs["tokenizer"] = tokenizer
     if lm_adapter is not None and engine_kind == "dynamic_eval" and tta.lm_tta_beams > 0:
@@ -179,6 +179,13 @@ def build_engine(args, model, cfg: ConformerConfig, engine_kind: str = "dynamic_
     device = device if device is not None else getattr(args, "device", None)
     return ENGINES[engine_kind](model, cfg.blank_id, cfg.subsampling_factor, tta,
                                 transfer_dtype=transfer, device=device, **kwargs)
+
+
+def maybe_shard_variables(engine, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``params`` as they are: the counterpart, by name, of the JAX
+    package's, whose GSPMD needs the variables placed sharded.  The port's
+    engine takes full weights and slices them on every load."""
+    return params
 
 
 def build_eval_engine(model, cfg: ConformerConfig, engine: DynamicEvalEngine) -> DynamicEvalEngine:

@@ -12,7 +12,8 @@ DIR`` writes a ``torch.profiler`` Chrome trace of repeat 0 into DIR.
 ``torch.distributed``, ``--dp_records`` adapts one record a rank at once
 (:func:`..evals.common.run_records_dp`); start either under ``torchrun
 --nproc_per_node=N`` (without torchrun: a world of 1); only rank 0 prints,
-logs and pickles.  ``--tp`` above 1 raises (ROADMAP item 19c).  Runs on
+logs and pickles.  ``--tp N`` with either shards the model over N ranks
+(tensor parallelism; each tp group adapts the same record).  Runs on
 ``cuda`` (``cuda:{LOCAL_RANK}`` under torchrun) unless ``--device cpu`` is
 given.
 
@@ -34,6 +35,7 @@ from dynamic_asr_eval_tpu_torch.evals.common import (
     init_data_parallel,
     load_language_model,
     load_model_and_tokenizer,
+    maybe_shard_variables,
 )
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
 
@@ -56,6 +58,7 @@ def main(args, model_config: Optional[ConformerConfig] = None,
     lm_adapter, beam_search_fn = load_language_model(args, tokenizer)
     engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter,
                           tokenizer=tokenizer)
+    params = maybe_shard_variables(engine, params)
     return evaluate_repeats(
         args, engine, params, tokenizer, records,
         lambda wer: (f"{getattr(args, 'checkpoint', '')}\t overlap: {args.overlap}\t "

@@ -7,7 +7,7 @@ loop of :mod:`.run` (per-repeat and per-record seeds, greedy or ``-lm`` beam
 decode, ``--decode_batch``, WER, ``--save_path`` pickles) with the log line
 ``"{engine}\\t{dataset}\\tWER: ..."``; LM-fused pseudo-labels are NSTI's
 only (AWMC and consistency keep greedy teachers; ``-lm`` serves their final
-decode); ``--dp_records`` (NSTI only) as in :mod:`.run`.  Runs on ``cuda``
+decode); ``--dp_records`` (NSTI only) and ``--tp`` as in :mod:`.run`.  Runs on ``cuda``
 (``cuda:{LOCAL_RANK}`` under torchrun) unless ``--device cpu`` is given.
 
 CLI: ``python -m dynamic_asr_eval_tpu_torch.evals.run_dynamic_eval_full -d
@@ -29,6 +29,7 @@ from dynamic_asr_eval_tpu_torch.evals.common import (
     init_data_parallel,
     load_language_model,
     load_model_and_tokenizer,
+    maybe_shard_variables,
 )
 from dynamic_asr_eval_tpu_torch.models import ConformerConfig
 
@@ -48,6 +49,7 @@ def main(args, model_config: Optional[ConformerConfig] = None,
     lm_adapter, beam_search_fn = load_language_model(args, tokenizer)
     engine = build_engine(args, model, cfg, engine_kind, lm_adapter=lm_adapter,
                           tokenizer=tokenizer)
+    params = maybe_shard_variables(engine, params)
     records = get_dataset(args.dataset, args.split)
     name = ENGINES[engine_kind].__name__
     return evaluate_repeats(args, engine, params, tokenizer, records,

@@ -132,7 +132,7 @@ class AttentionCase:
         q, k, v = self.q, self.k, self.v
         code = getattr(lib.load(), f"dae_flash_attention_{which}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], self.seg.data_ptr(), *(t.data_ptr() for t in tensors), B, H, T, D,
+            *v.stride()[:3], self.seg.data_ptr(), *(t.data_ptr() for t in tensors), B, H, T, T, 0, D,
             1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
         lib.check(code, f"flash attention {which}")
 

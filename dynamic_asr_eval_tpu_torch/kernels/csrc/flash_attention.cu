@@ -13,6 +13,12 @@
 // counts for query i only when seg[i] == seg[j] (the TPU kernel's segment-id
 // semantics, padding rows included); keys past T are masked by bound.
 // Softmax scale 1/sqrt(D) is passed in.
+// A query block (sequence parallelism): q may hold only rows [q_off, q_off +
+// Tq) of the Tk frames that k, v and seg cover; the forward gives those rows,
+// the backward their dQ and their share of dK, dV over all Tk keys (a sum
+// over the blocks gives the whole).  Each tile's rows and the steps it visits
+// are those of the whole call when q_off is a multiple of 64, so the block's
+// O, L and dQ rows are then the whole call's bit for bit.
 //   forward : O [B, T, H, D] f32, row log-sum-exp L [B, H, T] f32
 //   backward: Delta = rowsum(dO * O) (one kernel), then one launch whose
 //             blocks each own a key tile (dK, dV: loop over query tiles) or
@@ -267,23 +273,25 @@ __device__ __forceinline__ void warp_min_max(int& lo, int& hi) {
 
 constexpr uint8_t SKIP = 0, MASKED = 1, UNMASKED = 2;
 
-// flags[j] for every step j (rows [j BN, (j+1) BN)) of the other side
-// against the block's own rows [own0, own0 + BM): SKIP when their segment
-// ranges do not overlap (no pair matches), UNMASKED when both hold one and
-// the same id and step j lies inside T, MASKED otherwise.  Each warp takes
-// every WARPS-th step, four at a time so that their loads are in flight
-// together.  Ends with __syncthreads().
-__device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ seg_b, int own0,
-                            int nsteps, int T_len) {
+// flags[j] for every step j of the other side (rows [j BN, (j+1) BN) of
+// other_seg, other_len rows) against the block's own rows [own0, own1) of
+// own_seg, own1 - own0 <= BM: SKIP when their segment ranges do not overlap
+// (no pair matches), UNMASKED when both hold one and the same id and step j
+// lies inside other_len, MASKED otherwise.  Each warp takes every WARPS-th
+// step, four at a time so that their loads are in flight together.  Ends
+// with __syncthreads().
+__device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ own_seg, int own0,
+                            int own1, const int32_t* __restrict__ other_seg, int nsteps,
+                            int other_len) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int mlo = INT_MAX, mhi = INT_MIN;
 #pragma unroll
   for (int r = lane; r < BM; r += 32) {
     const int t = own0 + r;
-    if (t < T_len) {
-      mlo = min(mlo, seg_b[t]);
-      mhi = max(mhi, seg_b[t]);
+    if (t < own1) {
+      mlo = min(mlo, own_seg[t]);
+      mhi = max(mhi, own_seg[t]);
     }
   }
   warp_min_max(mlo, mhi);
@@ -294,9 +302,9 @@ __device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ seg_b, i
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u * WARPS;
       const int t = j * BN + lane;
-      const bool ok = lane < BN && j < nsteps && t < T_len;
-      lo[u] = ok ? seg_b[t] : INT_MAX;
-      hi[u] = ok ? seg_b[t] : INT_MIN;
+      const bool ok = lane < BN && j < nsteps && t < other_len;
+      lo[u] = ok ? other_seg[t] : INT_MAX;
+      hi[u] = ok ? other_seg[t] : INT_MIN;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -304,7 +312,8 @@ __device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ seg_b, i
       warp_min_max(lo[u], hi[u]);
       if (lane == 0 && j < nsteps) {
         uint8_t f = (hi[u] < mlo || lo[u] > mhi) ? SKIP : MASKED;
-        if (f == MASKED && mlo == mhi && lo[u] == hi[u] && lo[u] == mlo && (j + 1) * BN <= T_len)
+        if (f == MASKED && mlo == mhi && lo[u] == hi[u] && lo[u] == mlo &&
+            (j + 1) * BN <= other_len)
           f = UNMASKED;
         flags[j] = f;
       }
@@ -327,7 +336,8 @@ __global__ void __launch_bounds__(THREADS, 3)
 tf32x3_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
                      const int32_t* __restrict__ seg, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int T_len, int D, float scale) {
+                     float* __restrict__ lse, int H, int Tq, int Tk, int q_off, int D,
+                     float scale) {
   constexpr int LDS = Tile<DP>::LDS;
   constexpr int KSTEPS = DP / 8;             // k-steps over the head dim
   constexpr int NT_D = DP / 8;               // n-tiles over the head dim
@@ -347,28 +357,29 @@ tf32x3_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int r0 = warp * 16;
-  const int nsteps = (T_len + BN - 1) / BN;
-  const int32_t* seg_b = seg + (long long)b * T_len;
+  const int nsteps = (Tk + BN - 1) / BN;
+  const int32_t* seg_b = seg + (long long)b * Tk;
 
-  load_tile<DP, BM>(Qs, q, sq, b, h, row0, T_len, D);
+  load_tile<DP, BM>(Qs, q, sq, b, h, row0, Tq, D);
   cp_async_commit();
-  build_flags(flags, seg_b, row0, nsteps, T_len);
+  build_flags(flags, seg_b, q_off + row0, q_off + min(row0 + BM, Tq), seg_b, nsteps, Tk);
 
   // this thread's two query rows and their segment ids
   int qseg[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = row0 + r0 + g + 8 * i;
-    qseg[i] = t < T_len ? seg_b[t] : 0;
+    qseg[i] = t < Tq ? seg_b[q_off + t] : 0;
   }
 
   auto load_kv = [&](int j, int buf) {
-    load_tile<DP, BN>(Ks + buf * BN * LDS, k, sk, b, h, j * BN, T_len, D);
-    load_tile<DP, BN>(Vs + buf * BN * LDS, v, sv, b, h, j * BN, T_len, D);
-    load_rows(kseg + buf * BN, seg_b, j * BN, T_len);
+    load_tile<DP, BN>(Ks + buf * BN * LDS, k, sk, b, h, j * BN, Tk, D);
+    load_tile<DP, BN>(Vs + buf * BN * LDS, v, sv, b, h, j * BN, Tk, D);
+    load_rows(kseg + buf * BN, seg_b, j * BN, Tk);
   };
 
-  int j = next_step(flags, 0, nsteps);  // a step holding an own row is never skipped
+  // a step holding an own row's key is never skipped (q_off + Tq <= Tk)
+  int j = next_step(flags, 0, nsteps);
   load_kv(j, 0);
   cp_async_commit();
 
@@ -414,7 +425,7 @@ tf32x3_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * tq + (e & 1);
-        if (masked && !(col0 + c < T_len && ks[c] == qseg[e >> 1])) s[n][e] = -INFINITY;
+        if (masked && !(col0 + c < Tk && ks[c] == qseg[e >> 1])) s[n][e] = -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     float alpha[2], base[2];
@@ -457,15 +468,15 @@ tf32x3_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int t = row0 + r0 + g + 8 * i;
-    if (t < T_len) {
+    if (t < Tq) {
       const float inv = 1.f / l[i];
-      float* orow = o + (((long long)b * T_len + t) * H + h) * D;
+      float* orow = o + (((long long)b * Tq + t) * H + h) * D;
 #pragma unroll
       for (int n = 0; n < NT_D; ++n)
         if (n * 8 + 2 * tq < D)
           *reinterpret_cast<float2*>(orow + n * 8 + 2 * tq) =
               make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-      if (tq == 0) lse[(long long)bh * T_len + t] = m[i] + logf(l[i]);
+      if (tq == 0) lse[(long long)bh * Tq + t] = m[i] + logf(l[i]);
     }
   }
 }
@@ -504,8 +515,8 @@ dkdv_block(unsigned char* smem, int tile, const float* __restrict__ q,
            const float* __restrict__ k, const float* __restrict__ v, Strides sq, Strides sk,
            Strides sv, const float* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, const int32_t* __restrict__ seg,
-           float* __restrict__ dk, float* __restrict__ dv, int H, int T_len, int D,
-           float scale) {
+           float* __restrict__ dk, float* __restrict__ dv, int H, int Tq, int Tk, int q_off,
+           int D, float scale) {
   constexpr int LDS = Tile<DP>::LDS;
   constexpr int KSTEPS = DP / 8;
   constexpr int NT_D = DP / 8;
@@ -527,29 +538,30 @@ dkdv_block(unsigned char* smem, int tile, const float* __restrict__ q,
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int r0 = warp * 16;
-  const int nsteps = (T_len + BN - 1) / BN;
-  const int32_t* seg_b = seg + (long long)b * T_len;
-  const long long row_base = (long long)bh * T_len;
-  const Strides so = {(long long)T_len * H * D, (long long)H * D, (long long)D};
+  const int nsteps = (Tq + BN - 1) / BN;    // query steps
+  const int32_t* seg_b = seg + (long long)b * Tk;
+  const int32_t* seg_q = seg_b + q_off;     // the query rows' segment ids
+  const long long row_base = (long long)bh * Tq;
+  const Strides so = {(long long)Tq * H * D, (long long)H * D, (long long)D};
 
-  load_tile<DP, BM>(Ks, k, sk, b, h, col0, T_len, D);
-  load_tile<DP, BM>(Vs, v, sv, b, h, col0, T_len, D);
+  load_tile<DP, BM>(Ks, k, sk, b, h, col0, Tk, D);
+  load_tile<DP, BM>(Vs, v, sv, b, h, col0, Tk, D);
   cp_async_commit();
-  build_flags(flags, seg_b, col0, nsteps, T_len);
+  build_flags(flags, seg_b, col0, min(col0 + BM, Tk), seg_q, nsteps, Tq);
 
   int kseg[2];  // this thread's two key rows
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = col0 + r0 + g + 8 * i;
-    kseg[i] = t < T_len ? seg_b[t] : 0;
+    kseg[i] = t < Tk ? seg_b[t] : 0;
   }
 
   auto load_q = [&](int i, int buf) {
-    load_tile<DP, BN>(Qs + buf * BN * LDS, q, sq, b, h, i * BN, T_len, D);
-    load_tile<DP, BN>(dOs + buf * BN * LDS, dout, so, b, h, i * BN, T_len, D);
-    load_rows(qseg + buf * BN, seg_b, i * BN, T_len);
-    load_rows(lse_s + buf * BN, lse + row_base, i * BN, T_len);
-    load_rows(delta_s + buf * BN, delta + row_base, i * BN, T_len);
+    load_tile<DP, BN>(Qs + buf * BN * LDS, q, sq, b, h, i * BN, Tq, D);
+    load_tile<DP, BN>(dOs + buf * BN * LDS, dout, so, b, h, i * BN, Tq, D);
+    load_rows(qseg + buf * BN, seg_q, i * BN, Tq);
+    load_rows(lse_s + buf * BN, lse + row_base, i * BN, Tq);
+    load_rows(delta_s + buf * BN, delta + row_base, i * BN, Tq);
   };
 
   float adk[NT_D][4], adv[NT_D][4];
@@ -561,8 +573,9 @@ dkdv_block(unsigned char* smem, int tile, const float* __restrict__ q,
       adv[n][e] = 0.f;
     }
 
+  // a key tile outside the query block's segments visits no step (dK, dV 0)
   int i = next_step(flags, 0, nsteps);
-  load_q(i, 0);
+  if (i < nsteps) load_q(i, 0);
   cp_async_commit();
   for (int buf = 0; i < nsteps; buf ^= 1) {
     const int in = next_step(flags, i + 1, nsteps);
@@ -605,7 +618,7 @@ dkdv_block(unsigned char* smem, int tile, const float* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * tq + (e & 1);
         float p = expf(st[n][e] * scale - ls[c]);
-        if (masked && !(row0 + c < T_len && qs[c] == kseg[e >> 1])) p = 0.f;
+        if (masked && !(row0 + c < Tq && qs[c] == kseg[e >> 1])) p = 0.f;
         st[n][e] = p;
         dpt[n][e] = p * (dpt[n][e] - ds_[c]) * scale;
       }
@@ -627,8 +640,8 @@ dkdv_block(unsigned char* smem, int tile, const float* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = col0 + r0 + g + 8 * r;
-    if (t < T_len) {
-      const long long off = (((long long)b * T_len + t) * H + h) * D;
+    if (t < Tk) {
+      const long long off = (((long long)b * Tk + t) * H + h) * D;
 #pragma unroll
       for (int n = 0; n < NT_D; ++n)
         if (n * 8 + 2 * tq < D) {
@@ -649,7 +662,7 @@ dq_block(unsigned char* smem, int tile, const float* __restrict__ q, const float
          const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
          const float* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, const int32_t* __restrict__ seg,
-         float* __restrict__ dq, int H, int T_len, int D, float scale) {
+         float* __restrict__ dq, int H, int Tq, int Tk, int q_off, int D, float scale) {
   constexpr int LDS = Tile<DP>::LDS;
   constexpr int KSTEPS = DP / 8;
   constexpr int NT_D = DP / 8;
@@ -669,31 +682,31 @@ dq_block(unsigned char* smem, int tile, const float* __restrict__ q, const float
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int r0 = warp * 16;
-  const int nsteps = (T_len + BN - 1) / BN;
-  const int32_t* seg_b = seg + (long long)b * T_len;
-  const long long row_base = (long long)bh * T_len;
-  const Strides so = {(long long)T_len * H * D, (long long)H * D, (long long)D};
+  const int nsteps = (Tk + BN - 1) / BN;    // key steps
+  const int32_t* seg_b = seg + (long long)b * Tk;
+  const long long row_base = (long long)bh * Tq;
+  const Strides so = {(long long)Tq * H * D, (long long)H * D, (long long)D};
 
-  load_tile<DP, BM>(Qs, q, sq, b, h, row0, T_len, D);
-  load_tile<DP, BM>(dOs, dout, so, b, h, row0, T_len, D);
+  load_tile<DP, BM>(Qs, q, sq, b, h, row0, Tq, D);
+  load_tile<DP, BM>(dOs, dout, so, b, h, row0, Tq, D);
   cp_async_commit();
-  build_flags(flags, seg_b, row0, nsteps, T_len);
+  build_flags(flags, seg_b, q_off + row0, q_off + min(row0 + BM, Tq), seg_b, nsteps, Tk);
 
   int qseg[2];  // this thread's two query rows
   float lse_r[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = row0 + r0 + g + 8 * i;
-    const bool ok = t < T_len;
-    qseg[i] = ok ? seg_b[t] : 0;
+    const bool ok = t < Tq;
+    qseg[i] = ok ? seg_b[q_off + t] : 0;
     lse_r[i] = ok ? lse[row_base + t] : 0.f;
     dlt[i] = ok ? delta[row_base + t] : 0.f;
   }
 
   auto load_kv = [&](int j, int buf) {
-    load_tile<DP, BN>(Ks + buf * BN * LDS, k, sk, b, h, j * BN, T_len, D);
-    load_tile<DP, BN>(Vs + buf * BN * LDS, v, sv, b, h, j * BN, T_len, D);
-    load_rows(kseg + buf * BN, seg_b, j * BN, T_len);
+    load_tile<DP, BN>(Ks + buf * BN * LDS, k, sk, b, h, j * BN, Tk, D);
+    load_tile<DP, BN>(Vs + buf * BN * LDS, v, sv, b, h, j * BN, Tk, D);
+    load_rows(kseg + buf * BN, seg_b, j * BN, Tk);
   };
 
   float adq[NT_D][4];
@@ -744,7 +757,7 @@ dq_block(unsigned char* smem, int tile, const float* __restrict__ q, const float
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * tq + (e & 1);
         float p = expf(s[n][e] * scale - lse_r[e >> 1]);
-        if (masked && !(col0 + c < T_len && ks[c] == qseg[e >> 1])) p = 0.f;
+        if (masked && !(col0 + c < Tk && ks[c] == qseg[e >> 1])) p = 0.f;
         s[n][e] = p * (dp[n][e] - dlt[e >> 1]) * scale;
       }
     // dQ += dS K, k-steps of 8 keys
@@ -761,8 +774,8 @@ dq_block(unsigned char* smem, int tile, const float* __restrict__ q, const float
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = row0 + r0 + g + 8 * r;
-    if (t < T_len) {
-      float* row = dq + (((long long)b * T_len + t) * H + h) * D;
+    if (t < Tq) {
+      float* row = dq + (((long long)b * Tq + t) * H + h) * D;
 #pragma unroll
       for (int n = 0; n < NT_D; ++n)
         if (n * 8 + 2 * tq < D)
@@ -772,8 +785,8 @@ dq_block(unsigned char* smem, int tile, const float* __restrict__ q, const float
   }
 }
 
-// The backward's two kernels as one launch: blocks [0, ntiles) of a grid row
-// own a key tile (dK, dV), blocks [ntiles, 2 ntiles) a query tile (dQ).  The
+// The backward's two kernels as one launch: blocks [0, ntk) of a grid row
+// own a key tile (dK, dV), blocks [ntk, ntk + ntq) a query tile (dQ).  The
 // two halves need nothing from each other, and twice the blocks fill the
 // card's last wave better than two launches in turn.
 template <int DP>
@@ -783,15 +796,15 @@ tf32x3_attention_bwd(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, const int32_t* __restrict__ seg,
                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                     int H, int T_len, int D, float scale) {
+                     int H, int Tq, int Tk, int q_off, int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ntiles = (T_len + BM - 1) / BM;
-  if ((int)blockIdx.x < ntiles)
-    dkdv_block<DP>(smem, blockIdx.x, q, k, v, sq, sk, sv, dout, lse, delta, seg, dk, dv, H, T_len,
-                   D, scale);
+  const int ntk = (Tk + BM - 1) / BM;
+  if ((int)blockIdx.x < ntk)
+    dkdv_block<DP>(smem, blockIdx.x, q, k, v, sq, sk, sv, dout, lse, delta, seg, dk, dv, H, Tq, Tk,
+                   q_off, D, scale);
   else
-    dq_block<DP>(smem, blockIdx.x - ntiles, q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, H,
-                 T_len, D, scale);
+    dq_block<DP>(smem, blockIdx.x - ntk, q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, H, Tq, Tk,
+                 q_off, D, scale);
 }
 
 // shared memory of each kernel: f32 tiles, 4-byte row values, the flags (the
@@ -812,14 +825,14 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 template <int DP>
 int launch_fwd(const float* q, const float* k, const float* v, Strides sq, Strides sk,
-               Strides sv, const int32_t* seg, float* o, float* lse, int B, int H, int T_len,
-               int D, float scale, cudaStream_t st) {
-  const int ntiles = (T_len + BM - 1) / BM;
-  const size_t smem = fwd_smem<DP>((T_len + BN - 1) / BN);
+               Strides sv, const int32_t* seg, float* o, float* lse, int B, int H, int Tq,
+               int Tk, int q_off, int D, float scale, cudaStream_t st) {
+  const int ntq = (Tq + BM - 1) / BM;
+  const size_t smem = fwd_smem<DP>((Tk + BN - 1) / BN);
   cudaError_t e = prepare(tf32x3_attention_fwd<DP>, smem);
   if (e != cudaSuccess) return (int)e;
-  tf32x3_attention_fwd<DP><<<dim3(ntiles, B * H), THREADS, smem, st>>>(
-      q, k, v, sq, sk, sv, seg, o, lse, H, T_len, D, scale);
+  tf32x3_attention_fwd<DP><<<dim3(ntq, B * H), THREADS, smem, st>>>(
+      q, k, v, sq, sk, sv, seg, o, lse, H, Tq, Tk, q_off, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -827,63 +840,77 @@ template <int DP>
 int launch_bwd(const float* q, const float* k, const float* v, Strides sq, Strides sk,
                Strides sv, const int32_t* seg, const float* o, const float* dout,
                const float* lse, float* delta, float* dq, float* dk, float* dv, int B, int H,
-               int T_len, int D, float scale, cudaStream_t st) {
-  const long long n_rows = (long long)B * T_len * H;
+               int Tq, int Tk, int q_off, int D, float scale, cudaStream_t st) {
+  const long long n_rows = (long long)B * Tq * H;
   const int rows_per_block = 8;
   const unsigned delta_blocks = (unsigned)((n_rows + rows_per_block - 1) / rows_per_block);
   tf32x3_attention_delta<<<delta_blocks, 32 * rows_per_block, 0, st>>>(
-      o, dout, delta, n_rows, H, T_len, D);
+      o, dout, delta, n_rows, H, Tq, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  const int ntiles = (T_len + BM - 1) / BM;
-  const size_t smem = bwd_smem<DP>((T_len + BN - 1) / BN);
+  const int ntq = (Tq + BM - 1) / BM, ntk = (Tk + BM - 1) / BM;
+  const int nsteps_q = (Tq + BN - 1) / BN, nsteps_k = (Tk + BN - 1) / BN;
+  const size_t smem = bwd_smem<DP>(nsteps_q > nsteps_k ? nsteps_q : nsteps_k);
   if ((e = prepare(tf32x3_attention_bwd<DP>, smem)) != cudaSuccess) return (int)e;
-  tf32x3_attention_bwd<DP><<<dim3(2 * ntiles, B * H), THREADS, smem, st>>>(
-      q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, dk, dv, H, T_len, D, scale);
+  tf32x3_attention_bwd<DP><<<dim3(ntk + ntq, B * H), THREADS, smem, st>>>(
+      q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, dk, dv, H, Tq, Tk, q_off, D, scale);
   return (int)cudaGetLastError();
+}
+
+// the query block's rows [q_off, q_off + Tq) lie inside the Tk keys
+bool bad_shape(int Tq, int Tk, int q_off) {
+  return Tq < 1 || Tk < 1 || q_off < 0 || q_off + Tq > Tk;
 }
 
 }  // namespace
 
-// Strides are element strides of the batch, time and head dimensions; q, k,
-// v rows start on 16 bytes.  The head dim is padded with zeros in shared
-// memory to 32, 64 or 128.  Returns a cudaError_t (0 on success).
+// q [B, Tq, H, D] holds rows [q_off, q_off + Tq) of a sequence whose keys
+// k, v are [B, Tk, H, D] and whose segment ids seg are [B, Tk]; Tq == Tk
+// with q_off 0 is the whole sequence.  Strides are element strides of the
+// batch, time and head dimensions; q, k, v rows start on 16 bytes.  The head
+// dim is padded with zeros in shared memory to 32, 64 or 128.  o [B, Tq, H,
+// D] and lse [B, H, Tq] are written contiguous.  Returns a cudaError_t (0 on
+// success).
 extern "C" int dae_flash_attention_fwd(const float* q, const float* k, const float* v,
                                        long long sqb, long long sqt, long long sqh,
                                        long long skb, long long skt, long long skh,
                                        long long svb, long long svt, long long svh,
                                        const int32_t* seg, float* o, float* lse, int B,
-                                       int H, int T_len, int D, float scale, void* stream) {
-  if (D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+                                       int H, int Tq, int Tk, int q_off, int D, float scale,
+                                       void* stream) {
+  if (D < 4 || D > 128 || D % 4 || bad_shape(Tq, Tk, q_off)) return (int)cudaErrorInvalidValue;
   const Strides sq = {sqb, sqt, sqh}, sk = {skb, skt, skh}, sv = {svb, svt, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return launch_fwd<32>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
-  if (D <= 64) return launch_fwd<64>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
-  return launch_fwd<128>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
+  if (D <= 32)
+    return launch_fwd<32>(q, k, v, sq, sk, sv, seg, o, lse, B, H, Tq, Tk, q_off, D, scale, st);
+  if (D <= 64)
+    return launch_fwd<64>(q, k, v, sq, sk, sv, seg, o, lse, B, H, Tq, Tk, q_off, D, scale, st);
+  return launch_fwd<128>(q, k, v, sq, sk, sv, seg, o, lse, B, H, Tq, Tk, q_off, D, scale, st);
 }
 
-// o and dout are contiguous [B, T, H, D] (rows on 16 bytes); dq, dk, dv are
-// written contiguous [B, T, H, D]; delta is f32 scratch [B, H, T].
+// o and dout are contiguous [B, Tq, H, D] (rows on 16 bytes); dq [B, Tq, H,
+// D] and dk, dv [B, Tk, H, D] are written contiguous: dk, dv are this query
+// block's share of the keys' gradients; delta is f32 scratch [B, H, Tq].
 extern "C" int dae_flash_attention_bwd(const float* q, const float* k, const float* v,
                                        long long sqb, long long sqt, long long sqh,
                                        long long skb, long long skt, long long skh,
                                        long long svb, long long svt, long long svh,
                                        const int32_t* seg, const float* o,
                                        const float* dout, const float* lse, float* delta,
-                                       float* dq, float* dk, float* dv, int B, int H,
-                                       int T_len, int D, float scale, void* stream) {
-  if (D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+                                       float* dq, float* dk, float* dv, int B, int H, int Tq,
+                                       int Tk, int q_off, int D, float scale, void* stream) {
+  if (D < 4 || D > 128 || D % 4 || bad_shape(Tq, Tk, q_off)) return (int)cudaErrorInvalidValue;
   const Strides sq = {sqb, sqt, sqh}, sk = {skb, skt, skh}, sv = {svb, svt, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return launch_bwd<32>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, T_len,
-                          D, scale, st);
+    return launch_bwd<32>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                          q_off, D, scale, st);
   if (D <= 64)
-    return launch_bwd<64>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, T_len,
-                          D, scale, st);
-  return launch_bwd<128>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, T_len, D,
-                         scale, st);
+    return launch_bwd<64>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                          q_off, D, scale, st);
+  return launch_bwd<128>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                         q_off, D, scale, st);
 }
 
 extern "C" const char* dae_cuda_error_string(int code) {

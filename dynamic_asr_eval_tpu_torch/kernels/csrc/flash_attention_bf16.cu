@@ -12,6 +12,12 @@
 // segment id per frame [B, T].  Key j counts for query i only when seg[i] ==
 // seg[j] (the TPU kernel's segment-id semantics, padding rows included); keys
 // past T are masked by bound.  Softmax scale 1/sqrt(D) is passed in.
+// A query block (sequence parallelism): q may hold only rows [q_off, q_off +
+// Tq) of the Tk frames that k, v and seg cover; the forward gives those rows,
+// the backward their dQ and their share of dK, dV over all Tk keys (a sum
+// over the blocks gives the whole).  Each tile's rows and the tiles it
+// visits are those of the whole call when q_off is a multiple of 64, so the
+// block's O, L and dQ rows are then the whole call's bit for bit.
 //   forward : O [B, T, H, D] bf16, row log-sum-exp L [B, H, T] f32
 //   backward: Delta = rowsum(dO * O) (one kernel), then one launch whose
 //             blocks each own a key tile (dK, dV: loop over query tiles) or
@@ -238,14 +244,15 @@ __device__ __forceinline__ void warp_min_max(int& lo, int& hi) {
   }
 }
 
-// min and max segment id over the rows of tile j inside T (one warp)
-__device__ __forceinline__ int2 tile_range(const int32_t* __restrict__ seg_b, int j, int T_len) {
+// min and max segment id over rows [r0, r1) of one tile, r1 - r0 <= BM
+// (one warp)
+__device__ __forceinline__ int2 row_range(const int32_t* __restrict__ seg_b, int r0, int r1) {
   const int lane = threadIdx.x & 31;
   int lo = INT_MAX, hi = INT_MIN;
 #pragma unroll
   for (int r = lane; r < BM; r += 32) {
-    const int t = j * BM + r;
-    if (t < T_len) {
+    const int t = r0 + r;
+    if (t < r1) {
       lo = min(lo, seg_b[t]);
       hi = max(hi, seg_b[t]);
     }
@@ -256,16 +263,19 @@ __device__ __forceinline__ int2 tile_range(const int32_t* __restrict__ seg_b, in
 
 constexpr uint8_t SKIP = 0, MASKED = 1, UNMASKED = 2;
 
-// flags[j] for every tile j of the other side against the block's own tile
-// `own`: SKIP when their segment ranges do not overlap (no pair matches),
-// UNMASKED when both hold one and the same id and tile j lies inside T,
-// MASKED otherwise.  Each warp takes every WARPS-th tile, four at a time so
-// that their loads are in flight together.  Ends with __syncthreads().
-__device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ seg_b, int own,
-                            int ntiles, int T_len) {
+// flags[j] for every tile j of the other side (rows [j BM, (j+1) BM) of
+// other_seg, other_len rows) against the block's own rows [own0, own1) of
+// own_seg: SKIP when their segment ranges do not overlap (no pair matches),
+// UNMASKED when both hold one and the same id and tile j lies inside
+// other_len, MASKED otherwise.  Each warp takes every WARPS-th tile, four at
+// a time so that their loads are in flight together.  Ends with
+// __syncthreads().
+__device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ own_seg, int own0,
+                            int own1, const int32_t* __restrict__ other_seg, int ntiles,
+                            int other_len) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int2 mine = tile_range(seg_b, own, T_len);
+  const int2 mine = row_range(own_seg, own0, own1);
   constexpr int U = 4;
   for (int j0 = warp; j0 < ntiles; j0 += U * WARPS) {
     int lo[U], hi[U];
@@ -277,9 +287,9 @@ __device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ seg_b, i
 #pragma unroll
       for (int r = lane; r < BM; r += 32) {
         const int t = j * BM + r;
-        if (j < ntiles && t < T_len) {
-          lo[u] = min(lo[u], seg_b[t]);
-          hi[u] = max(hi[u], seg_b[t]);
+        if (j < ntiles && t < other_len) {
+          lo[u] = min(lo[u], other_seg[t]);
+          hi[u] = max(hi[u], other_seg[t]);
         }
       }
     }
@@ -290,7 +300,7 @@ __device__ void build_flags(uint8_t* flags, const int32_t* __restrict__ seg_b, i
       if (lane == 0 && j < ntiles) {
         uint8_t f = (hi[u] < mine.x || lo[u] > mine.y) ? SKIP : MASKED;
         if (f == MASKED && mine.x == mine.y && lo[u] == hi[u] && lo[u] == mine.x &&
-            (j + 1) * BM <= T_len)
+            (j + 1) * BM <= other_len)
           f = UNMASKED;
         flags[j] = f;
       }
@@ -317,7 +327,7 @@ __global__ void __launch_bounds__(THREADS, 3)
 tc_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
                  const int32_t* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse,
-                 int H, int T_len, int D, float scale_log2) {
+                 int H, int Tq, int Tk, int q_off, int D, float scale_log2) {
   constexpr int LDS = Tile<DP>::LDS;
   constexpr int KSTEPS = DP / 16;            // k-steps over the head dim
   constexpr int NT_D = DP / 8;               // n-tiles over the head dim
@@ -336,28 +346,29 @@ tc_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int ntiles = (T_len + BM - 1) / BM;
-  const int32_t* seg_b = seg + (long long)b * T_len;
+  const int ntiles = (Tk + BM - 1) / BM;
+  const int32_t* seg_b = seg + (long long)b * Tk;
 
-  load_tile<DP>(Qs, q, sq, b, h, row0, T_len, D);
+  load_tile<DP>(Qs, q, sq, b, h, row0, Tq, D);
   cp_async_commit();
-  build_flags(flags, seg_b, blockIdx.x, ntiles, T_len);
+  build_flags(flags, seg_b, q_off + row0, q_off + min(row0 + BM, Tq), seg_b, ntiles, Tk);
 
   // this thread's two query rows and their segment ids
   int qseg[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = row0 + warp * 16 + g + 8 * i;
-    qseg[i] = t < T_len ? seg_b[t] : 0;
+    qseg[i] = t < Tq ? seg_b[q_off + t] : 0;
   }
 
   auto load_kv = [&](int j, int buf) {
-    load_tile<DP>(Ks + buf * Tile<DP>::ELEMS, k, sk, b, h, j * BM, T_len, D);
-    load_tile<DP>(Vs + buf * Tile<DP>::ELEMS, v, sv, b, h, j * BM, T_len, D);
-    load_rows(kseg + buf * BM, seg_b, j * BM, T_len);
+    load_tile<DP>(Ks + buf * Tile<DP>::ELEMS, k, sk, b, h, j * BM, Tk, D);
+    load_tile<DP>(Vs + buf * Tile<DP>::ELEMS, v, sv, b, h, j * BM, Tk, D);
+    load_rows(kseg + buf * BM, seg_b, j * BM, Tk);
   };
 
-  int j = next_tile(flags, 0, ntiles);  // the own tile is never skipped
+  // a tile holding an own row's key is never skipped (q_off + Tq <= Tk)
+  int j = next_tile(flags, 0, ntiles);
   load_kv(j, 0);
   cp_async_commit();
   cp_async_wait_1();  // Q has landed
@@ -413,7 +424,7 @@ tc_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * tq + (e & 1);
-        if (masked && !(col0 + c < T_len && ks[c] == qseg[e >> 1])) s[n][e] = -INFINITY;
+        if (masked && !(col0 + c < Tk && ks[c] == qseg[e >> 1])) s[n][e] = -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     float alpha[2], base[2];
@@ -462,14 +473,14 @@ tc_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int t = row0 + warp * 16 + g + 8 * i;
-    if (t < T_len) {
+    if (t < Tq) {
       const float inv = 1.f / l[i];
-      bf16* orow = o + (((long long)b * T_len + t) * H + h) * D;
+      bf16* orow = o + (((long long)b * Tq + t) * H + h) * D;
 #pragma unroll
       for (int n = 0; n < NT_D; ++n)
         if (n * 8 < D)
           store_bf16x2(orow + n * 8 + 2 * tq, acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-      if (tq == 0) lse[(long long)bh * T_len + t] = m[i] * LN2 + logf(l[i]);
+      if (tq == 0) lse[(long long)bh * Tq + t] = m[i] * LN2 + logf(l[i]);
     }
   }
 }
@@ -510,7 +521,8 @@ dkdv_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16
            const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
            const bf16* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, const int32_t* __restrict__ seg, bf16* __restrict__ dk,
-           bf16* __restrict__ dv, int H, int T_len, int D, float scale, float scale_log2) {
+           bf16* __restrict__ dv, int H, int Tq, int Tk, int q_off, int D, float scale,
+           float scale_log2) {
   constexpr int LDS = Tile<DP>::LDS;
   constexpr int KSTEPS = DP / 16;
   constexpr int NT_D = DP / 8;
@@ -532,29 +544,30 @@ dkdv_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int ntiles = (T_len + BM - 1) / BM;
-  const int32_t* seg_b = seg + (long long)b * T_len;
-  const long long row_base = (long long)bh * T_len;
-  const Strides so = {(long long)T_len * H * D, (long long)H * D, (long long)D};
+  const int ntiles = (Tq + BM - 1) / BM;     // query tiles
+  const int32_t* seg_b = seg + (long long)b * Tk;
+  const int32_t* seg_q = seg_b + q_off;      // the query rows' segment ids
+  const long long row_base = (long long)bh * Tq;
+  const Strides so = {(long long)Tq * H * D, (long long)H * D, (long long)D};
 
-  load_tile<DP>(Ks, k, sk, b, h, col0, T_len, D);
-  load_tile<DP>(Vs, v, sv, b, h, col0, T_len, D);
+  load_tile<DP>(Ks, k, sk, b, h, col0, Tk, D);
+  load_tile<DP>(Vs, v, sv, b, h, col0, Tk, D);
   cp_async_commit();
-  build_flags(flags, seg_b, tile, ntiles, T_len);
+  build_flags(flags, seg_b, col0, min(col0 + BM, Tk), seg_q, ntiles, Tq);
 
   int kseg[2];  // this thread's two key rows
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = col0 + warp * 16 + g + 8 * i;
-    kseg[i] = t < T_len ? seg_b[t] : 0;
+    kseg[i] = t < Tk ? seg_b[t] : 0;
   }
 
   auto load_q = [&](int i, int buf) {
-    load_tile<DP>(Qs + buf * Tile<DP>::ELEMS, q, sq, b, h, i * BM, T_len, D);
-    load_tile<DP>(dOs + buf * Tile<DP>::ELEMS, dout, so, b, h, i * BM, T_len, D);
-    load_rows(qseg + buf * BM, seg_b, i * BM, T_len);
-    load_rows(lse_s + buf * BM, lse + row_base, i * BM, T_len);
-    load_rows(delta_s + buf * BM, delta + row_base, i * BM, T_len);
+    load_tile<DP>(Qs + buf * Tile<DP>::ELEMS, q, sq, b, h, i * BM, Tq, D);
+    load_tile<DP>(dOs + buf * Tile<DP>::ELEMS, dout, so, b, h, i * BM, Tq, D);
+    load_rows(qseg + buf * BM, seg_q, i * BM, Tq);
+    load_rows(lse_s + buf * BM, lse + row_base, i * BM, Tq);
+    load_rows(delta_s + buf * BM, delta + row_base, i * BM, Tq);
   };
 
   float adk[NT_D][4], adv[NT_D][4];
@@ -566,8 +579,9 @@ dkdv_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16
       adv[n][e] = 0.f;
     }
 
+  // a key tile outside the query block's segments visits no tile (dK, dV 0)
   int i = next_tile(flags, 0, ntiles);
-  load_q(i, 0);
+  if (i < ntiles) load_q(i, 0);
   cp_async_commit();
   for (int buf = 0; i < ntiles; buf ^= 1) {
     const int in = next_tile(flags, i + 1, ntiles);
@@ -619,7 +633,7 @@ dkdv_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16
         for (int e = 0; e < 4; ++e) {
           const int c = q0 + n * 8 + 2 * tq + (e & 1);
           float p = fast_exp2(st[n][e] * scale_log2 - ls[c] * LOG2E);
-          if (masked && !(row0 + c < T_len && qs[c] == kseg[e >> 1])) p = 0.f;
+          if (masked && !(row0 + c < Tq && qs[c] == kseg[e >> 1])) p = 0.f;
           st[n][e] = p;
           dpt[n][e] = p * (dpt[n][e] - ds_[c]) * scale;
         }
@@ -648,8 +662,8 @@ dkdv_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = col0 + warp * 16 + g + 8 * r;
-    if (t < T_len) {
-      const long long off = (((long long)b * T_len + t) * H + h) * D;
+    if (t < Tk) {
+      const long long off = (((long long)b * Tk + t) * H + h) * D;
 #pragma unroll
       for (int n = 0; n < NT_D; ++n)
         if (n * 8 < D) {
@@ -668,7 +682,7 @@ dq_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16* 
          const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
          const bf16* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, const int32_t* __restrict__ seg, bf16* __restrict__ dq,
-         int H, int T_len, int D, float scale, float scale_log2) {
+         int H, int Tq, int Tk, int q_off, int D, float scale, float scale_log2) {
   constexpr int LDS = Tile<DP>::LDS;
   constexpr int KSTEPS = DP / 16;
   constexpr int NT_D = DP / 8;
@@ -687,31 +701,31 @@ dq_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16* 
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int ntiles = (T_len + BM - 1) / BM;
-  const int32_t* seg_b = seg + (long long)b * T_len;
-  const long long row_base = (long long)bh * T_len;
-  const Strides so = {(long long)T_len * H * D, (long long)H * D, (long long)D};
+  const int ntiles = (Tk + BM - 1) / BM;     // key tiles
+  const int32_t* seg_b = seg + (long long)b * Tk;
+  const long long row_base = (long long)bh * Tq;
+  const Strides so = {(long long)Tq * H * D, (long long)H * D, (long long)D};
 
-  load_tile<DP>(Qs, q, sq, b, h, row0, T_len, D);
-  load_tile<DP>(dOs, dout, so, b, h, row0, T_len, D);
+  load_tile<DP>(Qs, q, sq, b, h, row0, Tq, D);
+  load_tile<DP>(dOs, dout, so, b, h, row0, Tq, D);
   cp_async_commit();
-  build_flags(flags, seg_b, tile, ntiles, T_len);
+  build_flags(flags, seg_b, q_off + row0, q_off + min(row0 + BM, Tq), seg_b, ntiles, Tk);
 
   int qseg[2];        // this thread's two query rows
   float lse2[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = row0 + warp * 16 + g + 8 * i;
-    const bool ok = t < T_len;
-    qseg[i] = ok ? seg_b[t] : 0;
+    const bool ok = t < Tq;
+    qseg[i] = ok ? seg_b[q_off + t] : 0;
     lse2[i] = ok ? lse[row_base + t] * LOG2E : 0.f;
     dlt[i] = ok ? delta[row_base + t] : 0.f;
   }
 
   auto load_kv = [&](int j, int buf) {
-    load_tile<DP>(Ks + buf * Tile<DP>::ELEMS, k, sk, b, h, j * BM, T_len, D);
-    load_tile<DP>(Vs + buf * Tile<DP>::ELEMS, v, sv, b, h, j * BM, T_len, D);
-    load_rows(kseg + buf * BM, seg_b, j * BM, T_len);
+    load_tile<DP>(Ks + buf * Tile<DP>::ELEMS, k, sk, b, h, j * BM, Tk, D);
+    load_tile<DP>(Vs + buf * Tile<DP>::ELEMS, v, sv, b, h, j * BM, Tk, D);
+    load_rows(kseg + buf * BM, seg_b, j * BM, Tk);
   };
 
   float adq[NT_D][4];
@@ -768,7 +782,7 @@ dq_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16* 
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * tq + (e & 1);
         float p = fast_exp2(s[n][e] * scale_log2 - lse2[e >> 1]);
-        if (masked && !(col0 + c < T_len && ks[c] == qseg[e >> 1])) p = 0.f;
+        if (masked && !(col0 + c < Tk && ks[c] == qseg[e >> 1])) p = 0.f;
         s[n][e] = p * (dp[n][e] - dlt[e >> 1]) * scale;
       }
     // dQ += dS K, k-steps of 16 keys
@@ -791,8 +805,8 @@ dq_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16* 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = row0 + warp * 16 + g + 8 * r;
-    if (t < T_len) {
-      bf16* row = dq + (((long long)b * T_len + t) * H + h) * D;
+    if (t < Tq) {
+      bf16* row = dq + (((long long)b * Tq + t) * H + h) * D;
 #pragma unroll
       for (int n = 0; n < NT_D; ++n)
         if (n * 8 < D) store_bf16x2(row + n * 8 + 2 * tq, adq[n][2 * r], adq[n][2 * r + 1]);
@@ -800,8 +814,8 @@ dq_block(unsigned char* smem, int tile, const bf16* __restrict__ q, const bf16* 
   }
 }
 
-// The backward's two kernels as one launch: blocks [0, ntiles) of a grid row
-// own a key tile (dK, dV), blocks [ntiles, 2 ntiles) a query tile (dQ).  The
+// The backward's two kernels as one launch: blocks [0, ntk) of a grid row
+// own a key tile (dK, dV), blocks [ntk, ntk + ntq) a query tile (dQ).  The
 // two halves need nothing from each other, and twice the blocks fill the
 // card's last wave better than two launches in turn.
 template <int DP>
@@ -810,15 +824,16 @@ tc_attention_bwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
                  Strides sq, Strides sk, Strides sv, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const int32_t* __restrict__ seg, bf16* __restrict__ dq, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int H, int T_len, int D, float scale, float scale_log2) {
+                 bf16* __restrict__ dv, int H, int Tq, int Tk, int q_off, int D, float scale,
+                 float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ntiles = (T_len + BM - 1) / BM;
-  if ((int)blockIdx.x < ntiles)
-    dkdv_block<DP>(smem, blockIdx.x, q, k, v, sq, sk, sv, dout, lse, delta, seg, dk, dv, H, T_len,
-                   D, scale, scale_log2);
+  const int ntk = (Tk + BM - 1) / BM;
+  if ((int)blockIdx.x < ntk)
+    dkdv_block<DP>(smem, blockIdx.x, q, k, v, sq, sk, sv, dout, lse, delta, seg, dk, dv, H, Tq, Tk,
+                   q_off, D, scale, scale_log2);
   else
-    dq_block<DP>(smem, blockIdx.x - ntiles, q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, H,
-                 T_len, D, scale, scale_log2);
+    dq_block<DP>(smem, blockIdx.x - ntk, q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, H, Tq, Tk,
+                 q_off, D, scale, scale_log2);
 }
 
 // shared memory of each kernel: bf16 tiles, 4-byte row values, the flags
@@ -839,77 +854,92 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 template <int DP>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, Strides sq, Strides sk, Strides sv,
-               const int32_t* seg, bf16* o, float* lse, int B, int H, int T_len, int D,
-               float scale, cudaStream_t st) {
-  const int ntiles = (T_len + BM - 1) / BM;
-  const size_t smem = fwd_smem<DP>(ntiles);
+               const int32_t* seg, bf16* o, float* lse, int B, int H, int Tq, int Tk, int q_off,
+               int D, float scale, cudaStream_t st) {
+  const int ntq = (Tq + BM - 1) / BM;
+  const size_t smem = fwd_smem<DP>((Tk + BM - 1) / BM);
   cudaError_t e = prepare(tc_attention_fwd<DP>, smem);
   if (e != cudaSuccess) return (int)e;
-  tc_attention_fwd<DP><<<dim3(ntiles, B * H), THREADS, smem, st>>>(
-      q, k, v, sq, sk, sv, seg, o, lse, H, T_len, D, scale * LOG2E);
+  tc_attention_fwd<DP><<<dim3(ntq, B * H), THREADS, smem, st>>>(
+      q, k, v, sq, sk, sv, seg, o, lse, H, Tq, Tk, q_off, D, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int launch_bwd(const bf16* q, const bf16* k, const bf16* v, Strides sq, Strides sk, Strides sv,
                const int32_t* seg, const bf16* o, const bf16* dout, const float* lse,
-               float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int H, int T_len, int D,
-               float scale, cudaStream_t st) {
-  const long long n_rows = (long long)B * T_len * H;
+               float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int H, int Tq, int Tk,
+               int q_off, int D, float scale, cudaStream_t st) {
+  const long long n_rows = (long long)B * Tq * H;
   const int rows_per_block = 8;
   tc_attention_delta<<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block),
-                     32 * rows_per_block, 0, st>>>(o, dout, delta, n_rows, H, T_len, D);
+                     32 * rows_per_block, 0, st>>>(o, dout, delta, n_rows, H, Tq, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  const int ntiles = (T_len + BM - 1) / BM;
-  const size_t smem = bwd_smem<DP>(ntiles);
+  const int ntq = (Tq + BM - 1) / BM, ntk = (Tk + BM - 1) / BM;
+  const size_t smem = bwd_smem<DP>(ntq > ntk ? ntq : ntk);
   if ((e = prepare(tc_attention_bwd<DP>, smem)) != cudaSuccess) return (int)e;
-  tc_attention_bwd<DP><<<dim3(2 * ntiles, B * H), THREADS, smem, st>>>(
-      q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, dk, dv, H, T_len, D, scale, scale * LOG2E);
+  tc_attention_bwd<DP><<<dim3(ntk + ntq, B * H), THREADS, smem, st>>>(
+      q, k, v, sq, sk, sv, dout, lse, delta, seg, dq, dk, dv, H, Tq, Tk, q_off, D, scale,
+      scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+// the query block's rows [q_off, q_off + Tq) lie inside the Tk keys
+bool bad_shape(int Tq, int Tk, int q_off) {
+  return Tq < 1 || Tk < 1 || q_off < 0 || q_off + Tq > Tk;
 }
 
 }  // namespace
 
-// Strides are element strides of the batch, time and head dimensions; q, k,
-// v rows start on 16 bytes.  The head dim is padded with zeros in shared
-// memory to 32, 64 or 128.  Returns a cudaError_t (0 on success).
+// q [B, Tq, H, D] holds rows [q_off, q_off + Tq) of a sequence whose keys
+// k, v are [B, Tk, H, D] and whose segment ids seg are [B, Tk]; Tq == Tk
+// with q_off 0 is the whole sequence.  Strides are element strides of the
+// batch, time and head dimensions; q, k, v rows start on 16 bytes.  The head
+// dim is padded with zeros in shared memory to 32, 64 or 128.  o [B, Tq, H,
+// D] and lse [B, H, Tq] are written contiguous.  Returns a cudaError_t (0 on
+// success).
 extern "C" int dae_flash_attention_fwd(const bf16* q, const bf16* k, const bf16* v,
                                        long long sqb, long long sqt, long long sqh,
                                        long long skb, long long skt, long long skh,
                                        long long svb, long long svt, long long svh,
                                        const int32_t* seg, bf16* o, float* lse, int B,
-                                       int H, int T_len, int D, float scale, void* stream) {
-  if (D < 8 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+                                       int H, int Tq, int Tk, int q_off, int D, float scale,
+                                       void* stream) {
+  if (D < 8 || D > 128 || D % 8 || bad_shape(Tq, Tk, q_off)) return (int)cudaErrorInvalidValue;
   const Strides sq = {sqb, sqt, sqh}, sk = {skb, skt, skh}, sv = {svb, svt, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return launch_fwd<32>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
-  if (D <= 64) return launch_fwd<64>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
-  return launch_fwd<128>(q, k, v, sq, sk, sv, seg, o, lse, B, H, T_len, D, scale, st);
+  if (D <= 32)
+    return launch_fwd<32>(q, k, v, sq, sk, sv, seg, o, lse, B, H, Tq, Tk, q_off, D, scale, st);
+  if (D <= 64)
+    return launch_fwd<64>(q, k, v, sq, sk, sv, seg, o, lse, B, H, Tq, Tk, q_off, D, scale, st);
+  return launch_fwd<128>(q, k, v, sq, sk, sv, seg, o, lse, B, H, Tq, Tk, q_off, D, scale, st);
 }
 
-// o and dout are contiguous [B, T, H, D] (dout's rows on 16 bytes); dq, dk,
-// dv are written contiguous [B, T, H, D]; delta is f32 scratch [B, H, T].
+// o and dout are contiguous [B, Tq, H, D] (dout's rows on 16 bytes); dq
+// [B, Tq, H, D] and dk, dv [B, Tk, H, D] are written contiguous: dk, dv are
+// this query block's share of the keys' gradients; delta is f32 scratch
+// [B, H, Tq].
 extern "C" int dae_flash_attention_bwd(const bf16* q, const bf16* k, const bf16* v,
                                        long long sqb, long long sqt, long long sqh,
                                        long long skb, long long skt, long long skh,
                                        long long svb, long long svt, long long svh,
                                        const int32_t* seg, const bf16* o,
                                        const bf16* dout, const float* lse, float* delta,
-                                       bf16* dq, bf16* dk, bf16* dv, int B, int H,
-                                       int T_len, int D, float scale, void* stream) {
-  if (D < 8 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+                                       bf16* dq, bf16* dk, bf16* dv, int B, int H, int Tq,
+                                       int Tk, int q_off, int D, float scale, void* stream) {
+  if (D < 8 || D > 128 || D % 8 || bad_shape(Tq, Tk, q_off)) return (int)cudaErrorInvalidValue;
   const Strides sq = {sqb, sqt, sqh}, sk = {skb, skt, skh}, sv = {svb, svt, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return launch_bwd<32>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, T_len,
-                          D, scale, st);
+    return launch_bwd<32>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                          q_off, D, scale, st);
   if (D <= 64)
-    return launch_bwd<64>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, T_len,
-                          D, scale, st);
-  return launch_bwd<128>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, T_len, D,
-                         scale, st);
+    return launch_bwd<64>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                          q_off, D, scale, st);
+  return launch_bwd<128>(q, k, v, sq, sk, sv, seg, o, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                         q_off, D, scale, st);
 }
 
 extern "C" const char* dae_cuda_error_string(int code) {

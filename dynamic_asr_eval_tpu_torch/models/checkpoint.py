@@ -225,6 +225,8 @@ def infer_conformer_dims(state: Mapping[str, Any]) -> Dict[str, Any]:
     ff = state.get("layers.0.ff1.in_proj.weight")
     if ff is not None and "d_model" in dims:
         dims["expansion_factor"] = int(ff.shape[0]) // dims["d_model"]
+    # a one-layer model has no re-embedding either way (nothing feeds a next
+    # block), and the flag changes nothing there
     dims["self_conditioning"] = "self_condition_reembed.weight" in state
     dims["decoder_norm"] = "decoder_norm.weight" in state
     if any(k.endswith("conv.norm_mid.running_mean") for k in state):

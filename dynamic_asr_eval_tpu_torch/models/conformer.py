@@ -57,9 +57,39 @@ updates.  A model whose ``rematerialise`` is false (the records-batched
 engine sets it around its ``torch.func.vmap`` forwards, inside which a
 checkpoint cannot recompute) keeps every activation.
 
+Tensor parallelism (``parallel.shard_params``): a module whose weights
+were sliced holds the tp group (its ``tp``) and reads its rank's shards.
+The column-parallel input goes through ``copy_to_tp``, the row-parallel
+output through ``reduce_from_tp`` before the replicated bias is added;
+attention runs this rank's heads; the conv module's LayerNorm mid norm
+takes its per-frame moments from two all-reduces over tp (the sum, then
+the sum of squared deviations: LayerNorm's two passes), a batch-renorm mid
+norm is per channel and needs none.  Subsampling, the LayerNorms outside
+the conv module, the CTC head and the re-embedding stay replicated.
+
+Sequence parallelism: with ``seq_shard_axes = (b_ax, s_ax)`` and, around
+the call, ``parallel.use_mesh(mesh)`` whose mesh has a dimension named
+``s_ax`` of more than one rank, the blocks run on this rank's block of the
+time axis (otherwise the setting is a no-op, as JAX's constraint is outside
+a mesh).  Subsampling runs on the whole window; T_ds is padded with invalid
+frames to a multiple of sp and ``split_seq`` takes the block; rotary
+positions start at the block's start; attention gathers K and V
+(``gather_kv``) and runs the query block (``flash_attention(...,
+q_offset)``, or the plain versions; ``rel_pos`` scores the block's rows
+against all keys without the whole T×T matrix); the depthwise convolution
+reads its ``halo``; batch-renorm batch statistics are summed over sp; the
+self-conditioning head runs per frame on the block, and the log-probs and
+``a_hidden`` come back through ``gather_seq`` with the padding stripped, so
+the forward's inputs and outputs are what they are unsharded.  Every
+parameter read inside the sharded region goes through ``sync_grad``.  The
+batch axis ``b_ax`` is not split here: the engines give every rank the
+whole batch and split windows or records over dp above the model.  TP and
+SP combine on a mesh with both dimensions (``('dp', 'tp', 'sp')``).  With
+dropout on, TP and SP ranks draw their masks each from its own generator.
+
 Not ported (raise ``NotImplementedError``): a subsampling other than
-``"dw_striding"``, ``seq_shard_axes`` (sequence parallelism, ROADMAP item
-19c) and an ``attention_impl`` other than ``"xla"`` / ``"pallas_flash"``.
+``"dw_striding"`` and an ``attention_impl`` other than ``"xla"`` /
+``"pallas_flash"``.
 """
 
 from __future__ import annotations
@@ -75,6 +105,18 @@ import torch.utils.checkpoint
 
 from dynamic_asr_eval_tpu_torch.kernels.attention import flash_attention
 from dynamic_asr_eval_tpu_torch.kernels.subsample import fused_subsample
+from dynamic_asr_eval_tpu_torch.parallel.collectives import (
+    Group,
+    copy_to_tp,
+    gather_kv,
+    gather_seq,
+    halo,
+    reduce_from_tp,
+    split_seq,
+    sum_partials,
+    sync_grad,
+)
+from dynamic_asr_eval_tpu_torch.parallel.mesh import axis_group, current_mesh
 
 LN_EPS = 1e-5
 
@@ -162,14 +204,13 @@ _BATCH_NORMS = ("batch_renorm", "batch_norm")
 def _check_supported(cfg: ConformerConfig) -> None:
     unsupported = {
         "subsampling": cfg.subsampling != "dw_striding",
-        "seq_shard_axes": cfg.seq_shard_axes is not None,
         "attention_impl": cfg.attention_impl not in ("xla", "pallas_flash"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        raise NotImplementedError(f"conformer options not ported: {bad}"
-                                  + (" (seq_shard_axes: ROADMAP queue 1 item 19c)"
-                                     if "seq_shard_axes" in bad else ""))
+        raise NotImplementedError(f"conformer options not ported: {bad}")
+    if cfg.seq_shard_axes is not None and len(cfg.seq_shard_axes) != 2:
+        raise ValueError(f"seq_shard_axes is (batch_axis, seq_axis), got {cfg.seq_shard_axes!r}")
     if cfg.subsampling_impl not in _SUBSAMPLING_IMPLS:
         raise ValueError(f"unknown subsampling_impl {cfg.subsampling_impl!r}")
     if cfg.pos_encoding not in ("rotary", "rel_pos", "none"):
@@ -193,15 +234,59 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], dtype) -
     return F.linear(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype))
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+def _same(p):
+    return p
+
+
+class SeqShard:
+    """This rank's place in the sequence-sharded region: the sp group, the
+    block's first frame, and the valid-frame mask of the whole (padded)
+    sequence [B, T], which attention's keys need."""
+
+    def __init__(self, group: Group, start: int, mask: torch.Tensor):
+        self.group, self.start, self.mask = group, start, mask
+
+    def read(self, p):
+        """A parameter as the sharded region reads it (``sync_grad``)."""
+        return sync_grad(p, self.group)
+
+
+def _reader(sp: Optional[SeqShard]):
+    return _same if sp is None else sp.read
+
+
+def _row_dense(x, w, b, dtype, tp: Optional[Group]) -> torch.Tensor:
+    """``_dense`` of a row-parallel layer: the partial products summed over
+    tp, then the (replicated) bias."""
+    if tp is None:
+        return _dense(x, w, b, dtype)
+    y = reduce_from_tp(_dense(x, w, None, dtype), tp)
+    return y if b is None else y + b.to(dtype)
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, read=_same) -> torch.Tensor:
     """flax ``LayerNorm(dtype=x.dtype)``: statistics in f32, output in x's
     dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, LN_EPS).to(x.dtype)
+    return F.layer_norm(x.float(), ln.normalized_shape, read(ln.weight), read(ln.bias),
+                        LN_EPS).to(x.dtype)
 
 
-def rotary_freqs(head_dim: int, base: float, T: int, interpolation: float, device):
+def _tp_layer_norm(x: torch.Tensor, ln: nn.LayerNorm, tp: Group, read=_same) -> torch.Tensor:
+    """:func:`_layer_norm` over channels split across the tp group: the
+    per-frame mean and then the variance from two sums over the group."""
+    xf = x.float()
+    d = xf.shape[-1] * tp.size
+    mean = sum_partials(xf.sum(-1, keepdim=True), tp) / d
+    xc = xf - mean
+    var = sum_partials((xc * xc).sum(-1, keepdim=True), tp) / d
+    return (xc * torch.rsqrt(var + LN_EPS) * read(ln.weight) + read(ln.bias)).to(x.dtype)
+
+
+def rotary_freqs(head_dim: int, base: float, T: int, interpolation: float, device,
+                 offset: int = 0):
+    """cos, sin [T, head_dim/2] of positions ``offset .. offset + T - 1``."""
     inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
-    t = torch.arange(T, dtype=torch.float32, device=device) / interpolation
+    t = torch.arange(offset, offset + T, dtype=torch.float32, device=device) / interpolation
     ang = torch.outer(t, inv)  # [T, head_dim/2]
     return torch.cos(ang), torch.sin(ang)
 
@@ -228,36 +313,43 @@ def plain_attention(q, k, v, mask, compute_dtype, logits_in_compute_dtype: bool)
     return torch.einsum("bhts,bshd->bthd", attn, v.to(compute_dtype))
 
 
-def relpos_encoding(d_model: int, T: int, device=None) -> torch.Tensor:
+def relpos_encoding(d_model: int, T: int, device=None, Tk: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Sinusoidal embeddings of relative positions T-1 … -(T-1), [2T-1,
     d_model] f32: index 0 is the most distant past key (NeMo's
-    ``RelPositionalEncoding`` layout); sin on even features, cos on odd."""
-    pos = torch.arange(T - 1, -T, -1, dtype=torch.float32, device=device)
+    ``RelPositionalEncoding`` layout); sin on even features, cos on odd.
+    For T query rows ``q_offset ..`` against ``Tk`` keys: the distances
+    ``q_offset + T - 1`` … ``q_offset - Tk + 1``, [T + Tk - 1, d_model]."""
+    Tk = T if Tk is None else Tk
+    pos = torch.arange(q_offset + T - 1, q_offset - Tk, -1, dtype=torch.float32, device=device)
     div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
                     * (-math.log(10000.0) / d_model))
     ang = pos[:, None] * div[None, :]
-    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(2 * T - 1, d_model)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(-1, d_model)
 
 
-def rel_shift(x: torch.Tensor) -> torch.Tensor:
-    """Transformer-XL relative shift: x [B, H, T, 2T-1] (last axis indexed
-    by embedding position k, relative distance T-1-k) → [B, H, T, T] whose
-    (i, j) is x[..., i, j - i + T - 1]; the pad-reshape trick, no gather."""
-    B, H, T, _ = x.shape
-    x = F.pad(x, (1, 0)).reshape(B, H, 2 * T, T)[:, :, 1:]
-    return x.reshape(B, H, T, 2 * T - 1)[..., :T]
+def rel_shift(x: torch.Tensor, Tk: Optional[int] = None) -> torch.Tensor:
+    """Transformer-XL relative shift: x [B, H, T, T+Tk-1] (last axis indexed
+    by embedding position k, relative distance T-1-k) → [B, H, T, Tk] whose
+    (i, j) is x[..., i, j - i + T - 1] (Tk = T by default); the pad-reshape
+    trick, no gather."""
+    B, H, T, W = x.shape
+    Tk = T if Tk is None else Tk
+    x = F.pad(x, (1, 0)).reshape(B, H, T * (W + 1))[..., T:]
+    return x.reshape(B, H, T, W)[..., :Tk]
 
 
 def relpos_attention(q, k, v, mask, pos, pos_bias_u, pos_bias_v, compute_dtype):
     """The JAX package's ``rel_pos`` attention: content scores (q + u)·k and
     relatively shifted position scores (q + v)·pos in f32, their sum over
     √D, a −1e30 bias on padding keys, softmax in f32, probabilities in the
-    compute dtype times v.  q, k, v [B, T, H, D]; pos [2T-1, H, D]."""
+    compute dtype times v.  q [B, T, H, D], k, v [B, Tk, H, D]; pos [T+Tk-1,
+    H, D] (:func:`relpos_encoding` of the query rows)."""
     D = q.shape[-1]
     qf = q.float()
     ac = torch.einsum("bthd,bshd->bhts", qf + pos_bias_u, k.float())
     bd = torch.einsum("bthd,khd->bhtk", qf + pos_bias_v, pos.float())
-    logits = (ac + rel_shift(bd)) / math.sqrt(D)
+    logits = (ac + rel_shift(bd, k.shape[1])) / math.sqrt(D)
     bias = torch.where(mask[:, None, None, :], 0.0, -1e30)
     attn = torch.softmax(logits + bias, dim=-1).to(compute_dtype)
     return torch.einsum("bhts,bshd->bthd", attn, v.to(compute_dtype))
@@ -299,16 +391,19 @@ class BatchRenorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                use_running_average: bool = True) -> torch.Tensor:
+                use_running_average: bool = True, read=_same,
+                group: Optional[Group] = None) -> torch.Tensor:
+        """``group``: the frames are split over its ranks (sequence
+        parallelism), whose masked sums the batch statistics add up."""
         xf = x.float()
         if use_running_average:
             xn = (xf - self.running_mean) / torch.sqrt(self.running_var + self.eps)
         else:
             m = (torch.ones(x.shape[:2], device=x.device) if mask is None
                  else mask.float())[..., None]
-            cnt = torch.clamp(m.sum((0, 1)), min=1.0)
-            mean = (xf * m).sum((0, 1)) / cnt
-            var = ((xf - mean) ** 2 * m).sum((0, 1)) / cnt
+            cnt = torch.clamp(sum_partials(m.sum((0, 1)), group), min=1.0)
+            mean = sum_partials((xf * m).sum((0, 1)), group) / cnt
+            var = sum_partials(((xf - mean) ** 2 * m).sum((0, 1)), group) / cnt
             std = torch.sqrt(var + self.eps)
             r_std = torch.sqrt(self.running_var + self.eps)
             r = torch.clamp(std / r_std, 1.0 / self.rmax, self.rmax).detach()
@@ -319,7 +414,7 @@ class BatchRenorm(nn.Module):
                                         + self.momentum * mean)
                 self.running_var.copy_((1 - self.momentum) * self.running_var
                                        + self.momentum * var)
-        return (xn * self.weight + self.bias).to(x.dtype)
+        return (xn * read(self.weight) + read(self.bias)).to(x.dtype)
 
 
 class DWStridingSubsampling(nn.Module):
@@ -399,12 +494,15 @@ class FeedForward(nn.Module):
         self.norm = nn.LayerNorm(d, eps=LN_EPS)
         self.in_proj = nn.Linear(d, d * cfg.expansion_factor, bias=cfg.bias_in_ff)
         self.out_proj = nn.Linear(d * cfg.expansion_factor, d, bias=cfg.bias_in_ff)
+        self.tp: Optional[Group] = None  # set by parallel.shard_params
 
-    def forward(self, x, deterministic=True, generator=None):
+    def forward(self, x, deterministic=True, generator=None, sp=None):
         cd, rate = self.cfg.compute_dtype, self.cfg.dropout_ff
-        h = _dense(_layer_norm(x, self.norm), self.in_proj.weight, self.in_proj.bias, cd)
+        r = _reader(sp)
+        h = copy_to_tp(_layer_norm(x, self.norm, r), self.tp)
+        h = _dense(h, r(self.in_proj.weight), r(self.in_proj.bias), cd)
         h = dropout(F.silu(h), rate, deterministic, generator)
-        h = _dense(h, self.out_proj.weight, self.out_proj.bias, cd)
+        h = _row_dense(h, r(self.out_proj.weight), r(self.out_proj.bias), cd, self.tp)
         return dropout(h, rate, deterministic, generator)
 
 
@@ -420,26 +518,39 @@ class MHSA(nn.Module):
             self.pos_bias_v = nn.Parameter(torch.zeros(cfg.n_heads, cfg.head_dim))
             self.linear_pos = nn.Linear(cfg.d_model, HD, bias=False)
         self.out = nn.Linear(HD, cfg.d_model)
+        self.tp: Optional[Group] = None  # set by parallel.shard_params
 
-    def forward(self, x, mask, cos, sin, deterministic=True, generator=None):
+    def forward(self, x, mask, cos, sin, deterministic=True, generator=None, sp=None):
+        """Under sequence parallelism ``x`` is the block of query rows from
+        ``sp.start``; keys and values are gathered over every block."""
         cfg = self.cfg
         cd = cfg.compute_dtype
-        H, D = cfg.n_heads, cfg.head_dim
+        D = cfg.head_dim
+        H = self.qkv.weight.shape[0] // (3 * D)  # this rank's heads
         B, T, _ = x.shape
-        qkv = _dense(_layer_norm(x, self.norm), self.qkv.weight, self.qkv.bias, cd)
+        r = _reader(sp)
+        qkv = _dense(copy_to_tp(_layer_norm(x, self.norm, r), self.tp), r(self.qkv.weight),
+                     r(self.qkv.bias), cd)
         q, k, v = qkv.view(B, T, 3, H, D).unbind(2)  # strided [B, T, H, D] views
         if cfg.pos_encoding == "rotary":
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
+        start, key_mask = 0, mask
+        if sp is not None:
+            start, key_mask = sp.start, sp.mask
+            k, v = gather_kv(k, 1, sp.group), gather_kv(v, 1, sp.group)
         if cfg.pos_encoding == "rel_pos":  # plain in both packages, whatever attention_impl says
-            pe = relpos_encoding(cfg.d_model, T, x.device)
-            pos = _dense(pe, self.linear_pos.weight, None, cd).view(2 * T - 1, H, D)
-            out = relpos_attention(q, k, v, mask, pos, self.pos_bias_u, self.pos_bias_v, cd)
+            Tk = k.shape[1]
+            pe = relpos_encoding(cfg.d_model, T, x.device, Tk, start)
+            pos = _dense(pe, r(self.linear_pos.weight), None, cd).view(T + Tk - 1, H, D)
+            out = relpos_attention(q, k, v, key_mask, pos, r(self.pos_bias_u),
+                                   r(self.pos_bias_v), cd)
         elif cfg.attention_impl == "pallas_flash":
-            out = flash_attention(q, k, v, mask)
+            out = flash_attention(q, k, v, key_mask, start)
         else:
-            out = plain_attention(q, k, v, mask, cd, cfg.attention_logits_in_compute_dtype)
-        out = _dense(out.reshape(B, T, H * D), self.out.weight, self.out.bias, cd)
+            out = plain_attention(q, k, v, key_mask, cd, cfg.attention_logits_in_compute_dtype)
+        out = _row_dense(out.reshape(B, T, H * D), r(self.out.weight), r(self.out.bias), cd,
+                         self.tp)
         return dropout(out, cfg.dropout_attn, deterministic, generator)
 
 
@@ -456,23 +567,32 @@ class ConvModule(nn.Module):
         else:
             self.norm_mid = nn.LayerNorm(d, eps=LN_EPS)
         self.pw2 = nn.Conv1d(d, d, 1)
+        self.tp: Optional[Group] = None  # set by parallel.shard_params
 
-    def forward(self, x, mask, deterministic=True, generator=None, use_running_average=True):
+    def forward(self, x, mask, deterministic=True, generator=None, use_running_average=True,
+                sp=None):
         cd = self.cfg.compute_dtype
         K = self.cfg.conv_kernel_size
-        h = _dense(_layer_norm(x, self.norm), self.pw1.weight[:, :, 0], self.pw1.bias, cd)
+        r = _reader(sp)
+        h = _dense(copy_to_tp(_layer_norm(x, self.norm, r), self.tp), r(self.pw1.weight)[:, :, 0],
+                   r(self.pw1.bias), cd)
         a, b = h.chunk(2, dim=-1)
         h = a * torch.sigmoid(b)  # GLU
         h = torch.where(mask[..., None], h, torch.zeros((), dtype=h.dtype, device=h.device))
         pad_l = (K - 1) // 2
-        hp = F.pad(h.transpose(1, 2), (pad_l, K - 1 - pad_l))  # [B, d, T + K - 1]
-        h = F.conv1d(hp, self.dw.weight.to(cd), self.dw.bias.to(cd), groups=h.shape[-1])
+        # [B, d, T + K - 1]: zeros past the sequence, the neighbours' frames
+        # between blocks
+        hp = halo(h.transpose(1, 2), 2, pad_l, K - 1 - pad_l, None if sp is None else sp.group)
+        h = F.conv1d(hp, r(self.dw.weight).to(cd), r(self.dw.bias).to(cd), groups=h.shape[-1])
         h = h.transpose(1, 2)
         if isinstance(self.norm_mid, BatchRenorm):
-            h = self.norm_mid(h, mask, use_running_average)
+            h = self.norm_mid(h, mask, use_running_average, r,
+                              None if sp is None else sp.group)
+        elif self.tp is not None:
+            h = _tp_layer_norm(h, self.norm_mid, self.tp, r)
         else:
-            h = _layer_norm(h, self.norm_mid)
-        h = _dense(F.silu(h), self.pw2.weight[:, :, 0], self.pw2.bias, cd)
+            h = _layer_norm(h, self.norm_mid, r)
+        h = _row_dense(F.silu(h), r(self.pw2.weight)[:, :, 0], r(self.pw2.bias), cd, self.tp)
         return dropout(h, self.cfg.dropout_conv, deterministic, generator)
 
 
@@ -486,13 +606,13 @@ class ConformerBlock(nn.Module):
         self.norm_out = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
 
     def forward(self, x, mask, cos, sin, deterministic=True, generator=None,
-                use_running_average=True):
+                use_running_average=True, sp=None):
         drop = (deterministic, generator)
-        x = x + 0.5 * self.ff1(x, *drop)
-        x = x + self.attn(x, mask, cos, sin, *drop)
-        x = x + self.conv(x, mask, *drop, use_running_average)
-        x = x + 0.5 * self.ff2(x, *drop)
-        return _layer_norm(x, self.norm_out)
+        x = x + 0.5 * self.ff1(x, *drop, sp=sp)
+        x = x + self.attn(x, mask, cos, sin, *drop, sp=sp)
+        x = x + self.conv(x, mask, *drop, use_running_average, sp=sp)
+        x = x + 0.5 * self.ff2(x, *drop, sp=sp)
+        return _layer_norm(x, self.norm_out, _reader(sp))
 
 
 def remat(module: nn.Module, *args, generator: Optional[torch.Generator] = None):
@@ -544,18 +664,27 @@ class SCConformer(nn.Module):
         self.layers = nn.ModuleList(ConformerBlock(config) for _ in range(config.n_layers))
         self.decoder_norm = nn.LayerNorm(d, eps=LN_EPS) if config.decoder_norm else None
         self.decoder = nn.Linear(d, config.n_classes)
+        # as flax creates it: only where one block feeds another
         self.self_condition_reembed = (
-            nn.Linear(config.n_classes, d, bias=False) if config.self_conditioning else None)
+            nn.Linear(config.n_classes, d, bias=False)
+            if config.self_conditioning and config.n_layers > 1 else None)
         self.rematerialise = True
 
-    def _ctc_logits(self, h):
+    def _ctc_logits(self, h, read=_same):
         cfg = self.config
         z = h.float()
         if self.decoder_norm is not None:
-            z = _layer_norm(z, self.decoder_norm)
+            z = _layer_norm(z, self.decoder_norm, read)
         head_dtype = cfg.compute_dtype if cfg.head_in_compute_dtype else torch.float32
-        logits = _dense(z, self.decoder.weight, self.decoder.bias, head_dtype)
+        logits = _dense(z, read(self.decoder.weight), read(self.decoder.bias), head_dtype)
         return torch.log_softmax(logits.float(), dim=-1)
+
+    def seq_group(self) -> Optional[Group]:
+        """The sp group of ``seq_shard_axes`` on the current mesh
+        (``parallel.use_mesh``); ``None`` (no sharding) without one, or where
+        that dimension holds one rank."""
+        axes = self.config.seq_shard_axes
+        return None if axes is None else axis_group(current_mesh(), axes[1])
 
     def forward(self, audio_signal: torch.Tensor, length: Optional[torch.Tensor] = None,
                 deterministic: bool = True, generator: Optional[torch.Generator] = None,
@@ -583,24 +712,39 @@ class SCConformer(nn.Module):
         mask = lengths_to_mask(ds_length, T_ds)
         zero = torch.zeros((), dtype=h.dtype, device=h.device)
         h = torch.where(mask[..., None], h, zero)
-        cos, sin = rotary_freqs(cfg.head_dim, cfg.rotary_base_freq, T_ds,
-                                cfg.rotary_interpolation_factor, h.device)
+        group = self.seq_group()
+        sp, start = None, 0
+        if group is not None:  # this rank's block of the padded time axis
+            T_pad = -(-T_ds // group.size) * group.size
+            block_len = T_pad // group.size
+            start = group.rank * block_len
+            mask = F.pad(mask, (0, T_pad - T_ds))
+            sp = SeqShard(group, start, mask)
+            h = split_seq(F.pad(h, (0, 0, 0, T_pad - T_ds)), 1, group)
+            mask = mask[:, start : start + block_len]
+        cos, sin = rotary_freqs(cfg.head_dim, cfg.rotary_base_freq, h.shape[1],
+                                cfg.rotary_interpolation_factor, h.device, start)
+        r = _reader(sp)
 
         n = len(self.layers)
         every = cfg.checkpoint_every_n_layers
         for i, block in enumerate(self.layers):
             if every and i % every == 0 and remat_on:
                 h = remat(block, h, mask, cos, sin, deterministic, generator, use_running_average,
-                          generator=generator)
+                          sp, generator=generator)
             else:
-                h = block(h, mask, cos, sin, deterministic, generator, use_running_average)
+                h = block(h, mask, cos, sin, deterministic, generator, use_running_average, sp)
             if self.self_condition_reembed is not None and i < n - 1:
-                lp = self._ctc_logits(h)
-                h = h + _dense(torch.exp(lp), self.self_condition_reembed.weight, None, cd)
+                lp = self._ctc_logits(h, r)
+                h = h + _dense(torch.exp(lp), r(self.self_condition_reembed.weight), None, cd)
                 h = torch.where(mask[..., None], h, zero)
 
+        lp = self._ctc_logits(h, r)
+        if sp is not None:  # the whole sequence again, its padding stripped
+            lp = gather_seq(lp, 1, group)[:, :T_ds]
+            h = gather_seq(h, 1, group)[:, :T_ds]
         return {
-            "final_posteriors": self._ctc_logits(h),
+            "final_posteriors": lp,
             "length": ds_length,
             "a_hidden": h,
         }

@@ -94,6 +94,7 @@ class AWMCEngine(DynamicEvalEngine):
 
         t0 = time.time()
         src = self.model.state_dict() if params is None else params
+        src = self._local_state(src)
         for m in (self._work, self._anchor, self._leader):
             m.load_state_dict(src, strict=True)
         student = dict(self._work.named_parameters())
@@ -127,8 +128,7 @@ class AWMCEngine(DynamicEvalEngine):
             self._accumulate(acc, counts, clean, start // self.ds, ds_len)
 
         log_avg, counts = self._finish(acc, counts)
-        adapted = ({k: v.detach().clone() for k, v in self._work.state_dict().items()}
-                   if return_params else None)
+        adapted = self._full_state(self._work.state_dict()) if return_params else None
         _sync(self.device)
         elapsed = time.time() - t0
         if cfg.print_runtimes:

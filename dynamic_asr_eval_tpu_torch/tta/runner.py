@@ -37,8 +37,12 @@ of ``TTAConfig``, as in the JAX engine:
 With ``mesh=`` (a ``('dp', 'tp')`` mesh of :mod:`..parallel`, ``--dp``)
 the adaptation runs the same on every rank, and the offline inference
 rounds ``infer_batch`` up to a multiple of dp: each rank forwards its block
-of every batch, and the stitch accumulators are summed over the ranks
-before the average.
+of every batch, and the stitch accumulators are summed over the dp ranks
+before the average.  Where the mesh's tp size is above 1, the engine's
+working copy is sliced to this rank's shards (``parallel.shard_params``):
+each call takes full weights and loads this rank's slices of them, every
+tp rank draws the same augmentation and pseudo-labels, and
+``EngineOutput.params`` holds the gathered full weights.
 
 :meth:`DynamicEvalEngine.batched` adapts R recordings at once
 (``--dp_records``): each keeps its own weights, stacked on a leading axis,
@@ -66,7 +70,13 @@ from dynamic_asr_eval_tpu_torch.ops.chunk import chunk_starts_and_lengths, pad_n
 from dynamic_asr_eval_tpu_torch.ops.ctc import ctc_loss, greedy_labels
 from dynamic_asr_eval_tpu_torch.optim.madgrad import MADGRAD, RecordsMADGRAD
 from dynamic_asr_eval_tpu_torch.optim.masks import param_labels
-from dynamic_asr_eval_tpu_torch.parallel.mesh import axis_rank, axis_size
+from dynamic_asr_eval_tpu_torch.parallel.mesh import (
+    axis_rank,
+    axis_size,
+    gather_state,
+    shard_params,
+    shard_state,
+)
 from dynamic_asr_eval_tpu_torch.tta.retokenize import retokenize_labels
 
 
@@ -136,9 +146,6 @@ class DynamicEvalEngine:
         tokenizer=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if mesh is not None and axis_size(mesh, "tp") > 1:
-            raise NotImplementedError(
-                "tensor parallelism (--tp > 1) is not ported yet (ROADMAP queue 1 item 19c)")
         if config.pseudo_label_retokenize and tokenizer is None:
             raise ValueError("pseudo_label_retokenize=True needs tokenizer= on the engine")
         self.device = resolve_device(device)
@@ -161,6 +168,8 @@ class DynamicEvalEngine:
         self.lr = opt_args.pop("lr", 9e-5)
         self.opt_args = opt_args
         self._work = copy.deepcopy(model).to(self.device)
+        self._sharding = (shard_params(self._work, mesh)
+                          if mesh is not None and axis_size(mesh, "tp") > 1 else None)
         self._trainable_names = self._trainable()
 
     # -- parameters ---------------------------------------------------------
@@ -180,9 +189,23 @@ class DynamicEvalEngine:
         )
         return {n: labels[n] == "train" for n in names}
 
+    def _local_state(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A full state dict as the working copy holds it: under tp, this
+        rank's slices."""
+        if self._sharding is None:
+            return state
+        return shard_state(state, self._sharding, self.mesh)
+
+    def _full_state(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Detached copies of the working copy's ``state``, gathered to full
+        tensors under tp."""
+        if self._sharding is None:
+            return {k: v.detach().clone() for k, v in state.items()}
+        return gather_state(state, self._sharding, self.mesh)
+
     def _load(self, params: Optional[Dict[str, torch.Tensor]]) -> None:
         src = self.model.state_dict() if params is None else params
-        self._work.load_state_dict(src, strict=True)
+        self._work.load_state_dict(self._local_state(src), strict=True)
         for name, p in self._work.named_parameters():
             p.requires_grad_(self._trainable_names[name])
 
@@ -370,7 +393,7 @@ class DynamicEvalEngine:
 
         adapted = None
         if return_params or adapt_only:
-            adapted = {k: v.detach().clone() for k, v in self._work.state_dict().items()}
+            adapted = self._full_state(self._work.state_dict())
         if adapt_only:
             _sync(self.device)
             return EngineOutput(None, None, adapted, time.time() - t0, self.blank_id)
@@ -629,7 +652,7 @@ class DynamicEvalEngine:
         adapted = [None] * R
         if return_params:
             buffers = {n: b.detach().clone() for n, b in self._work.named_buffers()}
-            adapted = [{**{n: p[r].detach().clone() for n, p in stacked.items()}, **buffers}
+            adapted = [self._full_state({**{n: p[r] for n, p in stacked.items()}, **buffers})
                        for r in range(R)]
         _sync(self.device)
         elapsed = time.time() - t0

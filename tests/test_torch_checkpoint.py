@@ -145,12 +145,22 @@ def test_both_packages_write_the_same_bytes(tmp_path):
 @pytest.mark.parametrize("option", ["seq_shard_axes", "subsampling"])
 def test_options_not_ported_raise(tmp_path, option):
     """A DAE1 header naming an option the port does not run (rel_pos and
-    batch renorm load: tests/test_torch_nemo.py)."""
+    batch renorm load: tests/test_torch_nemo.py).  ``seq_shard_axes`` is
+    ported (sequence parallelism, tests/test_torch_sequence_parallel.py): a
+    header naming it loads with the setting kept and JAX's weights."""
     extra = ({"seq_shard_axes": ("dp", "sp")} if option == "seq_shard_axes"
              else {"subsampling": "striding"})
     cfg, _, variables = _jax_model(IMPLS[0], **extra)
     path = str(tmp_path / f"{option}.dae")
     jax_ckpt.save_checkpoint(path, variables, cfg)
+    if option == "seq_shard_axes":
+        model, _, loaded = ckpt.load_any_checkpoint(path)
+        assert tuple(loaded.seq_shard_axes) == ("dp", "sp")
+        want = params_from_jax(jax.tree.map(np.asarray, variables["params"]))
+        assert set(model.state_dict()) == set(want)
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, want[k]), k
+        return
     with pytest.raises(NotImplementedError):
         ckpt.load_any_checkpoint(path)
 

@@ -1128,3 +1128,81 @@ def test_engine_recorder_keeps_the_records_batched_calls():
     recorder.wrap(lambda: Engine())()
     assert recorder.batched("p", ["a", "b"], 1, rngs=[0, 1]) == [("a", True), ("b", True)]
     assert recorder.calls == [("p", "a"), ("p", "b")] and recorder.mesh == "mesh"
+
+
+def test_main_drives_phase_25():
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    for call in ("check_query_block(A, dtype)", "parallel_path(card)"):
+        assert call in main
+    for key in ('"tp_launches"', '"sp_launches"', "query_block_ms=", "query_block_full_ms="):
+        assert key in main
+    assert "PARALLEL_RANK" in inspect.getsource(chip_smoke)
+
+
+def test_phase_25_shapes():
+    """25a's recording is 3 windows; 25b's longest row downsamples to 1024
+    frames a rank on 2 ranks; 25c's blocks are two of 1024 rows."""
+    assert chip_smoke.n_windows(chip_smoke.TP_FRAMES) == 3
+    assert max(chip_smoke.SP_LENGTHS) // 8 // 2 == 1024
+    assert chip_smoke.QB_SHAPE[1] // 2 == 1024
+
+
+def _rank_result(rank, heads=3, blocks=None, tp_diff=5e-6, tp_grad=1e-5, sp_grad=1e-5):
+    def launches(att, sub, route):
+        other = "tf32x3" if route == "tensor_core" else "tensor_core"
+        return {"launches": {"attention": att, "subsample": sub},
+                "routes": {"attention": {route: att, other: [0, 0]},
+                           "subsample": {route: sub, other: [0, 0]}}}
+
+    tp = {"bf16": {**launches([18, 18], [3, 3], "tensor_core"), "layers": 6, "windows": 3},
+          "f32": {**launches([6, 6], [3, 3], "tf32x3"), "layers": 2, "windows": 3}}
+    for run in tp.values():
+        run.update(heads=[heads], wall_s=1.0, max_abs_log_prob_diff=1e-3, scale=14.0,
+                   same_argmax_share=1.0, greedy_equal=True)
+    tp["f32"].update(repeat_max_abs_log_prob_diff=3e-4, held={
+        "infer_max_abs_log_prob_diff": tp_diff, "infer_scale": 14.0, "infer_greedy_equal": True,
+        "infer_same_argmax_share": 1.0, "step_max_abs_log_prob_diff": 5e-6, "step_scale": 14.0,
+        "max_grad_diff": tp_grad, "grad_scale": 1.2})
+    sp = {"bf16": launches([6, 12], [1, 2], "tensor_core"),
+          "f32": launches([2, 4], [1, 2], "tf32x3")}
+    for name, run in sp.items():
+        layers = 6 if name == "bf16" else 2
+        run.update(query_blocks=blocks or [[6, 1024, 2048, 1024 * rank]],
+                   query_block_launches=layers, same_argmax_share=1.0,
+                   max_abs_log_prob_diff=1e-6, scale=13.0, max_grad_diff=sp_grad,
+                   grad_scale=1.2, ctc_max_grad_diff=1e-3, ctc_grad_scale=1.3, loss=6.4,
+                   unsharded_loss=6.4, peak_gb=2.0, unsharded_peak_gb=2.5)
+    return {"rank": rank, "tp": tp, "sp": sp}
+
+
+@pytest.mark.parametrize("fault", [None, "heads", "blocks", "tp_diff", "tp_grad", "sp_grad"])
+def test_parallel_path_holds_each_ranks_results(monkeypatch, capsys, fault):
+    """Phase 25's parent side on the ranks' JSON (written by a stand-in for
+    ``torch.distributed.run``): it passes the card's expected results
+    (the adapted f32 run's tp difference and repeat spread only printed)
+    and refuses a tp launch of other heads, a sequence block other than
+    this rank's, an unadapted tp log-prob difference past 1e-4 of max, and
+    tp or sp gradients past 1e-4 of max."""
+    import os
+    import subprocess
+
+    kwargs = {"heads": {"heads": 6}, "blocks": {"blocks": [[6, 1024, 2048, 0]]},
+              "tp_diff": {"tp_diff": 1.5e-3}, "tp_grad": {"tp_grad": 2e-4},
+              "sp_grad": {"sp_grad": 2e-4}}.get(fault, {})
+
+    def run(cmd, env, **_):
+        for r in range(2):
+            with open(os.path.join(env[chip_smoke.PARALLEL_RANK], f"rank{r}.json"), "w") as f:
+                json.dump(_rank_result(r, **kwargs), f)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(subprocess, "run", run)
+    if fault is None:
+        out = chip_smoke.parallel_path("card")
+        assert out["tp"]["bf16"]["launches"]["attention"] == [18, 18]
+        assert '{"parallel": ' in capsys.readouterr().out
+    else:
+        with pytest.raises(AssertionError, match="phase 25"):
+            chip_smoke.parallel_path("card")

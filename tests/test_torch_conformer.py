@@ -110,6 +110,33 @@ def test_ctc_parameter_gradients_match(shared):
         assert err <= 1e-4 * scale, (jax.tree_util.keystr(path), err, scale)
 
 
+def test_one_layer_self_conditioned_model_loads_strictly_and_matches_jax():
+    """JAX creates ``self_condition_reembed`` only where one block feeds
+    another, so a one-layer self-conditioned model has none; the port's
+    builds the same parameters and loads JAX's strictly.  A reference
+    checkpoint of it infers ``self_conditioning`` False, which changes
+    nothing at one layer."""
+    from dynamic_asr_eval_tpu_torch.models.checkpoint import infer_conformer_dims
+
+    cfg = dict(TINY, n_layers=1, self_conditioning=True)
+    jcfg = JaxConfig(compute_dtype=jnp.float32, **cfg)
+    model, variables = jax_init(jcfg, jax.random.PRNGKey(1), example_T=256)
+    assert "self_condition_reembed" not in variables["params"]
+    port = SCConformer(ConformerConfig(compute_dtype="float32", **cfg))
+    assert port.self_condition_reembed is None
+    port.load_state_dict(params_from_jax(jax.tree.map(np.asarray, variables["params"])),
+                         strict=True)
+    x = np.random.default_rng(2).standard_normal((2, TINY["feat_in"], T_IN)).astype(np.float32)
+    with jax.disable_jit():
+        ref = model.apply(variables, jnp.asarray(x), length=jnp.asarray(LENGTHS))
+    with torch.no_grad():
+        lp = port(torch.from_numpy(x), torch.from_numpy(LENGTHS))["final_posteriors"].numpy()
+    ref_lp = np.asarray(ref["final_posteriors"])
+    for b, n in enumerate(np.asarray(ref["length"])):
+        np.testing.assert_allclose(lp[b, :n], ref_lp[b, :n], rtol=0, atol=1e-4)
+    assert infer_conformer_dims(port.state_dict())["self_conditioning"] is False
+
+
 def test_seeded_init_is_reproducible_and_layer_norms_start_at_identity():
     cfg = ConformerConfig(compute_dtype="float32", **TINY)
     a, b = init_conformer(cfg, seed=3), init_conformer(cfg, seed=3)
@@ -125,6 +152,22 @@ def test_seeded_init_is_reproducible_and_layer_norms_start_at_identity():
 def test_unported_options_raise(field, value):
     """What the port still refuses (the options it ported, rel_pos, batch
     renorm and the "hybrid" lowering among them, are held against JAX in
-    tests/test_torch_conformer_options.py)."""
+    tests/test_torch_conformer_options.py).  ``seq_shard_axes`` is ported
+    (sequence parallelism, held against JAX in
+    tests/test_torch_sequence_parallel.py): outside ``use_mesh`` it is a
+    no-op, as JAX's sharding constraint is outside a mesh."""
+    cfg = ConformerConfig(compute_dtype="float32", **{**TINY, field: value})
+    if field == "seq_shard_axes":
+        plain = init_conformer(ConformerConfig(compute_dtype="float32", **TINY), seed=0)
+        model = SCConformer(cfg)
+        model.load_state_dict(plain.state_dict(), strict=True)
+        x = torch.randn(2, TINY["feat_in"], 96, generator=torch.Generator().manual_seed(0))
+        length = torch.tensor([96, 70])
+        with torch.no_grad():
+            assert torch.equal(model(x, length)["final_posteriors"],
+                               plain(x, length)["final_posteriors"])
+        with pytest.raises(ValueError, match="seq_shard_axes"):
+            SCConformer(ConformerConfig(compute_dtype="float32", **{**TINY, field: ("sp",)}))
+        return
     with pytest.raises(NotImplementedError):
-        SCConformer(ConformerConfig(compute_dtype="float32", **{**TINY, field: value}))
+        SCConformer(cfg)

@@ -365,20 +365,22 @@ F32_DRIVER_MODEL = ConformerConfig(feat_in=80, n_layers=2, d_model=64, n_heads=2
 @pytest.mark.parametrize("flags", [["--dp", "--tp", "2"], ["--dp"], ["--dp_records"]],
                          ids=["--dp --tp", "--dp", "--dp_records"])
 def test_driver_rejects_what_is_not_ported(flags):
-    """Tensor parallelism (``--tp`` above 1) is not ported and names its
-    ROADMAP item; ``--dp`` and ``--dp_records`` are (a world of 1 here) and
-    give the serial driver's WER on an f32 model (their 2-rank runs against
-    JAX: tests/test_torch_parallel.py)."""
+    """``--dp`` and ``--dp_records`` (a world of 1 here) give the serial
+    driver's WER on an f32 model (their 2-rank runs against JAX:
+    tests/test_torch_parallel.py).  Tensor parallelism is ported
+    (tests/test_torch_tensor_parallel.py): at a world of 1, ``--dp --tp 2``
+    is refused as JAX's ``make_mesh`` refuses it, 1 device not divisible by
+    tp 2."""
     argv = ["-d", "synthetic", "--quiet", "--device", "cpu"]
     if "--tp" in flags:
-        with pytest.raises(NotImplementedError, match="item 19c"):
+        with pytest.raises(ValueError, match="not divisible by tp"):
             run.cli(argv + flags)
         return
     assert run.cli(argv + flags, model_config=F32_DRIVER_MODEL) == run.cli(
         argv, model_config=F32_DRIVER_MODEL)
 
 
-PARALLEL_MODULES = ("parallel", "parallel.mesh")
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.collectives")
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES)

@@ -210,7 +210,12 @@ def test_mesh_sharding_and_replication_on_two_ranks(ranks):
 
 
 def test_tensor_parallelism_is_refused_naming_its_roadmap_item():
+    """Tensor parallelism is ported (tests/test_torch_tensor_parallel.py):
+    ``init_data_parallel`` takes ``--tp 2``, and at a world of 1 the tp mesh
+    is refused as JAX's ``make_mesh`` refuses it."""
     from dynamic_asr_eval_tpu_torch.evals.common import init_data_parallel
+    from dynamic_asr_eval_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 19c"):
-        init_data_parallel(argparse.Namespace(tp=2, device="cpu"))
+    assert init_data_parallel(argparse.Namespace(tp=2, device="cpu")).type == "cpu"
+    with pytest.raises(ValueError, match="not divisible by tp"):
+        make_mesh(tp=2)
