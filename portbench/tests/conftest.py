@@ -1,0 +1,9 @@
+"""The checkout's root on the path, so that ``portbench`` and the program
+import as they do under ``portbench/run.py``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
