@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import pickle
 import time
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dynamic_asr_eval_tpu_torch import spans
 from dynamic_asr_eval_tpu_torch.config import TTAConfig, load_yaml
 from dynamic_asr_eval_tpu_torch.device import resolve_device
 from dynamic_asr_eval_tpu_torch.lm.loader import load_beamsearch, load_lm_adapter
@@ -293,9 +295,9 @@ def evaluate_records(
     """Loop records → (hyp, gold) pairs → corpus WER with detail."""
     all_texts, all_golds, elapsed_times = [], [], []
     for i, rec in enumerate(records):
-        t0 = time.time()
+        t0 = time.perf_counter()
         hyp, gold = run_one(rec)
-        elapsed_times.append(time.time() - t0)
+        elapsed_times.append(time.perf_counter() - t0)
         if verbose:
             print(gold, "\n", hyp, "\n\n")
         append_log(
@@ -322,9 +324,9 @@ def evaluate_records_grouped(
     all_texts, all_golds, elapsed_times = [], [], []
     for g0 in range(0, len(records), group_size):
         group = records[g0 : g0 + group_size]
-        t0 = time.time()
+        t0 = time.perf_counter()
         pairs = run_group(group)
-        per_rec = (time.time() - t0) / len(group)
+        per_rec = (time.perf_counter() - t0) / len(group)
         for i, (rec, (hyp, gold)) in enumerate(zip(group, pairs)):
             elapsed_times.append(per_rec)
             if verbose:
@@ -422,6 +424,7 @@ def evaluate_repeats(args, engine, params, tokenizer, records: List[Dict],
 
 
 PROFILE_TRACE = "repeat_0.pt.trace.json"
+PROFILE_SPANS = "spans.json"
 
 
 @contextlib.contextmanager
@@ -429,14 +432,23 @@ def profile_to(directory: str):
     """A ``torch.profiler`` trace of the enclosed work (host ops, and CUDA
     kernels where there is a card) written into ``directory`` as the Chrome
     trace :data:`PROFILE_TRACE` (TensorBoard's profiler plugin and Perfetto
-    read it): the port's form of JAX's ``jax.profiler.trace``."""
+    read it): the port's form of JAX's ``jax.profiler.trace``.  The spans
+    recorded meanwhile (:mod:`..spans`: the engine's phases) go beside it
+    as :data:`PROFILE_SPANS`, a JSON list of ``Span.as_dict()``, on the
+    profiler's own clock (epoch ns)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+    spans.start()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield prof
+    finally:
+        recorded = spans.stop()
     prof.export_chrome_trace(os.path.join(directory, PROFILE_TRACE))
+    with open(os.path.join(directory, PROFILE_SPANS), "w") as f:
+        json.dump([s.as_dict() for s in recorded], f)
 
 
 def save_result_pickle(save_path: str, detail: Dict, args, repeat: int, repeats: int) -> str:

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dynamic_asr_eval_tpu_torch import spans
 from dynamic_asr_eval_tpu_torch.augment import apply_augmentation_pipeline
 from dynamic_asr_eval_tpu_torch.config import TTAConfig
 from dynamic_asr_eval_tpu_torch.device import resolve_device
@@ -273,33 +274,46 @@ class DynamicEvalEngine:
 
     def _adapt_step(self, opt, spec_dev, start: int, w_len: int, W: int,
                     max_tokens: int, gen: torch.Generator):
-        """Returns the detached clean log-probs [T_ds, V] and ds_len."""
+        """Returns the detached clean log-probs [T_ds, V] and ds_len.  Its
+        phases are the spans ``engine.augment``, ``.forward``, ``.labels``,
+        ``.loss``, ``.backward`` and ``.optimizer``."""
         nn = self.num_negatives
-        window = spec_dev[:, start : start + W].float()
-        aug = self._augment(window[None].repeat(nn, 1, 1), gen, w_len)
-        if self.config.entropy_augmentation:
-            aug = (aug + self._entropy_delta(aug, w_len)).detach()
-        batch = torch.cat([aug, window[None]], dim=0)  # [nn + 1, F, W]
-        lengths = torch.full((nn + 1,), w_len, dtype=torch.int64, device=self.device)
-        ds_len = self.out_len_fn(w_len)
+        with spans.span("engine.augment"):
+            window = spec_dev[:, start : start + W].float()
+            aug = self._augment(window[None].repeat(nn, 1, 1), gen, w_len)
+            if self.config.entropy_augmentation:
+                aug = (aug + self._entropy_delta(aug, w_len)).detach()
+            batch = torch.cat([aug, window[None]], dim=0)  # [nn + 1, F, W]
+            lengths = torch.full((nn + 1,), w_len, dtype=torch.int64, device=self.device)
+            ds_len = self.out_len_fn(w_len)
 
-        out = self._work(batch, lengths)
-        lp = out["final_posteriors"]
-        clean_lp = lp[-1].detach()
-        labels, lab_len = self._pseudo_labels(clean_lp, ds_len, max_tokens)
-        loss = ctc_loss(
-            lp[:nn],
-            torch.full((nn,), ds_len, dtype=torch.int64, device=self.device),
-            labels[None].repeat(nn, 1),
-            lab_len.expand(nn),
-            blank_id=self.blank_id,
-        ) / (max(ds_len, 1) * nn)
-        if self.config.print_pseudo_labels:
-            noisy, noisy_len = greedy_labels(lp[0].detach(), ds_len, self.blank_id, max_tokens)
-            self._print_pseudo_labels(labels, lab_len, noisy, noisy_len)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        with spans.span("engine.forward"):
+            out = self._work(batch, lengths)
+        with spans.span("engine.labels"):
+            lp = out["final_posteriors"]
+            clean_lp = lp[-1].detach()
+            labels, lab_len = self._pseudo_labels(clean_lp, ds_len, max_tokens)
+            if self.config.print_pseudo_labels:
+                noisy, noisy_len = greedy_labels(lp[0].detach(), ds_len, self.blank_id,
+                                                 max_tokens)
+                self._print_pseudo_labels(labels, lab_len, noisy, noisy_len)
+        with spans.span("engine.loss"):
+            loss = ctc_loss(
+                lp[:nn],
+                torch.full((nn,), ds_len, dtype=torch.int64, device=self.device),
+                labels[None].repeat(nn, 1),
+                lab_len.expand(nn),
+                blank_id=self.blank_id,
+            ) / (max(ds_len, 1) * nn)
+        with spans.span("engine.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            # the autograd graph is torn down here rather than at the
+            # return, so that its time (about 1 ms a window on an H100)
+            # falls inside a span
+            del out, lp, loss
+        with spans.span("engine.optimizer"):
+            opt.step()
         return clean_lp, ds_len
 
     # -- inference (no-grad chunked forward + stitch) -----------------------
@@ -353,23 +367,39 @@ class DynamicEvalEngine:
         """Adapt on one recording and return its stitched log-probs.
         ``params`` is a state dict of the model (``None``: the engine's own
         model's weights); it is not modified.  ``rng`` seeds the augmentation
-        generator; ``shuffle_rng`` draws the offline window order."""
+        generator; ``shuffle_rng`` draws the offline window order.
+
+        Spans (:mod:`..spans`, recorded while the recorder is on): the root
+        ``engine.record`` (attributes ``frames``, ``epochs`` and ``windows``,
+        the adapted windows, counted as each ends), and under it
+        ``engine.plan``, ``engine.load`` (the weights, the spectrogram's copy
+        to the device, the optimizer's state), one ``engine.window`` for
+        each adapted window (``epoch``, ``index``, ``valid_frames``; its children
+        are :meth:`_adapt_step`'s phases and, online, ``engine.stitch``),
+        offline ``engine.infer``, and ``engine.drain``, the wait for the
+        device at the end.  ``EngineOutput.elapsed`` is the host's monotonic
+        time from the end of the plan to the end of the drain."""
         cfg = self.config
-        spec_padded, spec_n, W, N, n_real, starts_np, lengths_np, total_ds = self._plan(
-            spec, seq_len, overlap)
-        gen = self._generator(rng)
-        shuffle_rng = shuffle_rng or np.random.default_rng(0)
+        with spans.span("engine.record", epochs=cfg.epochs, windows=0) as record:
+            with spans.span("engine.plan"):
+                spec_padded, spec_n, W, N, n_real, starts_np, lengths_np, total_ds = self._plan(
+                    spec, seq_len, overlap)
+                gen = self._generator(rng)
+                shuffle_rng = shuffle_rng or np.random.default_rng(0)
+            record.set(frames=spec_n)
 
-        t0 = time.time()
-        self._load(params)
-        spec_dev = torch.as_tensor(spec_padded, device=self.device).to(self.transfer_dtype)
-        max_tokens = max(8, int(self.out_len_fn(W) * self.max_label_frames_ratio))
-        online_result = None
+            t0 = time.perf_counter()
+            with spans.span("engine.load"):
+                self._load(params)
+                spec_dev = torch.as_tensor(spec_padded, device=self.device).to(
+                    self.transfer_dtype)
+                max_tokens = max(8, int(self.out_len_fn(W) * self.max_label_frames_ratio))
+                if cfg.epochs > 0:
+                    trainable = [p for p in self._work.parameters() if p.requires_grad]
+                    opt = MADGRAD(trainable, lr=self.lr, **self.opt_args)
+            online_result = None
 
-        if cfg.epochs > 0:
-            trainable = [p for p in self._work.parameters() if p.requires_grad]
-            opt = MADGRAD(trainable, lr=self.lr, **self.opt_args)
-            for _ in range(cfg.epochs):
+            for epoch in range(cfg.epochs):
                 if cfg.shuffle:
                     order = np.concatenate([shuffle_rng.permutation(n_real),
                                             np.arange(n_real, N)])
@@ -383,27 +413,36 @@ class DynamicEvalEngine:
                     w_len = int(lengths_np[i])
                     if w_len == 0:  # padded window of the bucket
                         continue
-                    clean_lp, ds_len = self._adapt_step(
-                        opt, spec_dev, int(starts_np[i]), w_len, W, max_tokens, gen)
-                    if cfg.online:
-                        self._accumulate(acc, counts, clean_lp,
-                                         int(starts_np[i]) // self.ds, ds_len)
+                    with spans.span("engine.window", epoch=epoch, index=int(i),
+                                    valid_frames=w_len):
+                        clean_lp, ds_len = self._adapt_step(
+                            opt, spec_dev, int(starts_np[i]), w_len, W, max_tokens, gen)
+                        if cfg.online:
+                            with spans.span("engine.stitch"):
+                                self._accumulate(acc, counts, clean_lp,
+                                                 int(starts_np[i]) // self.ds, ds_len)
+                    record.add("windows")
                 if cfg.online:
                     online_result = self._finish(acc, counts)
 
-        adapted = None
-        if return_params or adapt_only:
-            adapted = self._full_state(self._work.state_dict())
-        if adapt_only:
-            _sync(self.device)
-            return EngineOutput(None, None, adapted, time.time() - t0, self.blank_id)
+            adapted = None
+            if return_params or adapt_only:
+                adapted = self._full_state(self._work.state_dict())
+            if adapt_only:
+                with spans.span("engine.drain"):
+                    _sync(self.device)
+                return EngineOutput(None, None, adapted, time.perf_counter() - t0,
+                                    self.blank_id)
 
-        if cfg.online and online_result is not None:
-            log_avg, counts = online_result
-        else:
-            log_avg, counts = self._infer(spec_dev, W, n_real, starts_np, lengths_np, total_ds)
-        _sync(self.device)
-        elapsed = time.time() - t0
+            if cfg.online and online_result is not None:
+                log_avg, counts = online_result
+            else:
+                with spans.span("engine.infer"):
+                    log_avg, counts = self._infer(spec_dev, W, n_real, starts_np, lengths_np,
+                                                  total_ds)
+            with spans.span("engine.drain"):
+                _sync(self.device)
+            elapsed = time.perf_counter() - t0
         if cfg.print_runtimes:
             print(f"Spectrogram length: {spec_n}")
             print(f"Runtime: {elapsed}")
@@ -611,7 +650,7 @@ class DynamicEvalEngine:
             orders = [[np.concatenate([np.asarray(o), np.arange(n, N)]) for o in per_epoch]
                       for per_epoch, n in zip(orders, n_reals)]
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         self._load(params)
         spec_dev = torch.as_tensor(spec_b, device=self.device).to(self.transfer_dtype)
         stacked = {n: p.detach().unsqueeze(0).repeat(R, *([1] * p.dim()))
@@ -655,7 +694,7 @@ class DynamicEvalEngine:
             adapted = [self._full_state({**{n: p[r] for n, p in stacked.items()}, **buffers})
                        for r in range(R)]
         _sync(self.device)
-        elapsed = time.time() - t0
+        elapsed = time.perf_counter() - t0
         return [EngineOutput(log_avg, counts, params, elapsed / R, self.blank_id)
                 for (log_avg, counts), params in zip(results, adapted)]
 

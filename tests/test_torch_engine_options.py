@@ -252,10 +252,14 @@ def test_run_profile_writes_one_trace_of_repeat_zero(tmp_path, monkeypatch):
              "-kwargs", "epochs=1", "online=true", "seq_len=256", "overlap=128",
              "lm_tta_beams=0"])
     assert calls == [str(out)]
-    assert os.listdir(out) == [common.PROFILE_TRACE]
+    assert sorted(os.listdir(out)) == sorted([common.PROFILE_TRACE, common.PROFILE_SPANS])
     with open(out / common.PROFILE_TRACE) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    with open(out / common.PROFILE_SPANS) as f:
+        spans = json.load(f)
+    roots = [s for s in spans if s["parent"] is None]
+    assert roots and all(s["name"] == "engine.record" for s in roots)
 
 
 def test_build_engine_hands_the_tokenizer_to_nsti_only():
