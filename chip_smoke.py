@@ -416,6 +416,15 @@ Phases (each raises on failure; the script then exits non-zero):
    full call's, a block of 700 rows from row 300 against the plain version;
    each block's CUDA-event times beside the full call's.
 
+Where the NSTI engine's adapt step replays CUDA graphs (``tta/graphed.py``:
+on the card, for a window shape that repeats within a record), the kernels'
+counters count the passes that run their wrappers: each eager adapt step,
+and a capture's warm-up and capture passes; a replay runs none and counts
+nothing.  The adapt step's per-window launches above are therefore checked
+over ``windows - replays + 2 * captures`` passes (:func:`graph_offset`
+gives the difference from the engine's own totals), and phase 5's engine
+captures once and replays every window after the first.
+
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on the NSTI path, ``awmc_launches`` on the AWMC path,
 ``lm_launches`` on the ``-lm`` path, ``tlm_launches`` on the transformer-LM
@@ -1148,16 +1157,28 @@ def main_path(cfg, kernel_modules, driver=None, flags=(), kwargs=(), frames=N_FR
     return wer, wall, launches, routes, detail, recorder
 
 
-def check_launches(launches, expect, windows=N_WINDOWS, exact=False):
+def graph_offset(*engines) -> int:
+    """The adapt steps' passes that the kernels' counters saw beyond one a
+    window: two for each CUDA graph an NSTI engine captured (its warm-up
+    and capture passes) less one for each window that replayed one (no
+    wrapper runs); 0 for an engine without graphs."""
+    graphs = [getattr(e, "graphs", None) for e in engines if e is not None]
+    return sum(2 * g.captures - g.replays for g in graphs if g is not None)
+
+
+def check_launches(launches, expect, windows=N_WINDOWS, exact=False, offset=0, graphed=None):
     """expect: {module: per-window (fwd, bwd)}; forward >= (``exact``: ==)
-    and backward == that count times the windows."""
+    and backward == that count times the windows, plus ``graphed`` (the part
+    of ``expect`` the adapt step's model passes launch; default all of it)
+    times ``offset`` (:func:`graph_offset`)."""
+    graphed = expect if graphed is None else graphed
     for name, (fwd_per, bwd_per) in expect.items():
         fwd, bwd = launches[name]
-        if not ((fwd == fwd_per * windows if exact else fwd >= fwd_per * windows)
-                and bwd == bwd_per * windows):
+        g_fwd, g_bwd = graphed.get(name, (0, 0))
+        want_fwd, want_bwd = fwd_per * windows + g_fwd * offset, bwd_per * windows + g_bwd * offset
+        if not ((fwd == want_fwd if exact else fwd >= want_fwd) and bwd == want_bwd):
             raise AssertionError(f"{name} launches fwd {fwd}, bwd {bwd}; expected "
-                                 f"{'==' if exact else '>='} {fwd_per * windows} and == "
-                                 f"{bwd_per * windows}")
+                                 f"{'==' if exact else '>='} {want_fwd} and == {want_bwd}")
 
 
 def bf16_only(by_route, expect) -> bool:
@@ -1592,11 +1613,12 @@ def seq_plan(frames, nsti_seq, nsti_overlap, infer_batch):
     return plan
 
 
-def plan_launches(plan, n_layers):
+def plan_launches(plan, n_layers, offset=0):
     """{module: (fwd, bwd)}: one attention launch per layer and one
-    subsampling launch per forward (a batch of windows) or backward."""
-    return {"attention": (n_layers * plan["forwards"], n_layers * plan["adapted"]),
-            "subsample": (plan["forwards"], plan["adapted"])}
+    subsampling launch per forward (a batch of windows) or backward, and
+    ``offset`` (:func:`graph_offset`) more adapt-step passes of each."""
+    fwd, bwd = plan["forwards"] + offset, plan["adapted"] + offset
+    return {"attention": (n_layers * fwd, n_layers * bwd), "subsample": (fwd, bwd)}
 
 
 def check_protocol_launches(what, launches, routes, expect):
@@ -1797,8 +1819,9 @@ def protocol_phase(label, driver, card, kernel_modules, cfg, frames, flags, pick
         result, wall, launches, routes, detail = run(cfg, frames, flags, kernel_modules,
                                                      pickle_name)
         plan = plan_fn(run.adapt.infer_batch)
+        offset = graph_offset(run.adapt, run.eval)
         check_protocol_launches(f"{name} ({attempt})", launches, routes,
-                                {**plan_launches(plan, cfg.n_layers), "softdtw": (0, 0)})
+                                {**plan_launches(plan, cfg.n_layers, offset), "softdtw": (0, 0)})
         extra = check(run, result, detail, plan) if attempt == "first" else None
         runs.append((run, wall, launches, routes, result, extra))
     (first, first_wall, launches, routes, result, extra), (warm, warm_wall, *_) = runs
@@ -2046,7 +2069,7 @@ def lm_path(tmp, card, kernel_modules, pallas_profile, expect):
             kwargs=(f"lm_tta_beams={LM_TTA_BEAMS}",))
     finally:
         common.load_lm_adapter, runner.beam_search_device, common.decode_output = originals
-    check_launches(launches, expect)
+    check_launches(launches, expect, offset=graph_offset(recorder))
     check_routes("-lm path", launches, routes)
     check_driver_output(cfg, wer, detail, recorder)
     engine, (out,) = recorder.engine, recorder.outputs
@@ -2179,7 +2202,8 @@ def tlm_path(tmp, card, kernel_modules, expect):
             kwargs=(f"lm_tta_beams={LM_TTA_BEAMS}",), frames=TLM_FRAMES)
     finally:
         common.load_lm_adapter, runner.beam_search_device, common.decode_output = originals
-    check_launches(launches, expect, windows=TLM_WINDOWS, exact=True)
+    check_launches(launches, expect, windows=TLM_WINDOWS, exact=True,
+                   offset=graph_offset(recorder))
     check_routes("transformer-LM path", launches, routes)
     check_driver_output(cfg, wer, detail, recorder, frames=TLM_FRAMES)
     engine, (out,) = recorder.engine, recorder.outputs
@@ -2340,17 +2364,23 @@ def f32_path(card, A, S):
             wer, wall, launches, routes, detail, recorder = main_path(cfg, modules)
         check_driver_output(cfg, wer, detail, recorder)
         runs[name] = (recorder, routes, wall)
-    per_window = (cfg.n_layers * N_WINDOWS, cfg.n_layers * N_WINDOWS)
-    want = {r: (per_window if r == route else (0, 0)) for r in A.ROUTES.values()}
+    passes = {name: N_WINDOWS + graph_offset(run[0]) for name, run in runs.items()}
+
+    def want(name, per_pass, routes_of):
+        return {r: ((per_pass * passes[name],) * 2 if r == route else (0, 0))
+                for r in routes_of.values()}
+
     kernel_routes, plain_routes = runs["pallas_flash"][1], runs["xla"][1]
     fused_routes = runs["pallas_subsampling"][1]
-    if (kernel_routes["attention"] != want or fused_routes["attention"] != want
+    if (kernel_routes["attention"] != want("pallas_flash", cfg.n_layers, A.ROUTES)
+            or fused_routes["attention"] != want("pallas_subsampling", cfg.n_layers, A.ROUTES)
             or any(c != (0, 0) for c in plain_routes["attention"].values())):
         raise AssertionError(f"f32 path: attention launches by route {kernel_routes['attention']}"
-                             f" and {fused_routes['attention']} (expected {want}), on the xla "
-                             f"path {plain_routes['attention']}")
+                             f" and {fused_routes['attention']} (expected {cfg.n_layers} / "
+                             f"{cfg.n_layers} over {passes} passes), on the xla path "
+                             f"{plain_routes['attention']}")
     sub_route = S.ROUTES[torch.float32]
-    sub_want = {r: ((N_WINDOWS, N_WINDOWS) if r == sub_route else (0, 0))
+    sub_want = {r: ((passes["pallas_subsampling"],) * 2 if r == sub_route else (0, 0))
                 for r in S.ROUTES.values()}
     if fused_routes.get("subsample") != sub_want:
         raise AssertionError(f"f32 path: subsampling launches by route "
@@ -2468,7 +2498,13 @@ def drive(label, cfg, kernel_modules, expect, card, check_model):
     log(f"[5{label}] main path: evals.run.main, NSTI on a {N_FRAMES}-frame recording, flagship, "
         f"bf16, subsampling_impl={cfg.subsampling_impl!r}")
     wer, wall, launches, routes, detail, recorder = main_path(cfg, kernel_modules)
-    check_launches(launches, expect)
+    graphs = recorder.engine.graphs
+    if (graphs.captures, graphs.replays, graphs.failures) != (
+            1, len(recorder.calls) * N_WINDOWS - 1, 0):
+        raise AssertionError(f"NSTI: {graphs.captures} graph captures, {graphs.replays} "
+                             f"replays, {graphs.failures} failures over "
+                             f"{len(recorder.calls)} x {N_WINDOWS} windows")
+    check_launches(launches, expect, offset=graph_offset(recorder))
     check_routes("NSTI", launches, routes)
     log(f"  WER {wer}; launches {launches}; by route {routes}; evals.run wall {wall:.3f} s "
         f"(record {detail['elapsed_times'][0]:.3f} s, first run: includes warm-up)")
@@ -2498,11 +2534,14 @@ NEMO_PLAN = {"attention": (0, 0), "subsample": (1, 1), "softdtw": (0, 0), "gx": 
 
 
 def check_path_launches(what, launches, routes, gx, plan, windows=N_WINDOWS, acts=None,
-                        act=None):
+                        act=None, offset=0, graphed=None):
     """Exact per-window launches (``plan``: module → (fwd, bwd), and ``gx``
-    the backwards with gx), every launch on the bf16 route, and with
-    ``act`` every subsampling launch of that activation."""
-    check_launches(launches, {k: v for k, v in plan.items() if k != "gx"}, windows, exact=True)
+    the backwards with gx; ``graphed``, the adapt step's model passes' part
+    of it, counted ``offset`` more times: :func:`check_launches`), every
+    launch on the bf16 route, and with ``act`` every subsampling launch of
+    that activation."""
+    check_launches(launches, {k: v for k, v in plan.items() if k != "gx"}, windows, exact=True,
+                   offset=offset, graphed=graphed)
     check_routes(what, launches, routes)
     if gx != plan["gx"] * windows:
         raise AssertionError(f"{what}: {gx} subsampling backwards with gx, expected "
@@ -2569,7 +2608,9 @@ def entropy_path(card, A, S, D, profile_dir):
     log(f"  WER {wer}; launches {launches}, gx {gx}; by route {routes}; evals.run wall "
         f"{wall:.3f} s (first run, under the profiler); peak device memory {peak_gb:.2f} GB "
         f"above the {start_gb:.2f} GB held when the phase began")
-    check_path_launches("entropy NSTI", launches, routes, gx, entropy_plan(cfg.n_layers))
+    check_path_launches("entropy NSTI", launches, routes, gx, entropy_plan(cfg.n_layers),
+                        offset=graph_offset(recorder),
+                        graphed={"attention": (cfg.n_layers, cfg.n_layers), "subsample": (1, 1)})
     check_driver_output(cfg, wer, detail, recorder)
     n_events, n_kernels, nbytes = check_profile_trace(profile_dir)
     log(f"  --profile: {n_events} events, {n_kernels} CUDA kernels, {nbytes / 1e6:.1f} MB "
@@ -2727,7 +2768,8 @@ def nemo_path(tmp, card, A, S, D):
     run_cfg = recorder.engine.model.config
     if run_cfg != cfg:
         raise AssertionError(f"the driver ran {run_cfg}, not the preset {cfg}")
-    check_path_launches("NeMo NSTI", launches, routes, gx, NEMO_PLAN, acts=acts, act="relu")
+    check_path_launches("NeMo NSTI", launches, routes, gx, NEMO_PLAN, acts=acts, act="relu",
+                        offset=graph_offset(recorder))
     params = check_driver_output(cfg, wer, detail, recorder)
     parity = check_nemo_subsample_model(cfg, params, S)
     log(f"[18b] where the NeMo preset's time goes: the driver's engine, warm, on {card}")

@@ -50,6 +50,11 @@ and one window step forwards all R through ``torch.func.vmap`` of the
 model (the kernels' ``vmap`` rules: the attention folds the records into
 its batch, one launch; the subsampling, with per-record weights, launches
 once per record).
+
+On CUDA, without a mesh, the adapt step's forward and backward of the
+model replay CUDA graphs (:mod:`.graphed`: one live pair, for a window
+shape seen twice within one pass over a record); labels, the CTC loss and
+its backward, MADGRAD and the stitch stay eager.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from dynamic_asr_eval_tpu_torch.parallel.mesh import (
     shard_params,
     shard_state,
 )
+from dynamic_asr_eval_tpu_torch.tta.graphed import GraphedForward
 from dynamic_asr_eval_tpu_torch.tta.retokenize import retokenize_labels
 
 
@@ -172,6 +178,7 @@ class DynamicEvalEngine:
         self._sharding = (shard_params(self._work, mesh)
                           if mesh is not None and axis_size(mesh, "tp") > 1 else None)
         self._trainable_names = self._trainable()
+        self.graphs = GraphedForward()  # its captures, replays and failures are totals
 
     # -- parameters ---------------------------------------------------------
     def _trainable(self) -> Dict[str, bool]:
@@ -276,7 +283,12 @@ class DynamicEvalEngine:
                     max_tokens: int, gen: torch.Generator):
         """Returns the detached clean log-probs [T_ds, V] and ds_len.  Its
         phases are the spans ``engine.augment``, ``.forward``, ``.labels``,
-        ``.loss``, ``.backward`` and ``.optimizer``."""
+        ``.loss``, ``.backward`` and ``.optimizer``.  The call into the model
+        goes through :class:`.graphed.GraphedForward`: on CUDA, without a
+        mesh, the model's forward and backward replay CUDA graphs once the
+        batch's key has been seen twice in one pass over the record's
+        windows; the clean log-probs are then the graph's buffer, which the
+        next window's replay rewrites (the caller stitches them first)."""
         nn = self.num_negatives
         with spans.span("engine.augment"):
             window = spec_dev[:, start : start + W].float()
@@ -287,7 +299,7 @@ class DynamicEvalEngine:
             lengths = torch.full((nn + 1,), w_len, dtype=torch.int64, device=self.device)
             ds_len = self.out_len_fn(w_len)
 
-        with spans.span("engine.forward"):
+        with spans.span("engine.forward"), self.graphs.step(self._work, batch, self.mesh):
             out = self._work(batch, lengths)
         with spans.span("engine.labels"):
             lp = out["final_posteriors"]
@@ -370,17 +382,22 @@ class DynamicEvalEngine:
         generator; ``shuffle_rng`` draws the offline window order.
 
         Spans (:mod:`..spans`, recorded while the recorder is on): the root
-        ``engine.record`` (attributes ``frames``, ``epochs`` and ``windows``,
-        the adapted windows, counted as each ends), and under it
+        ``engine.record`` (attributes ``frames``, ``epochs``, ``windows``, the
+        adapted windows, and ``graph_replays`` and ``graph_captures``, the
+        windows that replayed graphs and the graphs captured, counted as
+        each window ends), and under it
         ``engine.plan``, ``engine.load`` (the weights, the spectrogram's copy
         to the device, the optimizer's state), one ``engine.window`` for
-        each adapted window (``epoch``, ``index``, ``valid_frames``; its children
-        are :meth:`_adapt_step`'s phases and, online, ``engine.stitch``),
+        each adapted window (``epoch``, ``index``, ``valid_frames``, and
+        ``graphed``: whether its forward and backward replayed graphs; its
+        children are :meth:`_adapt_step`'s phases and, online,
+        ``engine.stitch``),
         offline ``engine.infer``, and ``engine.drain``, the wait for the
         device at the end.  ``EngineOutput.elapsed`` is the host's monotonic
         time from the end of the plan to the end of the drain."""
         cfg = self.config
-        with spans.span("engine.record", epochs=cfg.epochs, windows=0) as record:
+        with spans.span("engine.record", epochs=cfg.epochs, windows=0, graph_replays=0,
+                        graph_captures=0) as record:
             with spans.span("engine.plan"):
                 spec_padded, spec_n, W, N, n_real, starts_np, lengths_np, total_ds = self._plan(
                     spec, seq_len, overlap)
@@ -406,6 +423,7 @@ class DynamicEvalEngine:
                 else:
                     order = np.arange(N)
                 acc = counts = None
+                self.graphs.new_pass()
                 if cfg.online:  # a fresh stitch per epoch; the last one wins
                     acc = torch.zeros(total_ds, self.n_classes, device=self.device)
                     counts = torch.zeros(total_ds, device=self.device)
@@ -413,15 +431,19 @@ class DynamicEvalEngine:
                     w_len = int(lengths_np[i])
                     if w_len == 0:  # padded window of the bucket
                         continue
+                    replays, captures = self.graphs.replays, self.graphs.captures
                     with spans.span("engine.window", epoch=epoch, index=int(i),
-                                    valid_frames=w_len):
+                                    valid_frames=w_len) as window:
                         clean_lp, ds_len = self._adapt_step(
                             opt, spec_dev, int(starts_np[i]), w_len, W, max_tokens, gen)
+                        window.set(graphed=self.graphs.replays > replays)
                         if cfg.online:
                             with spans.span("engine.stitch"):
                                 self._accumulate(acc, counts, clean_lp,
                                                  int(starts_np[i]) // self.ds, ds_len)
                     record.add("windows")
+                    record.add("graph_replays", self.graphs.replays - replays)
+                    record.add("graph_captures", self.graphs.captures - captures)
                 if cfg.online:
                     online_result = self._finish(acc, counts)
 

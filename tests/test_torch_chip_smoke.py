@@ -232,6 +232,38 @@ def test_check_launches_exact_holds_forwards_too():
         chip_smoke.check_launches({"attention": (19, 18)}, expect, windows=3, exact=True)
 
 
+def _graphed_engine(captures, replays):
+    graphs = type("Graphs", (), {"captures": captures, "replays": replays})()
+    return type("Engine", (), {"graphs": graphs})()
+
+
+def test_graph_offset_is_two_a_capture_less_one_a_replay():
+    """The NSTI engine's graphs: a capture's warm-up and capture passes run
+    the kernels' wrappers, a replay none; an engine without graphs, or
+    none, adds nothing."""
+    assert chip_smoke.graph_offset() == 0
+    assert chip_smoke.graph_offset(None, object()) == 0
+    assert chip_smoke.graph_offset(_graphed_engine(1, 8)) == -6
+    assert chip_smoke.graph_offset(_graphed_engine(1, 8), None, _graphed_engine(2, 3)) == -5
+
+
+def test_check_launches_counts_the_adapt_steps_graphed_passes():
+    """9 windows, one capture and 8 replays: the counters see 3 adapt-step
+    passes; with ``graphed`` only that part of the plan is scaled."""
+    offset = chip_smoke.graph_offset(_graphed_engine(1, 8))
+    expect = {"attention": (6, 6)}
+    chip_smoke.check_launches({"attention": (18, 18)}, expect, windows=9, exact=True,
+                              offset=offset)
+    with pytest.raises(AssertionError, match="== 18"):
+        chip_smoke.check_launches({"attention": (54, 54)}, expect, windows=9, offset=offset)
+    plan = {"attention": (12, 12), "subsample": (2, 2)}
+    graphed = {"attention": (6, 6), "subsample": (1, 1)}
+    chip_smoke.check_launches({"attention": (72, 72), "subsample": (12, 12)}, plan, windows=9,
+                              exact=True, offset=offset, graphed=graphed)
+    assert chip_smoke.plan_launches({"forwards": 72, "adapted": 48}, 6, offset) == {
+        "attention": (396, 252), "subsample": (66, 42)}
+
+
 def test_check_routes_refuses_an_f32_launch():
     launches = {"attention": (6, 6)}
     chip_smoke.check_routes("case", launches,
@@ -296,7 +328,7 @@ def test_write_transformer_lm_round_trips_both_files(tmp_path):
 class _F32Run:
     """What ``main_path`` returns for one of phase 5c's driver runs."""
 
-    def __init__(self, logits, routes, sub_routes=None):
+    def __init__(self, logits, routes, sub_routes=None, graphs=None):
         import numpy as np
 
         out = type("Out", (), {"numpy_logits": lambda self: logits,
@@ -304,16 +336,21 @@ class _F32Run:
         by_route = {"attention": routes}
         if sub_routes is not None:
             by_route["subsample"] = sub_routes
+        recorder = {"outputs": [out]}
+        if graphs is not None:
+            recorder["graphs"] = type("Graphs", (), dict(zip(("captures", "replays"), graphs)))()
         self.result = (1.0, 2.0, {"attention": routes[A.ROUTES[torch.float32]]}, by_route, {},
-                       type("R", (), {"outputs": [out]})())
+                       type("R", (), recorder)())
 
 
-def _f32_path(monkeypatch, capsys, kernel_routes, shift=0.0, sub_routes=None, sub_shift=0.0):
+def _f32_path(monkeypatch, capsys, kernel_routes, shift=0.0, sub_routes=None, sub_shift=0.0,
+              graphs=None):
     """Phase 5c's checks on stand-in driver runs: the kernel run with
     ``kernel_routes``, the xla run with no launch, log-probs ``shift`` apart,
     then the fused-subsampling run with ``kernel_routes`` and ``sub_routes``
     (default: 1 / 1 a window on the f32 route), log-probs ``sub_shift``
-    apart; returns the launches and the ``{"f32_path": ...}`` line."""
+    apart, the two kernel runs' engines with ``graphs`` (captures, replays);
+    returns the launches and the ``{"f32_path": ...}`` line."""
     import json
 
     import numpy as np
@@ -322,9 +359,9 @@ def _f32_path(monkeypatch, capsys, kernel_routes, shift=0.0, sub_routes=None, su
     if sub_routes is None:
         sub_routes = {"tensor_core": (0, 0), "tf32x3": (n, n)}
     logits = -np.abs(np.random.default_rng(0).standard_normal((50, 7))) * 10
-    runs = iter([_F32Run(logits, kernel_routes),
+    runs = iter([_F32Run(logits, kernel_routes, graphs=graphs),
                  _F32Run(logits + shift, {r: (0, 0) for r in A.ROUTES.values()}),
-                 _F32Run(logits + sub_shift, kernel_routes, sub_routes)])
+                 _F32Run(logits + sub_shift, kernel_routes, sub_routes, graphs=graphs)])
     monkeypatch.setattr(chip_smoke, "main_path", lambda cfg, modules: next(runs).result)
     monkeypatch.setattr(chip_smoke, "check_driver_output", lambda *args: None)
     monkeypatch.setattr(chip_smoke, "warm_run_ms", lambda recorder: 90.0)
@@ -354,6 +391,19 @@ def test_f32_path_holds_exact_launches_on_the_f32_route(monkeypatch, capsys):
 def test_f32_path_refuses_other_launch_counts(monkeypatch, capsys, routes):
     with pytest.raises(AssertionError, match="f32 path: attention launches"):
         _f32_path(monkeypatch, capsys, routes)
+
+
+def test_f32_path_counts_the_graphed_passes(monkeypatch, capsys):
+    """Engines that captured one graph and replayed 8 windows: the kernel
+    runs' counters see 3 passes of 6 / 6 attention and 1 / 1 subsampling
+    launches; the 9 windows' eager counts are refused."""
+    graphed = {"tensor_core": (0, 0), "tf32x3": (18, 18)}
+    launches, _ = _f32_path(monkeypatch, capsys, graphed, graphs=(1, 8),
+                            sub_routes={"tensor_core": (0, 0), "tf32x3": (3, 3)})
+    assert launches == {"flash_attention_f32": (18, 18), "fused_subsample_f32": (3, 3)}
+    with pytest.raises(AssertionError, match="f32 path: attention launches"):
+        _f32_path(monkeypatch, capsys, {"tensor_core": (0, 0), "tf32x3": (54, 54)},
+                  graphs=(1, 8), sub_routes={"tensor_core": (0, 0), "tf32x3": (3, 3)})
 
 
 @pytest.mark.parametrize("sub_routes", [{"tensor_core": (1, 0), "tf32x3": (9, 9)},
